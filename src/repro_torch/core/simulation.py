@@ -1,0 +1,155 @@
+"""FL-simulation machinery: the task, round staging, the eval/log tail
+(port of `repro/core/simulation.py`).
+
+`FLTask` holds the device of the run: staged batches and parameters live
+there.  Staging draws each client's batches from the same numpy streams as
+the reference, so a run of the port sees the reference's batches.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.ledger import CommLedger
+from repro_torch.data.partition import ClientData
+from repro_torch.data.sources import ArraySource
+from repro_torch.data.synthetic import Dataset
+from repro_torch.models.fed import as_fed_model
+from repro_torch.utils import resolve_device, tree_leaves, tree_num_params
+
+Tree = Any
+Batch = Any
+
+
+def _stack_batches(batches: list[Batch]) -> Batch:
+    """Stack equal-structure batch dicts along a new leading axis."""
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+@dataclasses.dataclass
+class FLTask:
+    """Everything an FL algorithm needs to run one experiment, on `device`
+    (the card unless the caller passes ``device="cpu"``)."""
+
+    model: Any
+    dataset: Dataset
+    clients: list[ClientData]
+    cluster_members: list[list[int]]  # cluster m -> client ids
+    batch_size: int
+    seed: int = 0
+    device: Any = None
+
+    def __post_init__(self):
+        self.fed_model = as_fed_model(self.model)
+        self.device = resolve_device(self.device)
+        self.source = ArraySource(self.dataset, self.clients, self.batch_size, seed=self.seed)
+        self.client_sizes = np.asarray(self.source.client_sizes, dtype=np.float64)
+        self.cluster_sizes = [
+            int(sum(self.client_sizes[i] for i in members)) for members in self.cluster_members
+        ]
+
+    def reset_loaders(self, seed: int) -> None:
+        self.source.reset(seed)
+
+    @property
+    def num_clusters(self) -> int:
+        return len(self.cluster_members)
+
+    @property
+    def metric_mode(self) -> str:
+        return self.fed_model.metric_mode
+
+    def cluster_weights(self, m: int) -> np.ndarray:
+        """gamma_n^m = D_n / D_{A,m} for clients in cluster m."""
+        sizes = self.client_sizes[self.cluster_members[m]]
+        return (sizes / sizes.sum()).astype(np.float32)
+
+    def _to_device(self, batch: Batch) -> Batch:
+        return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+
+    def sample_cluster_batches(self, m: int, steps: int) -> Batch:
+        """Batches for every client of cluster m: leaves (steps, n, B, ...)."""
+        members = self.cluster_members[m]
+        return self._to_device(_stack_batches([
+            _stack_batches([self.source.next_batch(i) for i in members])
+            for _ in range(steps)
+        ]))
+
+    def _stage_round_np(self, m: int, total_steps: int, epochs: int) -> Batch:
+        """One round of cluster-m batches as numpy: leaves (J, n, E, B, ...),
+        in the per-client draw order of epochs-sized incremental sampling."""
+        assert total_steps % epochs == 0
+        members = self.cluster_members[m]
+        flat = _stack_batches([
+            _stack_batches([self.source.next_batch(i) for i in members])
+            for _ in range(total_steps)
+        ])  # leaves (K, n, B, ...)
+        J = total_steps // epochs
+        return {k: a.reshape(J, epochs, *a.shape[1:]).swapaxes(1, 2) for k, a in flat.items()}
+
+    def sample_round_batches(self, m: int, total_steps: int, epochs: int) -> Batch:
+        """One whole round of cluster-m batches on the device:
+        leaves (J, n, E, B, ...) with J = total_steps // epochs."""
+        return self._to_device({k: np.ascontiguousarray(a) for k, a in
+                                self._stage_round_np(m, total_steps, epochs).items()})
+
+    def init_params(self) -> Tree:
+        return self.fed_model.init(self.seed, self.device)
+
+    def num_params(self) -> int:
+        return tree_num_params(self.init_params())
+
+    def param_leaf_sizes(self) -> tuple[int, ...]:
+        """Per-leaf entry counts of the params, in leaf order — what a wire
+        channel needs to price a message exactly."""
+        return tuple(leaf.numel() for leaf in tree_leaves(self.init_params()))
+
+    def evaluate(self, params: Tree) -> float:
+        return self.fed_model.eval_metric(params, self.source.eval_data())
+
+
+@dataclasses.dataclass
+class RunRecorder:
+    """The eval/log tail: `record(t, params, losses)` appends to the logs iff
+    t is an eval round (t % eval_every == 0, or the final round)."""
+
+    task: FLTask
+    rounds: int
+    eval_every: int
+    rounds_log: list = dataclasses.field(default_factory=list)
+    acc_log: list = dataclasses.field(default_factory=list)
+    loss_log: list = dataclasses.field(default_factory=list)
+
+    def should_eval(self, t: int) -> bool:
+        return t % self.eval_every == 0 or t == self.rounds - 1
+
+    def record(self, t: int, params: Tree, losses) -> None:
+        if not self.should_eval(t):
+            return
+        self.rounds_log.append(t)
+        self.acc_log.append(self.task.evaluate(params))
+        self.loss_log.append(float("nan") if losses is None else float(torch.mean(losses)))
+
+    def result(self, name: str, ledger: CommLedger, params: Tree) -> RunResult:
+        return RunResult(name, self.rounds_log, self.acc_log, self.loss_log, ledger,
+                         params, metric_mode=self.task.metric_mode)
+
+
+@dataclasses.dataclass
+class RunResult:
+    name: str
+    rounds: list[int]
+    test_acc: list[float]  # the task metric per eval round
+    train_loss: list[float]
+    ledger: CommLedger
+    final_params: Tree
+    metric_mode: str = "max"
+
+    def final_acc(self) -> float:
+        """The last evaluated metric; worst-possible for an empty log."""
+        if self.test_acc:
+            return self.test_acc[-1]
+        return 0.0 if self.metric_mode == "max" else float("inf")

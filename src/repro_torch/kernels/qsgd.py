@@ -1,0 +1,216 @@
+"""Hopper kernels for the QSGD packed wire, their plain versions and launch counts.
+
+`qsgd_quantize_pack` and `qsgd_unpack_dequantize` take a tensor on the card
+to the hand-written CUDA kernels in `repro_torch/csrc/qsgd.cu` and a tensor
+on the CPU to their plain torch versions (`*_plain`, in this module).  A
+CUDA tensor never falls back to the plain version: the wrapper launches the
+kernel or raises.
+
+The kernels are built with `nvcc` for `sm_90a` at first use, into
+`build/kernels/` at the repository root, and loaded through a plain C
+interface with ctypes.  `LAUNCHES` counts the kernel launches each wrapper
+made, so a run can show that it went through the kernels.
+
+Unlike the TPU kernels they replace, the quantizer takes the senders' key
+words instead of a uniform tensor: it computes the dither of the reference's
+`ops._cheap_uniform` itself (see the note in `qsgd.cu`).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.ref import (
+    MASK32,
+    cheap_uniform_ref,
+    i32_to_u32,
+    qsgd_code_bits,
+    qsgd_dequantize_codes_ref,
+    qsgd_quantize_codes_ref,
+    u32_to_i32,
+)
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "qsgd.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAX_BLOCK = 4096
+MAX_LEVELS = 127  # codes in [0, 2s] must fit the kernels' 8 bit planes
+
+LAUNCHES = {"qsgd_quantize_pack": 0, "qsgd_unpack_dequantize": 0}
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(cuda_home) / "bin" / "nvcc")
+
+
+def build() -> tuple[Path, str]:
+    """Compile `csrc/qsgd.cu` unless a library of the same source exists.
+    Returns (library path, compiler log; empty when nothing was built)."""
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    lib = BUILD_DIR / f"libqsgd_{digest[:16]}.so"
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, proc.stdout + proc.stderr
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.qsgd_quantize_pack.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.qsgd_quantize_pack.restype = i32
+        lib.qsgd_unpack_dequantize.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.qsgd_unpack_dequantize.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _check_shape(block: int, s: int) -> None:
+    if block % 32 or not 32 <= block <= MAX_BLOCK:
+        raise ValueError(f"block must be a multiple of 32 in [32, {MAX_BLOCK}], got {block}")
+    if not 1 <= s <= MAX_LEVELS:
+        raise ValueError(f"levels must be in [1, {MAX_LEVELS}], got {s}")
+
+
+def _check_cuda(t: torch.Tensor, dtype: torch.dtype, name: str, align: int = 4) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype or not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name} must be a contiguous, {align}-byte aligned {dtype} tensor")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU tensors, and the comparison on the card)
+# ---------------------------------------------------------------------------
+
+
+def _pack_words(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """(rows, block) int64 codes -> (rows, bits*block/32) int32 payload, the
+    layout of `ref.pack_codes_ref`, vectorized over the 32 codes of a word."""
+    rows, block = codes.shape
+    c = codes.reshape(rows, 32, block // 32)
+    pos = torch.arange(32, dtype=torch.int64, device=codes.device)[None, :, None]
+    planes = [(((c >> j) & 1) << pos).sum(dim=1) for j in range(bits)]
+    return u32_to_i32(torch.cat(planes, dim=1))
+
+
+def _unpack_words(payload: torch.Tensor, bits: int) -> torch.Tensor:
+    """Exact inverse of `_pack_words`: (rows, bits*W) int32 -> (rows, 32*W) int64."""
+    rows, total = payload.shape
+    w = total // bits
+    words = i32_to_u32(payload).reshape(rows, bits, 1, w)
+    pos = torch.arange(32, dtype=torch.int64, device=payload.device)[None, :, None]
+    c = torch.zeros((rows, 32, w), dtype=torch.int64, device=payload.device)
+    for j in range(bits):
+        c |= ((words[:, j] >> pos) & 1) << j
+    return c.reshape(rows, 32 * w)
+
+
+def qsgd_quantize_pack_plain(v: torch.Tensor, keys: torch.Tensor, s: int):
+    """The kernel's function in plain torch: `_cheap_uniform` dither of each
+    sender's key, the reference quantizer, the bit-plane pack."""
+    senders, nb, block = v.shape
+    u = cheap_uniform_ref(keys, nb * block).reshape(senders * nb, block)
+    codes, norms = qsgd_quantize_codes_ref(v.reshape(senders * nb, block), u, s)
+    payload = _pack_words(codes, qsgd_code_bits(s))
+    return payload.reshape(senders, nb, -1), norms.reshape(senders, nb)
+
+
+def qsgd_unpack_dequantize_plain(payload: torch.Tensor, norms: torch.Tensor, s: int,
+                                 block: int) -> torch.Tensor:
+    del block  # implied by the payload width
+    return qsgd_dequantize_codes_ref(_unpack_words(payload, qsgd_code_bits(s)), norms, s)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def qsgd_quantize_pack(v: torch.Tensor, keys: torch.Tensor, s: int):
+    """Fused quantize + bit-pack of every sender's blocks of one leaf.
+
+    v: (senders, nb, block) f32; keys: (senders, 2) int32 key words (uint32
+    bit patterns) on v's device.  Returns (payload (senders, nb,
+    bits*block/32) int32, norms (senders, nb) f32)."""
+    senders, nb, block = v.shape
+    _check_shape(block, s)
+    if keys.shape != (senders, 2):
+        raise ValueError(f"keys must be ({senders}, 2), got {tuple(keys.shape)}")
+    if nb * block > MASK32 + 1:
+        raise ValueError("a leaf's padded size must fit 32-bit indices")
+    if v.device.type == "cpu":
+        return qsgd_quantize_pack_plain(v, keys, s)
+    _check_cuda(v, torch.float32, "v", align=16)
+    _check_cuda(keys, torch.int32, "keys")
+    if not 1 <= senders <= 65535:
+        raise ValueError(f"at most 65535 senders per launch, got {senders}")
+    bits = qsgd_code_bits(s)
+    payload = torch.empty((senders, nb, bits * block // 32), dtype=torch.int32, device=v.device)
+    norms = torch.empty((senders, nb), dtype=torch.float32, device=v.device)
+    err = _load().qsgd_quantize_pack(v.data_ptr(), keys.data_ptr(), payload.data_ptr(),
+                                     norms.data_ptr(), senders, nb, block, s, bits,
+                                     _stream(v))
+    if err:
+        raise RuntimeError(f"qsgd_quantize_pack launch failed: cudaError {err}")
+    LAUNCHES["qsgd_quantize_pack"] += 1
+    return payload, norms
+
+
+def qsgd_unpack_dequantize(payload: torch.Tensor, norms: torch.Tensor, s: int,
+                           block: int) -> torch.Tensor:
+    """Fused unpack + dequantize: payload (rows, bits*block/32) int32 + norms
+    (rows,) f32 -> (rows, block) f32."""
+    _check_shape(block, s)
+    rows = payload.shape[0]
+    bits = qsgd_code_bits(s)
+    if payload.shape != (rows, bits * block // 32) or norms.shape != (rows,):
+        raise ValueError(f"payload {tuple(payload.shape)} / norms {tuple(norms.shape)} "
+                         f"do not match s={s}, block={block}")
+    if payload.device.type == "cpu":
+        return qsgd_unpack_dequantize_plain(payload, norms, s, block)
+    _check_cuda(payload, torch.int32, "payload")
+    _check_cuda(norms, torch.float32, "norms")
+    if rows < 1:
+        raise ValueError("nothing to decode")
+    out = torch.empty((rows, block), dtype=torch.float32, device=payload.device)
+    err = _load().qsgd_unpack_dequantize(payload.data_ptr(), norms.data_ptr(),
+                                         out.data_ptr(), rows, block, s, bits,
+                                         _stream(payload))
+    if err:
+        raise RuntimeError(f"qsgd_unpack_dequantize launch failed: cudaError {err}")
+    LAUNCHES["qsgd_unpack_dequantize"] += 1
+    return out

@@ -1,0 +1,22 @@
+"""Carry parameters from the reference package into the port.
+
+The port stores weights in the reference's layout (dense (in, out), conv
+HWIO), so the conversion is a copy of every leaf, key for key.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.utils import resolve_device
+
+
+def params_from_jax(np_tree: Any, device=None) -> Any:
+    """Nested dict of arrays (e.g. `np.asarray` of the reference's params) ->
+    the same nested dict of tensors on `device` (the card unless asked)."""
+    device = resolve_device(device)
+    if isinstance(np_tree, dict):
+        return {k: params_from_jax(v, device) for k, v in np_tree.items()}
+    return torch.from_numpy(np.array(np_tree, copy=True)).to(device)

@@ -1,0 +1,46 @@
+"""The port's QSGD kernels on the card against their plain torch versions.
+
+Imports no jax, so it runs on a machine with a card and no jax:
+``PYTHONPATH=src python -m pytest -q tests/test_torch_qsgd_cuda.py``.
+Without a CUDA device every case skips.  Dyadic inputs (entries k * 2^-8,
+|k| <= 64) make block norms exact in any summation order, so payloads,
+norms and dequantized values must agree bit for bit.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import qsgd
+
+torch.set_num_threads(1)
+
+LEVELS = [1, 3, 7, 15, 16, 127]
+BLOCKS = [128, 1024]
+
+
+def dyadic(rng, shape):
+    return (rng.integers(-64, 65, size=shape) * 2.0**-8).astype(np.float32)
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA GPU with nvcc")
+@pytest.mark.parametrize("s", LEVELS)
+def test_cuda_kernels_match_plain_versions(s):
+    rng = np.random.default_rng(s)
+    for block in BLOCKS:
+        for nb in (1, 7, 300):
+            v = dyadic(rng, (3, nb, block))
+            v[1, 0] = 0.0
+            keys = torch.from_numpy(rng.integers(0, 2**32, size=(3, 2), dtype=np.uint32)
+                                    .view(np.int32))
+            payload, norms = qsgd.qsgd_quantize_pack_plain(torch.from_numpy(v), keys, s)
+            cv, ck = torch.from_numpy(v).cuda(), keys.cuda()
+            c_payload, c_norms = qsgd.qsgd_quantize_pack(cv, ck, s)
+            torch.cuda.synchronize()
+            assert torch.equal(c_payload.cpu(), payload)
+            assert torch.equal(c_norms.cpu(), norms)
+            rows = payload.reshape(-1, payload.shape[-1])
+            out = qsgd.qsgd_unpack_dequantize_plain(rows, norms.reshape(-1), s, block)
+            c_out = qsgd.qsgd_unpack_dequantize(c_payload.reshape(rows.shape),
+                                                c_norms.reshape(-1), s, block)
+            torch.cuda.synchronize()
+            assert torch.equal(c_out.cpu(), out)
