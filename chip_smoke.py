@@ -4,28 +4,46 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the script (non-zero exit, no result line):
-  1. build the QSGD kernels from src/repro_torch/csrc with nvcc for sm_90a;
-  2. hold each kernel against its plain torch version on the card: bit for
-     bit on dyadic inputs (entries k * 2^-8, |k| <= 64, whose block norms
-     are exact in any summation order); on Gaussian inputs norms at rtol
-     1e-6 and codes within 1 at no more than 0.1% of entries;
-  3. the main path, through the entry points a user calls: Fed-CHS with
-     QSGD(16) uplinks on LeNet-MNIST at the paper's Appendix-A width, full
-     synthetic MNIST, 100 clients / 10 ESs, Dirichlet 0.6, batch 32, K=20,
-     E=5, a few rounds.  Every uplink must go through both kernels (launch
-     counts), the ledger must price each uplink at the closed form, and the
-     accuracy must end above chance; 2 more rounds run under the profiler,
-     then again without it, and must repeat bit for bit.
-     Then the quickstart MLP grad-mode config, and a small QSGD run on the
-     card held against the same run on the CPU's plain path;
-  4. time each kernel at the main path's shapes with CUDA events (L2 flushed
-     before every launch), beside its plain version and its bound.
+  1. build every kernel source in src/repro_torch/csrc with nvcc for sm_90a,
+     one nvcc per source, all at once;
+  2. hold each kernel against its plain torch version on the card, on a grid
+     of shapes and at every shape the main paths give it (each leaf of the
+     LeNet and qwen3-0.6b messages).  QSGD: bit for bit on dyadic inputs
+     (entries k * 2^-8, |k| <= 64, whose block norms are exact in any
+     summation order); on Gaussian inputs norms at rtol 1e-6 and codes
+     within 1 at no more than 0.1% of entries.  Flash attention: the
+     reference's kernel-test sweep, causal and not, plus the LM path's
+     shape, atol 3e-5 in f32 and 2e-2 in bf16;
+  3. the paths, through the entry points a user calls, each with the launch
+     counts set to 0 just before it and read just after:
+     a. LeNet-MNIST Fed-CHS with QSGD(16) uplinks at the paper's Appendix-A
+        width (100 clients / 10 ESs, Dirichlet 0.6, batch 32, K=20, E=5), a
+        few rounds; a profiled 2-round run that must repeat bit for bit;
+        the quickstart MLP grad-mode config; a small QSGD run on the card
+        held against the same run on the CPU's plain path;
+     b. the main path of this slice: Fed-CHS trains qwen3-0.6b at full width
+        and depth (751.6M params in 14 leaves, f32) on 4 token-stream clients
+        in 2 clusters, QSGD(16) uplinks, self-attention through the flash
+        kernel.  Launch counts must be exact, every uplink priced at the
+        closed form, losses finite, the train loss and the held-out
+        perplexity falling; then one warm round, timed without and then
+        with the profiler;
+     c. the dense-code QSGD API (`repro_torch.comm.qsgd_roundtrip`) over
+        every leaf of the trained LM;
+     d. a 2-layer smoke-config LM run on the card held against the same run
+        on the CPU's plain path, beside two controls on the CPU that the
+        bounds must reject: no update at all, and unquantized uplinks;
+  4. time each kernel at its path's shapes with CUDA events (L2 flushed
+     before every launch), beside its plain version, its bound and, for
+     flash attention, torch's scaled_dot_product_attention.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; exits non-zero without
 one, and outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -39,7 +57,32 @@ BLOCKS = (128, 1024)
 NBS = (1, 7, 6272)
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 MAIN_ROUNDS, MAIN_K, MAIN_E = 6, 20, 5
+
+# the LM path: qwen3-0.6b, 4 clients in 2 clusters (the example's i % 2)
+LM_ARCH = "qwen3-0.6b"
+LM_ROUNDS, LM_K, LM_E = 3, 2, 1
+LM_CLIENTS, LM_BATCH, LM_SEQ = 4, 2, 512
+LM_CLUSTERS = [[0, 2], [1, 3]]
+LM_LR = 3.0  # constant plain-SGD step, finite at this width
+LM_LEAVES, LM_PARAMS = 14, 751_632_384
+
+# flash attention: the reference's kernel-test sweep, and the path's shape
+FLASH_TS = ((128, 128), (64, 256), (200, 200), (50, 77))
+FLASH_HEADS = ((4, 4), (8, 2), (16, 8))
+FLASH_HDS = (32, 64, 128)
+FLASH_WINDOWS = (None, 16, 64)
+FLASH_PATH = (LM_BATCH * 2, LM_SEQ, LM_SEQ, 16, 8, 128)  # B (2 clients x 2), T, S, H, Hkv, hd
+
+REPLACES = {
+    "qsgd_quantize_pack": ("src/repro_torch/csrc/qsgd.cu", "src/repro/kernels/qsgd.py:194"),
+    "qsgd_unpack_dequantize": ("src/repro_torch/csrc/qsgd.cu", "src/repro/kernels/qsgd.py:227"),
+    "qsgd_quantize": ("src/repro_torch/csrc/qsgd.cu", "src/repro/kernels/qsgd.py:85"),
+    "qsgd_dequantize": ("src/repro_torch/csrc/qsgd.cu", "src/repro/kernels/qsgd.py:116"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:57"),
+}
 
 
 def fail(msg: str) -> None:
@@ -57,7 +100,7 @@ def dyadic(torch, gen, shape, device):
 
 
 def lenet_leaf_blocks() -> list[int]:
-    """Blocks per leaf of the main path's message (LeNet-MNIST, block 1024)."""
+    """Blocks per leaf of the LeNet path's message (LeNet-MNIST, block 1024)."""
     from repro_torch.models.classifier import make_classifier
     from repro_torch.utils import tree_leaves
 
@@ -65,15 +108,31 @@ def lenet_leaf_blocks() -> list[int]:
     return [math.ceil(leaf.numel() / 1024) for leaf in tree_leaves(params)]
 
 
-def kernel_vs_plain(torch, qsgd, ref):
-    """Phase 2. Returns the largest |kernel - plain| of each kernel's output.
-    Cases: every (s, block, nb) of the grid with 2 senders, and every leaf of
-    the main path's message with its 10 senders at s=16, block=1024."""
+def lm_leaf_sizes(torch) -> list[int]:
+    """Entries per leaf of the LM path's message (qwen3-0.6b, f32), from an
+    init on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.utils import tree_leaves
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    sizes = [leaf.numel() for leaf in tree_leaves(init_params(cfg, 0, "cuda"))]
+    torch.cuda.empty_cache()
+    return sizes
+
+
+def packed_vs_plain(torch, qsgd, ref, lm_sizes):
+    """Phase 2, packed wire. Returns the largest |kernel - plain| of each
+    kernel's output.  Cases: every (s, block, nb) of the grid with 2
+    senders, every leaf of the LeNet message with its 10 senders, and every
+    block count of the LM message's leaves with its 2 senders (s = 16)."""
     gen = torch.Generator().manual_seed(0)
     err = {"qsgd_quantize_pack": 0.0, "qsgd_unpack_dequantize": 0.0}
     n_cases = 0
+    lm_blocks = sorted({math.ceil(n / 1024) for n in lm_sizes})
     grid = [(s, block, nb, 2) for s in LEVELS for block in BLOCKS for nb in NBS]
     grid += [(16, 1024, nb, 10) for nb in lenet_leaf_blocks()]
+    grid += [(16, 1024, nb, 2) for nb in lm_blocks]
     for s, block, nb, senders in grid:
         bits = ref.qsgd_code_bits(s)
         for kind in ("dyadic", "gaussian"):
@@ -112,16 +171,104 @@ def kernel_vs_plain(torch, qsgd, ref):
                 err["qsgd_unpack_dequantize"], float((out - p_out).abs().max()))
             check(torch.equal(out, p_out), f"dequantized values differ, {where}")
             n_cases += 1
-    print(f"phase 2: kernel vs plain passed on {n_cases} cases "
-          f"(s in {LEVELS}, block in {BLOCKS}, nb in {NBS}, and the main path's "
-          f"10 leaves x 10 senders; dyadic + gaussian); "
+    print(f"phase 2: packed QSGD kernels vs plain passed on {n_cases} cases "
+          f"(s in {LEVELS}, block in {BLOCKS}, nb in {NBS}; the LeNet message's "
+          f"10 leaves x 10 senders; the {LM_ARCH} message's {len(lm_sizes)} leaves, "
+          f"nb in {lm_blocks}, x 2 senders; dyadic + gaussian); "
           f"max |norm diff| {err['qsgd_quantize_pack']:.3g}, "
           f"max |dequantized diff| {err['qsgd_unpack_dequantize']:.3g}")
     return err
 
 
-def main_path(torch, qsgd):
-    """Phase 3: Fed-CHS through the port's entry points on the card."""
+def dense_codes_vs_plain(torch, qsgd, lm_sizes):
+    """Phase 2, dense codes: every (s, block, nb) of the grid, and the
+    padded row count of every leaf of the LM message (s = 16, block 1024,
+    padded to tiles of 8 rows as `ops.qsgd_quantize` pads them); one key."""
+    gen = torch.Generator().manual_seed(2)
+    err = {"qsgd_quantize": 0.0, "qsgd_dequantize": 0.0}
+    n_cases = 0
+    per_tile = 1024 * 8
+    lm_rows = sorted({-(-n // per_tile) * 8 for n in lm_sizes})
+    grid = list(itertools.product(LEVELS, BLOCKS, (8, 56, 6272)))
+    grid += [(16, 1024, nb) for nb in lm_rows]
+    for s, block, nb in grid:
+        for kind in ("dyadic", "gaussian"):
+            if kind == "dyadic":
+                v = dyadic(torch, gen, (nb, block), "cuda")
+            else:
+                v = torch.randn((nb, block), generator=gen).cuda()
+            v[0] = 0.0  # a zero-norm row
+            key = torch.randint(-2**31, 2**31, (2,), generator=gen,
+                                dtype=torch.int64).to(torch.int32).cuda()
+            q, norms = qsgd.qsgd_quantize_blocks(v, key, s)
+            torch.cuda.synchronize()
+            p_q, p_norms = qsgd.qsgd_quantize_blocks_plain(v, key, s)
+            where = f"s={s} block={block} nb={nb} {kind}"
+            err["qsgd_quantize"] = max(err["qsgd_quantize"],
+                                       float((norms - p_norms).abs().max()))
+            if kind == "dyadic":
+                check(torch.equal(q, p_q), f"dense codes differ, {where}")
+                check(torch.equal(norms, p_norms), f"dense-code norms differ, {where}")
+            else:
+                check(torch.allclose(norms, p_norms, rtol=1e-6, atol=0),
+                      f"dense-code norms beyond rtol 1e-6, {where}")
+                diff = (q.int() - p_q.int()).abs()
+                check(int(diff.max()) <= 1, f"a dense code differs by more than 1, {where}")
+                check(float((diff > 0).float().mean()) <= 1e-3,
+                      f"more than 0.1% of dense codes differ, {where}")
+            out = qsgd.qsgd_dequantize_blocks(q, norms, s)
+            torch.cuda.synchronize()
+            p_out = qsgd.qsgd_dequantize_blocks_plain(q, norms, s)
+            err["qsgd_dequantize"] = max(err["qsgd_dequantize"],
+                                         float((out - p_out).abs().max()))
+            check(torch.equal(out, p_out), f"dense dequantized values differ, {where}")
+            n_cases += 1
+    print(f"phase 2: dense-code QSGD kernels vs plain passed on {n_cases} cases (s in "
+          f"{LEVELS}, block in {BLOCKS}, nb in (8, 56, 6272); the {LM_ARCH} leaves' "
+          f"padded rows {lm_rows} at s=16; dyadic + gaussian); "
+          f"max |norm diff| {err['qsgd_quantize']:.3g}, "
+          f"max |dequantized diff| {err['qsgd_dequantize']:.3g}")
+    return err
+
+
+def flash_inputs(torch, gen, B, T, S, H, Hkv, hd, dtype):
+    return [torch.randn(shape, generator=gen).to(dtype).cuda()
+            for shape in ((B, T, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))]
+
+
+def flash_vs_plain(torch, fa):
+    """Phase 2, flash attention: the sweep (causal with every window; not
+    causal without and with a window) and the path's shape, f32 and bf16.
+    Returns the largest |kernel - plain| over the f32 cases (the path's
+    dtype)."""
+    gen = torch.Generator().manual_seed(3)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    tol = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+    masks = [(True, w) for w in FLASH_WINDOWS] + [(False, None), (False, 16)]
+    cases = [(2, T, S, H, Hkv, hd) + m for (T, S), (H, Hkv), hd, m in itertools.product(
+        FLASH_TS, FLASH_HEADS, FLASH_HDS, masks)]
+    cases.append(FLASH_PATH + (True, None))
+    n_cases = 0
+    for (B, T, S, H, Hkv, hd, causal, window), dtype in itertools.product(cases, tol):
+        q, k, v = flash_inputs(torch, gen, B, T, S, H, Hkv, hd, dtype)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        d = float((out.float() - want.float()).abs().max())
+        check(out.dtype == dtype and out.shape == q.shape and d <= tol[dtype],
+              f"flash attention off by {d:.3g} at B={B} T={T} S={S} H={H} Hkv={Hkv} "
+              f"hd={hd} causal={causal} window={window} {dtype}")
+        worst[dtype] = max(worst[dtype], d)
+        n_cases += 1
+    print(f"phase 2: flash attention vs plain passed on {n_cases} cases (T,S in {FLASH_TS}, "
+          f"H,Hkv in {FLASH_HEADS}, hd in {FLASH_HDS}, (causal, window) in {masks}, and "
+          f"the LM path's shape {FLASH_PATH}; f32 + bf16); max |diff| "
+          f"{worst[torch.float32]:.3g} in f32, {worst[torch.bfloat16]:.3g} in bf16")
+    return worst[torch.float32]
+
+
+def lenet_path(torch, build):
+    """Phase 3a: Fed-CHS on LeNet-MNIST through the port's entry points."""
     from repro_torch.comm.channels import QSGDChannel, channel_wire_bits
     from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
     from repro_torch.core.simulation import FLTask
@@ -143,19 +290,20 @@ def main_path(torch, qsgd):
     J = MAIN_K // MAIN_E
 
     torch.cuda.synchronize()
-    qsgd.reset_launches()
+    build.reset_launches()
     t0 = time.perf_counter()
     res = run_fed_chs(task, cfg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(qsgd.LAUNCHES)
+    launches = dict(build.LAUNCHES)
 
     expected = MAIN_ROUNDS * J * len(leaf_sizes)
-    print(f"phase 3: LeNet-MNIST Fed-CHS QSGD(16): {d} params in {len(leaf_sizes)} leaves, "
+    print(f"phase 3a: LeNet-MNIST Fed-CHS QSGD(16): {d} params in {len(leaf_sizes)} leaves, "
           f"{MAIN_ROUNDS} rounds in {secs:.2f} s ({secs / MAIN_ROUNDS:.3f} s/round, "
-          f"evals included); launches {launches}, expected {expected} each")
+          f"evals included); launches {launches}, expected {expected} of each packed kernel")
     for name, n in launches.items():
-        check(n == expected, f"{name} launched {n} times, expected {expected}")
+        want = expected if name in ("qsgd_quantize_pack", "qsgd_unpack_dequantize") else 0
+        check(n == want, f"{name} launched {n} times, expected {want}")
     led = res.ledger
     up = channel_wire_bits(channel, d, leaf_sizes)
     visited = [int(e.sender.split(":")[1]) for e in led.events if e.hop == "es_to_es"]
@@ -169,41 +317,62 @@ def main_path(torch, qsgd):
     check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(res.final_params)),
           "non-finite params")
 
-    # where a main-path round spends the card's time: 2 rounds, profiled
-    from torch.profiler import ProfilerActivity, profile
-
+    # where a LeNet round spends the card's time: 2 rounds, profiled
     cfg2 = FedCHSConfig(rounds=2, local_steps=MAIN_K, local_epochs=MAIN_E, eval_every=10**6,
                         channel=channel, seed=0)
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        first = run_fed_chs(task, cfg2)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    again = run_fed_chs(task, cfg2)
+    first, wall_ms, events = profiled(torch, lambda: run_fed_chs(task, cfg2))
+    again, plain_ms = timed(torch, lambda: run_fed_chs(task, cfg2))
     check(all(torch.equal(a, b) for a, b in zip(tree_leaves(first.final_params),
                                                  tree_leaves(again.final_params))),
           "a same-seed run on the card did not repeat bit for bit")
-    events = [e for e in prof.key_averages()
-              if e.device_time_total > 0 and str(e.device_type).endswith("CUDA")]
-    busy_ms = sum(e.device_time_total for e in events) / 1e3
-    print(f"  a 2-round run repeats bit for bit; profiled (evals at rounds 0 and 1): "
-          f"wall {wall_ms:.1f} ms, "
-          f"kernels busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall)")
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
-        print(f"    {e.device_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    print("  a 2-round run repeats bit for bit; profiled (evals at rounds 0 and 1):")
+    print_profile(wall_ms, plain_ms, events, 8)
     return launches, secs / MAIN_ROUNDS
 
 
+def timed(torch, run):
+    """(result, wall ms) of `run()`, ended by a synchronize."""
+    t0 = time.perf_counter()
+    result = run()
+    torch.cuda.synchronize()
+    return result, (time.perf_counter() - t0) * 1e3
+
+
+def profiled(torch, run):
+    """(result, wall ms, CUDA kernel events) of `run()` under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = run()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_time_total > 0 and str(e.device_type).endswith("CUDA")]
+    return result, wall_ms, events
+
+
+def print_profile(wall_ms, plain_ms, events, top):
+    """Kernel time under the profiler beside the wall time of the same run
+    with and without it (the profiler's per-op cost inflates the profiled
+    wall time, and can inflate kernel times too)."""
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    print(f"    wall {plain_ms:.1f} ms unprofiled, {wall_ms:.1f} ms profiled; kernel time "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of the profiled wall, "
+          f"{100 * busy_ms / plain_ms:.1f}% of the unprofiled)")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
+        print(f"    {e.device_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
+
+
 def quickstart_and_cross_check(torch):
-    """Phase 3b: the quickstart grad-mode config on the card; a small QSGD run
-    on the card against the same run on the CPU's plain path."""
+    """Phase 3a, continued: the quickstart grad-mode config on the card; a
+    small QSGD run on the card against the same run on the CPU's plain path."""
     from repro_torch.comm.channels import QSGDChannel
     from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
     from repro_torch.core.simulation import FLTask
     from repro_torch.data.partition import assign_clusters, dirichlet_partition
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.models.classifier import make_classifier
-    from repro_torch.utils import tree_leaves
 
     ds = make_dataset("mnist", train_size=4000, test_size=1000, seed=0)
     clients = dirichlet_partition(ds.train_y, 20, 0.6, seed=0)
@@ -213,7 +382,7 @@ def quickstart_and_cross_check(torch):
     t0 = time.perf_counter()
     res = run_fed_chs(task, FedCHSConfig(rounds=10, local_steps=10, eval_every=5))
     torch.cuda.synchronize()
-    print(f"phase 3b: quickstart MLP grad mode, 10 rounds in {time.perf_counter() - t0:.2f} s; "
+    print(f"  quickstart MLP grad mode, 10 rounds in {time.perf_counter() - t0:.2f} s; "
           f"accuracy {res.test_acc}")
     check(res.final_acc() > 0.5, "quickstart accuracy not above 0.5")
     check(res.ledger.bits["client_to_es"] == res.ledger.messages["client_to_es"]
@@ -223,15 +392,192 @@ def quickstart_and_cross_check(torch):
                        channel=QSGDChannel(16))
     on_card = run_fed_chs(task, cfg)
     cpu_task = FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0, device="cpu")
+    p0 = cpu_task.init_params()
     on_cpu = run_fed_chs(cpu_task, cfg)
+    rel, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
+    print(f"  MLP QSGD run, card vs CPU plain path: params rel L2 {rel:.3g} ({upd_rel:.3g} "
+          f"of the update p_T - p_0, which is {upd:.3g} of p_T), accuracy gap {gap:.3g}")
+    check(rel <= 0.03 and upd_rel <= 0.03 and gap <= 0.02, "card run strays from the CPU run")
+
+
+def flat_params(torch, params):
+    from repro_torch.utils import tree_leaves
+
+    return torch.cat([t.reshape(-1).cpu() for t in tree_leaves(params)])
+
+
+def card_vs_cpu(torch, on_card, on_cpu, p0):
+    """Ledgers must be equal.  Returns the params' gap |p_card - p_cpu| in
+    relative L2, the same gap relative to the CPU run's update p_T - p_0,
+    the update's size relative to p_T (what a run that never updates reads),
+    and the largest metric gap."""
     check(on_card.ledger.events == on_cpu.ledger.events, "card and CPU ledgers differ")
-    a = torch.cat([t.reshape(-1).cpu() for t in tree_leaves(on_card.final_params)])
-    b = torch.cat([t.reshape(-1) for t in tree_leaves(on_cpu.final_params)])
-    rel = float((a - b).norm() / b.norm())
-    acc_gap = max(abs(x - y) for x, y in zip(on_card.test_acc, on_cpu.test_acc))
-    print(f"  QSGD run, card vs CPU plain path: params rel L2 {rel:.3g}, "
-          f"accuracy gap {acc_gap:.3g}")
-    check(rel <= 0.03 and acc_gap <= 0.02, "card run strays from the CPU run")
+    check(on_card.rounds == on_cpu.rounds, "card and CPU eval rounds differ")
+    a, b = flat_params(torch, on_card.final_params), flat_params(torch, on_cpu.final_params)
+    diff, update = float((a - b).norm()), float((b - flat_params(torch, p0)).norm())
+    gap = max(abs(x - y) for x, y in zip(on_card.test_acc, on_cpu.test_acc))
+    return diff / float(b.norm()), diff / update, update / float(b.norm()), gap
+
+
+def lm_task(cfg, device=None, init_on_cpu=False, **source_kw):
+    """The LM task of the example: `LMFedModel` + `TokenSource` clients."""
+    from repro_torch.core.simulation import FLTask
+    from repro_torch.data.sources import TokenSource
+    from repro_torch.models.fed import LMFedModel
+
+    model = LMFedModel(cfg, flash=True, remat=False)
+    if init_on_cpu:  # the same initial weights on the card and on the CPU
+        model = _CpuInit(model)
+    source = TokenSource(cfg.vocab_size, topics=4, seed=0, **source_kw)
+    return FLTask.from_source(model, source, LM_CLUSTERS, seed=0, device=device)
+
+
+class _CpuInit:
+    """An LMFedModel whose weights are drawn on the CPU, then moved."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def init(self, seed=0, device=None):
+        from repro_torch.utils import tree_map
+
+        return tree_map(lambda t: t.to(device), self.model.init(seed, "cpu"))
+
+
+def lm_path(torch, build):
+    """Phase 3b: the main path, qwen3-0.6b Fed-CHS with QSGD(16) uplinks."""
+    from repro_torch.comm.channels import QSGDChannel, channel_wire_bits
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    from repro_torch.utils import tree_leaves
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    task = lm_task(cfg, num_clients=LM_CLIENTS, batch_size=LM_BATCH, seq_len=LM_SEQ)
+    channel = QSGDChannel(16)
+    config = FedCHSConfig(rounds=LM_ROUNDS, local_steps=LM_K, local_epochs=LM_E, eval_every=1,
+                          channel=channel, seed=0, schedule=lambda k: LM_LR)
+    J = LM_K // LM_E
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = run_fed_chs(task, config)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    leaf_sizes = [t.numel() for t in tree_leaves(res.final_params)]
+    d = sum(leaf_sizes)
+    evals = len(res.rounds)
+    n_eval_batches = len(task.source.eval_data()["tokens"])
+    want = {"flash_attention": cfg.num_layers * (LM_ROUNDS * LM_K + evals * n_eval_batches),
+            "qsgd_quantize_pack": LM_ROUNDS * J * len(leaf_sizes),
+            "qsgd_unpack_dequantize": LM_ROUNDS * J * len(leaf_sizes),
+            "qsgd_quantize": 0, "qsgd_dequantize": 0}
+    print(f"phase 3b: {LM_ARCH} Fed-CHS QSGD(16), flash attention: {d} params in "
+          f"{len(leaf_sizes)} leaves, {cfg.num_layers} layers; {LM_CLIENTS} clients in "
+          f"clusters {LM_CLUSTERS}, batch {LM_BATCH} x {LM_SEQ} tokens, K={LM_K}, E={LM_E}, "
+          f"lr {LM_LR}; {LM_ROUNDS} rounds in {secs:.2f} s ({secs / LM_ROUNDS:.3f} s/round, "
+          f"{evals} evals of {n_eval_batches} batches included); peak memory {peak_gb:.2f} GB")
+    print(f"  launches {launches}, expected {want}")
+    check(len(leaf_sizes) == LM_LEAVES and d == LM_PARAMS,
+          f"{len(leaf_sizes)} leaves / {d} params, expected {LM_LEAVES} / {LM_PARAMS}")
+    for name, n in want.items():
+        check(launches[name] == n, f"{name} launched {launches[name]} times, expected {n}")
+    led = res.ledger
+    up = channel_wire_bits(channel, d, leaf_sizes)
+    visited = [int(e.sender.split(":")[1]) for e in led.events if e.hop == "es_to_es"]
+    n_up = sum(J * len(LM_CLUSTERS[m]) for m in visited)
+    check(led.messages["client_to_es"] == n_up, "LM uplink message count")
+    check(led.bits["client_to_es"] == n_up * up, "LM uplink bits differ from the closed form")
+    print(f"  uplink {up} bits/message = channel_wire_bits ({32 * d / up:.2f}x under f32); "
+          f"{n_up} messages; visits {visited}")
+    print(f"  perplexity {res.test_acc} at rounds {res.rounds}; train loss {res.train_loss}")
+    check(all(math.isfinite(x) for x in res.test_acc + res.train_loss), "non-finite LM trace")
+    check(res.train_loss[-1] < res.train_loss[0], "the LM's train loss did not fall")
+    check(res.test_acc[-1] < res.test_acc[0],
+          "the LM's perplexity on the fixed held-out batches did not fall")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(res.final_params)),
+          "non-finite LM params")
+
+    # one round again, warm: unprofiled for its time, then profiled
+    one = FedCHSConfig(rounds=1, local_steps=LM_K, local_epochs=LM_E, eval_every=1,
+                       channel=channel, seed=0, schedule=lambda k: LM_LR)
+    _, plain_ms = timed(torch, lambda: run_fed_chs(task, one))
+    _, wall_ms, events = profiled(torch, lambda: run_fed_chs(task, one))
+    print(f"  one warm round (K={LM_K} steps, an eval of {n_eval_batches} batches), "
+          f"unprofiled then profiled:")
+    print_profile(wall_ms, plain_ms, events, 12)
+    return launches, plain_ms / 1e3, res.final_params
+
+
+def dense_code_path(torch, build, params):
+    """Phase 3c: the dense-code QSGD API over every leaf of the trained LM,
+    one key per leaf (`split` of one run key)."""
+    from repro_torch import comm
+    from repro_torch.core.prng import PRNGKey, split
+    from repro_torch.utils import tree_leaves
+
+    leaves = tree_leaves(params)
+    keys = split(PRNGKey(0), len(leaves))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    worst = 0.0
+    for leaf, key in zip(leaves, keys):
+        out = comm.qsgd_roundtrip(leaf, key, s=16)
+        check(out.shape == leaf.shape and bool(torch.isfinite(out).all()),
+              "dense-code roundtrip: bad shape or non-finite values")
+        worst = max(worst, float((out - leaf).norm() / leaf.norm()))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    print(f"phase 3c: dense-code qsgd_roundtrip (s=16) over the LM's {len(leaves)} leaves: "
+          f"launches {launches}; largest relative L2 error {worst:.3f}")
+    for name in ("qsgd_quantize", "qsgd_dequantize"):
+        check(launches[name] == len(leaves), f"{name} launched {launches[name]} times")
+    check(worst < 1.5, "a dense-code roundtrip error beyond the QSGD variance bound")
+    return launches
+
+
+def lm_cross_check(torch):
+    """Phase 3d: a 2-layer smoke-config LM run, card against CPU, held to
+    params within 3% relative L2 and perplexity within 2%.  Two controls on
+    the CPU show that these bounds reject a wrong run: one that never
+    updates (it reads the update's size away) and one whose uplinks skip
+    the quantizer (dense uplinks, the same config otherwise)."""
+    from repro_torch.comm.channels import DenseChannel, QSGDChannel
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+
+    cfg = smoke_config(LM_ARCH)
+    config = FedCHSConfig(rounds=4, local_steps=4, local_epochs=2, eval_every=2,
+                          channel=QSGDChannel(16), seed=0, schedule=lambda k: 0.3)
+    kw = dict(num_clients=4, batch_size=2, seq_len=64)
+    on_card = run_fed_chs(lm_task(cfg, init_on_cpu=True, **kw), config)
+    cpu_task = lm_task(cfg, device="cpu", init_on_cpu=True, **kw)
+    p0 = cpu_task.init_params()
+    on_cpu = run_fed_chs(cpu_task, config)
+    rel, upd_rel, upd, _ = card_vs_cpu(torch, on_card, on_cpu, p0)
+    ppl = max(abs(x / y - 1) for x, y in zip(on_card.test_acc, on_cpu.test_acc))
+    dense = run_fed_chs(lm_task(cfg, device="cpu", init_on_cpu=True, **kw),
+                        dataclasses.replace(config, channel=DenseChannel()))
+    b = flat_params(torch, on_cpu.final_params)
+    ctrl_rel = float((flat_params(torch, dense.final_params) - b).norm() / b.norm())
+    ctrl_ppl = max(abs(x / y - 1) for x, y in zip(dense.test_acc, on_cpu.test_acc))
+    print(f"phase 3d: {LM_ARCH} smoke-config LM (2 layers, d_model {cfg.d_model}) QSGD run, "
+          f"card vs CPU plain path: params rel L2 {rel:.3g} ({upd_rel:.3g} of the update "
+          f"p_T - p_0), perplexity within {ppl:.3g} (card {on_card.test_acc}, CPU "
+          f"{on_cpu.test_acc}); controls on the CPU: no update reads {upd:.3g}, dense "
+          f"uplinks read {ctrl_rel:.3g} and perplexity {ctrl_ppl:.3g} (perplexity "
+          f"{dense.test_acc})")
+    check(rel <= 0.03 and ppl <= 0.02, "card LM run strays from the CPU run")
+    check(upd > 0.03, "the params bound would pass a run that never updates")
+    check(ctrl_rel > 0.03 and ctrl_ppl > 0.02,
+          "the bounds would pass a run whose uplinks skip the quantizer")
 
 
 def time_launches(torch, fn, reps, flush):
@@ -250,45 +596,101 @@ def time_launches(torch, fn, reps, flush):
     return statistics.median(times)
 
 
-def timings(torch, qsgd, ref):
-    """Phase 4: each kernel at the main path's shapes."""
-    gen = torch.Generator().manual_seed(1)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+    bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def timed_row(torch, flush, name, label, nbytes, ops, kernel, plain, library=None,
+              ops_per_s=F32_OPS_PER_S, reps=50):
+    ms = time_launches(torch, kernel, reps, flush)
+    plain_ms = time_launches(torch, plain, 5, flush)
+    library_ms = time_launches(torch, library, reps, flush) if library else None
+    bound_ms, bound_by = bound(nbytes, ops, ops_per_s)
+    lib = f"; library {library_ms:.4f} ms" if library else ""
+    print(f"phase 4: {name} [{label}]: {ms:.4f} ms median (plain {plain_ms:.3f} ms{lib}); "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GOP); "
+          f"{ms / bound_ms:.2f}x the bound")
+    return {"name": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def qsgd_timings(torch, qsgd, ref, flush):
+    """Phase 4, QSGD: each kernel at its path's largest launch, the LM's
+    embedding leaf (151936 blocks of 1024; 2 senders on the packed wire),
+    and the packed pair also at the LeNet path's fc1/w leaf of 10 senders."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
     s, block = 16, 1024
     bits = ref.qsgd_code_bits(s)
-    rows = []
-    for label, senders, nb in (("fc1/w leaf x 10 senders", 10, 6272),
-                               ("whole LeNet message", 1, 6745)):
-        v = torch.randn((senders, nb, block), generator=gen).cuda()
-        keys = torch.randint(-2**31, 2**31, (senders, 2), generator=gen,
-                             dtype=torch.int64).to(torch.int32).cuda()
+    rows = {}
+    for label, senders, nb in (("LM embed leaf x 2 senders", 2, 151936),
+                               ("LeNet fc1/w leaf x 10 senders", 10, 6272)):
+        v = torch.randn((senders, nb, block), generator=gen, device="cuda")
+        keys = torch.randint(-2**31, 2**31, (senders, 2), generator=gen, device="cuda",
+                             dtype=torch.int64).to(torch.int32)
         payload, norms = qsgd.qsgd_quantize_pack(v, keys, s)
         prow, nrow = payload.reshape(-1, payload.shape[-1]), norms.reshape(-1)
         n = senders * nb * block
         q_bytes = 4 * n + bits * n // 8 + 4 * senders * nb + 8 * senders
         u_bytes = bits * n // 8 + 4 * senders * nb + 4 * n
-        q_ops, u_ops = 8 * n, n + senders * nb  # f32 arithmetic; hash integer ops not counted
-        cases = (
-            ("qsgd_quantize_pack", q_bytes, q_ops,
-             lambda: qsgd.qsgd_quantize_pack(v, keys, s),
-             lambda: qsgd.qsgd_quantize_pack_plain(v, keys, s)),
-            ("qsgd_unpack_dequantize", u_bytes, u_ops,
-             lambda: qsgd.qsgd_unpack_dequantize(prow, nrow, s, block),
-             lambda: qsgd.qsgd_unpack_dequantize_plain(prow, nrow, s, block)),
-        )
-        for name, nbytes, ops, kernel, plain in cases:
-            ms = time_launches(torch, kernel, 50, flush)
-            plain_ms = time_launches(torch, plain, 5, flush)
-            bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-            bound_ms = max(bytes_ms, ops_ms)
-            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-            row = {"name": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by}
-            rows.append(row)
-            print(f"phase 4: {name} [{label}, s={s}, block={block}]: {ms:.4f} ms median "
-                  f"(plain {plain_ms:.3f} ms); bound {bound_ms:.4f} ms by {bound_by} "
-                  f"({nbytes / 1e6:.1f} MB at 3.35 TB/s); {ms / bound_ms:.2f}x the bound")
+        # f32 arithmetic; the hash's integer operations are not counted
+        rows.setdefault("qsgd_quantize_pack", timed_row(
+            torch, flush, "qsgd_quantize_pack", f"{label}, s={s}", q_bytes, 8 * n,
+            lambda: qsgd.qsgd_quantize_pack(v, keys, s),
+            lambda: qsgd.qsgd_quantize_pack_plain(v, keys, s)))
+        rows.setdefault("qsgd_unpack_dequantize", timed_row(
+            torch, flush, "qsgd_unpack_dequantize", f"{label}, s={s}", u_bytes,
+            n + senders * nb,
+            lambda: qsgd.qsgd_unpack_dequantize(prow, nrow, s, block),
+            lambda: qsgd.qsgd_unpack_dequantize_plain(prow, nrow, s, block)))
+        del v, payload, norms, prow, nrow
+    nb = 151936
+    v = torch.randn((nb, block), generator=gen, device="cuda")
+    key = torch.randint(-2**31, 2**31, (2,), generator=gen, device="cuda",
+                        dtype=torch.int64).to(torch.int32)
+    q, norms = qsgd.qsgd_quantize_blocks(v, key, s)
+    n = nb * block
+    label = f"LM embed leaf, one message, s={s}"
+    rows["qsgd_quantize"] = timed_row(
+        torch, flush, "qsgd_quantize", label, 4 * n + n + 4 * nb + 8, 8 * n,
+        lambda: qsgd.qsgd_quantize_blocks(v, key, s),
+        lambda: qsgd.qsgd_quantize_blocks_plain(v, key, s))
+    rows["qsgd_dequantize"] = timed_row(
+        torch, flush, "qsgd_dequantize", label, n + 4 * nb + 4 * n, n + nb,
+        lambda: qsgd.qsgd_dequantize_blocks(q, norms, s),
+        lambda: qsgd.qsgd_dequantize_blocks_plain(q, norms, s))
     return rows
+
+
+def flash_work(B, T, S, H, Hkv, hd, itemsize):
+    """(bytes, operations) of causal flash attention: q, k, v read once and
+    the output written once; 4 hd operations per unmasked (q, k) pair (two
+    products of 2 hd each), the softmax's exp and sums not counted."""
+    pairs = sum(min(q + 1, S) for q in range(T))
+    nbytes = itemsize * (2 * B * T * H * hd + 2 * B * S * Hkv * hd)
+    return nbytes, 4 * B * H * hd * pairs
+
+
+def flash_timings(torch, fa, flush):
+    """Phase 4, flash attention at the LM path's shape, f32 (the path's
+    dtype) and bf16, beside torch's scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(4)
+    B, T, S, H, Hkv, hd = FLASH_PATH
+    rows = {}
+    for dtype, ops_per_s in ((torch.float32, F32_OPS_PER_S), (torch.bfloat16, BF16_OPS_PER_S)):
+        q, k, v = flash_inputs(torch, gen, B, T, S, H, Hkv, hd, dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, T, hd) views
+        nbytes, ops = flash_work(B, T, S, H, Hkv, hd, q.element_size())
+        rows[dtype] = timed_row(
+            torch, flush, "flash_attention", f"B={B} T=S={T} H={H} Hkv={Hkv} hd={hd} {dtype}",
+            nbytes, ops, lambda: fa.flash_attention(q, k, v, causal=True),
+            lambda: fa.flash_attention_plain(q, k, v, causal=True),
+            library=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                           enable_gqa=True),
+            ops_per_s=ops_per_s)
+    return rows[torch.float32]
 
 
 def main() -> None:
@@ -300,7 +702,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     sys.path.insert(0, str(root / "src"))
-    from repro_torch.kernels import qsgd, ref
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import qsgd
     from repro_torch.utils import resolve_device
 
     resolve_device("cuda")  # full f32 products and convolutions
@@ -311,29 +715,43 @@ def main() -> None:
           f"CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    lib, log = qsgd.build()
-    print(f"phase 1: built {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
+    built = build.build()
+    print(f"phase 1: built {', '.join(p.name for p, _ in built.values())} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for _, log in built.values():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
 
-    err = kernel_vs_plain(torch, qsgd, ref)
-    launches, round_s = main_path(torch, qsgd)
+    lm_sizes = lm_leaf_sizes(torch)
+    err = packed_vs_plain(torch, qsgd, ref, lm_sizes)
+    err.update(dense_codes_vs_plain(torch, qsgd, lm_sizes))
+    err["flash_attention"] = flash_vs_plain(torch, fa)
+
+    lenet_path(torch, build)
     quickstart_and_cross_check(torch)
-    rows = timings(torch, qsgd, ref)
+    launches, round_s, lm_params = lm_path(torch, build)
+    launches.update({k: v for k, v in dense_code_path(torch, build, lm_params).items()
+                     if k in ("qsgd_quantize", "qsgd_dequantize")})
+    del lm_params
+    lm_cross_check(torch)
+    torch.cuda.empty_cache()
 
-    replaces = {"qsgd_quantize_pack": "src/repro/kernels/qsgd.py:194",
-                "qsgd_unpack_dequantize": "src/repro/kernels/qsgd.py:227"}
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    rows = qsgd_timings(torch, qsgd, ref, flush)
+    rows["flash_attention"] = flash_timings(torch, fa, flush)
+
     kernels = []
-    for row in rows[:2]:  # the fc1/w leaf of 10 senders: the main path's largest launch
-        name = row["name"]
+    for name, (source, replaces) in REPLACES.items():
+        row = rows[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/qsgd.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
-    print(f"main path: {round_s:.3f} s per round on the card")
+    print(f"main path: {round_s:.3f} s per warm {LM_ARCH} Fed-CHS round on the card "
+          f"(an eval included)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

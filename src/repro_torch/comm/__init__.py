@@ -1,1 +1,37 @@
-"""Channels (dense, QSGD) and exact message-size formulas."""
+"""Channels (dense, QSGD), exact message-size formulas, and the QSGD wrappers.
+
+Re-exports the channel abstraction and the kernel wrappers so higher
+layers depend on `repro_torch.comm`, not on kernel internals.
+"""
+from repro_torch.comm.bits import dense_message_bits, qsgd_message_bits
+from repro_torch.comm.channels import (
+    Channel,
+    DenseChannel,
+    QSGDChannel,
+    channel_wire_bits,
+    make_channel,
+)
+from repro_torch.kernels.ops import (
+    qsgd_compress_tree,
+    qsgd_decode,
+    qsgd_dequantize,
+    qsgd_encode,
+    qsgd_quantize,
+    qsgd_roundtrip,
+)
+
+__all__ = [
+    "Channel",
+    "DenseChannel",
+    "QSGDChannel",
+    "channel_wire_bits",
+    "make_channel",
+    "dense_message_bits",
+    "qsgd_message_bits",
+    "qsgd_compress_tree",
+    "qsgd_decode",
+    "qsgd_dequantize",
+    "qsgd_encode",
+    "qsgd_quantize",
+    "qsgd_roundtrip",
+]

@@ -32,6 +32,7 @@ from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
 from repro_torch.core.topology import make_topology
 from repro_torch.optim.local import PlainSGD
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
+from repro_torch.utils import tree_leaves
 
 # reference config fields this port does not implement yet: setting one raises
 _NOT_PORTED = ("dynamic", "client_microbatch", "precision", "link_delay", "sampler",
@@ -95,15 +96,16 @@ def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
     )
     scheduler = FedCHSScheduler(topo, task.cluster_sizes, initial=m0)
 
-    params = task.init_params()
-    d = task.num_params()
+    params = task.init_params()  # drawn once: the sizes below come from it
+    leaf_sizes = tuple(leaf.numel() for leaf in tree_leaves(params))
+    d = sum(leaf_sizes)
     ledger = CommLedger(track_events=config.track_events)
     channel = config.channel or make_channel(config.qsgd_levels, config.bits_per_param)
     engine = RoundEngine(task.model, channel, local_opt=config.local_opt)
     key = PRNGKey(config.seed + 1)
 
     down_bits = DenseChannel(config.bits_per_param).message_bits(d)
-    up_bits = channel_wire_bits(channel, d, task.param_leaf_sizes())
+    up_bits = channel_wire_bits(channel, d, leaf_sizes)
 
     # literal Eq. (5): E=1 dense plain-SGD interactions are gradient uplinks
     grad_mode = E == 1 and isinstance(channel, DenseChannel)

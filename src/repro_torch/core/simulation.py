@@ -2,8 +2,11 @@
 (port of `repro/core/simulation.py`).
 
 `FLTask` holds the device of the run: staged batches and parameters live
-there.  Staging draws each client's batches from the same numpy streams as
-the reference, so a run of the port sees the reference's batches.
+there.  Its batches come from a data source: the classifier's
+``FLTask(model, dataset, clients, ...)`` builds an `ArraySource`, any other
+workload passes ``source=`` or uses `FLTask.from_source`.  Staging draws
+each client's batches from the same numpy streams as the reference, so a
+run of the port sees the reference's batches.
 """
 from __future__ import annotations
 
@@ -35,28 +38,48 @@ class FLTask:
     (the card unless the caller passes ``device="cpu"``)."""
 
     model: Any
-    dataset: Dataset
-    clients: list[ClientData]
+    dataset: Dataset | None
+    clients: list[ClientData] | None
     cluster_members: list[list[int]]  # cluster m -> client ids
     batch_size: int
     seed: int = 0
+    source: Any = None  # a data source (ArraySource, TokenSource); built if None
     device: Any = None
 
     def __post_init__(self):
         self.fed_model = as_fed_model(self.model)
         self.device = resolve_device(self.device)
-        self.source = ArraySource(self.dataset, self.clients, self.batch_size, seed=self.seed)
+        if self.source is None:
+            if self.dataset is None or self.clients is None:
+                raise ValueError("FLTask needs either (dataset, clients) or a source")
+            self.source = ArraySource(self.dataset, self.clients, self.batch_size,
+                                      seed=self.seed)
         self.client_sizes = np.asarray(self.source.client_sizes, dtype=np.float64)
         self.cluster_sizes = [
             int(sum(self.client_sizes[i] for i in members)) for members in self.cluster_members
         ]
 
+    @classmethod
+    def from_source(cls, model, source, cluster_members: list[list[int]], *, seed: int = 0,
+                    device=None) -> FLTask:
+        """Build a task directly over a data source (no array dataset)."""
+        return cls(model, None, None, cluster_members, source.batch_size, seed=seed,
+                   source=source, device=device)
+
     def reset_loaders(self, seed: int) -> None:
         self.source.reset(seed)
 
     @property
+    def num_clients(self) -> int:
+        return self.source.num_clients
+
+    @property
     def num_clusters(self) -> int:
         return len(self.cluster_members)
+
+    @property
+    def metric_name(self) -> str:
+        return self.fed_model.metric_name
 
     @property
     def metric_mode(self) -> str:

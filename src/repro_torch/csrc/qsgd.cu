@@ -1,5 +1,6 @@
-// QSGD packed-wire kernels for Hopper (sm_90a): fused quantize -> bit-pack and
-// unpack -> dequantize.  Plain C interface, loaded with ctypes by
+// QSGD kernels for Hopper (sm_90a): the packed wire (fused quantize -> bit-pack
+// and unpack -> dequantize) and the dense codes (quantize to signed int8,
+// dequantize).  Plain C interface, loaded with ctypes by
 // repro_torch/kernels/qsgd.py.
 //
 // Replaces the Pallas TPU kernels of the reference package:
@@ -7,10 +8,15 @@
 //                             (_quantize_pack_kernel)
 //   qsgd_unpack_dequantize <- repro/kernels/qsgd.py  qsgd_unpack_dequantize_blocks
 //                             (_unpack_dequantize_kernel)
+//   qsgd_quantize          <- repro/kernels/qsgd.py  qsgd_quantize_blocks
+//                             (_quantize_kernel)
+//   qsgd_dequantize        <- repro/kernels/qsgd.py  qsgd_dequantize_blocks
+//                             (_dequantize_kernel)
 //
 // What bounds them on an H100: bytes.  Quantize -> pack reads 4 B of f32 per
 // entry and writes b/8 B of payload (0.75 B at s = 16) plus 4 B of norm per
-// block; unpack -> dequantize is the reverse.  Each entry costs a few dozen
+// block; unpack -> dequantize is the reverse.  The dense-code pair moves 4 B
+// of f32 and 1 B of int8 code per entry.  Each entry costs a few dozen
 // integer and float operations, far below the card's rate per byte, so the
 // designs spend their effort on moving each byte once:
 //   * the stochastic-rounding dither is computed in the kernel from the
@@ -24,7 +30,11 @@
 //     for word w holds code k*W + w, exactly the reference's bit layout;
 //   * payload words and dequantized values are staged in shared memory and
 //     written with coalesced stores.
-// The quantizer runs over every sender of one leaf in one launch (grid.y).
+// The packing quantizer runs over every sender of one leaf in one launch
+// (grid.y).  The dense-code quantizer is the same row pass without the
+// pack: it stores each thread's four codes as one char4, and its dither
+// index is the flat index of the whole padded message (one key per call, as
+// the reference's ops.qsgd_quantize draws it).
 //
 // Rounding: every float operation is an explicit round-to-nearest intrinsic
 // in the reference's order ((|v| / norm) * s, then + u; (c - s) * (norm / s)),
@@ -76,6 +86,38 @@ __device__ __forceinline__ uint32_t quantize_one(float x, uint32_t half, float n
   return static_cast<uint32_t>(s + (x > 0.0f ? qi : (x < 0.0f ? -qi : 0)));
 }
 
+// Loads one block row into registers (a float4 per thread and step) and
+// returns its L2 norm, correctly rounded, to every thread.
+__device__ __forceinline__ float load_row_norm(const float4* __restrict__ vrow, int nvec,
+                                               float4 (&r)[kVecPerThread], float* scratch) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kVecPerThread; ++t) {
+    const int i = threadIdx.x + t * kThreads;
+    if (i < nvec) {
+      r[t] = vrow[i];
+      acc = __fadd_rn(acc, __fmul_rn(r[t].x, r[t].x));
+      acc = __fadd_rn(acc, __fmul_rn(r[t].y, r[t].y));
+      acc = __fadd_rn(acc, __fmul_rn(r[t].z, r[t].z));
+      acc = __fadd_rn(acc, __fmul_rn(r[t].w, r[t].w));
+    }
+  }
+  return __fsqrt_rn(block_sum(acc, scratch));
+}
+
+// Sign-folded codes of four entries whose first has the even flat index g:
+// they take the two halves of dither words g/2 and g/2 + 1.
+__device__ __forceinline__ void quantize4(const float4& x, uint32_t g, uint32_t k0,
+                                          uint32_t k1, float norm, float safe, int s,
+                                          uint32_t (&codes)[4]) {
+  const uint32_t h0 = dither_word(g >> 1, k0, k1);
+  const uint32_t h1 = dither_word((g >> 1) + 1u, k0, k1);
+  codes[0] = quantize_one(x.x, h0 & 0xFFFFu, norm, safe, s);
+  codes[1] = quantize_one(x.y, h0 >> 16, norm, safe, s);
+  codes[2] = quantize_one(x.z, h1 & 0xFFFFu, norm, safe, s);
+  codes[3] = quantize_one(x.w, h1 >> 16, norm, safe, s);
+}
+
 // grid (nb, senders); v (senders, nb, block) f32; keys (senders, 2) words;
 // payload (senders, nb, bits*W) words; norms (senders, nb).
 __global__ void __launch_bounds__(kThreads)
@@ -91,19 +133,7 @@ quantize_pack_kernel(const float* __restrict__ v, const uint32_t* __restrict__ k
   const float4* vrow = reinterpret_cast<const float4*>(v + row_id * block);
 
   float4 r[kVecPerThread];
-  float acc = 0.0f;
-#pragma unroll
-  for (int t = 0; t < kVecPerThread; ++t) {
-    const int i = threadIdx.x + t * kThreads;
-    if (i < nvec) {
-      r[t] = vrow[i];
-      acc = __fadd_rn(acc, __fmul_rn(r[t].x, r[t].x));
-      acc = __fadd_rn(acc, __fmul_rn(r[t].y, r[t].y));
-      acc = __fadd_rn(acc, __fmul_rn(r[t].z, r[t].z));
-      acc = __fadd_rn(acc, __fmul_rn(r[t].w, r[t].w));
-    }
-  }
-  const float norm = __fsqrt_rn(block_sum(acc, scratch));
+  const float norm = load_row_norm(vrow, nvec, r, scratch);
   const float safe = norm > 0.0f ? norm : 1.0f;
   const uint32_t k0 = keys[2 * sender], k1 = keys[2 * sender + 1];
   const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(block);
@@ -112,17 +142,13 @@ quantize_pack_kernel(const float* __restrict__ v, const uint32_t* __restrict__ k
   for (int t = 0; t < kVecPerThread; ++t) {
     const int i = threadIdx.x + t * kThreads;
     if (i < nvec) {
-      // entries 4i..4i+3 of the row; their flat leaf index is even, so they
-      // take the two halves of dither words g/2 and g/2 + 1
-      const uint32_t g = base + 4u * static_cast<uint32_t>(i);
-      const uint32_t h0 = dither_word(g >> 1, k0, k1);
-      const uint32_t h1 = dither_word((g >> 1) + 1u, k0, k1);
-      const float vals[4] = {r[t].x, r[t].y, r[t].z, r[t].w};
-      const uint32_t halves[4] = {h0 & 0xFFFFu, h0 >> 16, h1 & 0xFFFFu, h1 >> 16};
+      // entries 4i..4i+3 of the row, at flat leaf index base + 4i
+      uint32_t codes[4];
+      quantize4(r[t], base + 4u * static_cast<uint32_t>(i), k0, k1, norm, safe, s, codes);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int e = 4 * i + c;
-        tile[(e / W) * (W + 1) + e % W] = quantize_one(vals[c], halves[c], norm, safe, s);
+        tile[(e / W) * (W + 1) + e % W] = codes[c];
       }
     }
   }
@@ -178,6 +204,56 @@ unpack_dequantize_kernel(const uint32_t* __restrict__ payload,
   }
 }
 
+// grid (nb); v (nb, block) f32; key (2) words; q (nb, block) int8 signed
+// codes; norms (nb).
+__global__ void __launch_bounds__(kThreads)
+quantize_kernel(const float* __restrict__ v, const uint32_t* __restrict__ key,
+                int8_t* __restrict__ q, float* __restrict__ norms, int block, int s) {
+  __shared__ float scratch[kWarps];
+  const size_t row = blockIdx.x;
+  const int nvec = block >> 2;
+  const float4* vrow = reinterpret_cast<const float4*>(v + row * block);
+
+  float4 r[kVecPerThread];
+  const float norm = load_row_norm(vrow, nvec, r, scratch);
+  const float safe = norm > 0.0f ? norm : 1.0f;
+  const uint32_t k0 = key[0], k1 = key[1];
+  const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(block);
+  char4* qrow = reinterpret_cast<char4*>(q + row * block);
+
+#pragma unroll
+  for (int t = 0; t < kVecPerThread; ++t) {
+    const int i = threadIdx.x + t * kThreads;
+    if (i < nvec) {
+      uint32_t codes[4];
+      quantize4(r[t], base + 4u * static_cast<uint32_t>(i), k0, k1, norm, safe, s, codes);
+      qrow[i] = make_char4(static_cast<signed char>(static_cast<int>(codes[0]) - s),
+                           static_cast<signed char>(static_cast<int>(codes[1]) - s),
+                           static_cast<signed char>(static_cast<int>(codes[2]) - s),
+                           static_cast<signed char>(static_cast<int>(codes[3]) - s));
+    }
+  }
+  if (threadIdx.x == 0) norms[row] = norm;
+}
+
+// grid (rows); q (rows, block) int8; norms (rows,); out (rows, block) f32:
+// q * (norm / s), in that order.
+__global__ void __launch_bounds__(kThreads)
+dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ norms,
+                  float* __restrict__ out, int block, int s) {
+  const size_t row = blockIdx.x;
+  const float scale = __fdiv_rn(norms[row], static_cast<float>(s));
+  const char4* qrow = reinterpret_cast<const char4*>(q + row * block);
+  float4* orow = reinterpret_cast<float4*>(out + row * block);
+  for (int i = threadIdx.x; i < (block >> 2); i += kThreads) {
+    const char4 c = qrow[i];
+    orow[i] = make_float4(__fmul_rn(static_cast<float>(c.x), scale),
+                          __fmul_rn(static_cast<float>(c.y), scale),
+                          __fmul_rn(static_cast<float>(c.z), scale),
+                          __fmul_rn(static_cast<float>(c.w), scale));
+  }
+}
+
 }  // namespace
 
 extern "C" int qsgd_quantize_pack(const float* v, const uint32_t* keys, uint32_t* payload,
@@ -196,6 +272,24 @@ extern "C" int qsgd_unpack_dequantize(const uint32_t* payload, const float* norm
   if (rows > 0) {
     unpack_dequantize_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         payload, norms, out, block, s, bits);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qsgd_quantize(const float* v, const uint32_t* key, int8_t* q, float* norms,
+                             int nb, int block, int s, void* stream) {
+  if (nb > 0) {
+    quantize_kernel<<<nb, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(v, key, q, norms,
+                                                                          block, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qsgd_dequantize(const int8_t* q, const float* norms, float* out, int rows,
+                               int block, int s, void* stream) {
+  if (rows > 0) {
+    dequantize_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(q, norms, out,
+                                                                               block, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,1 +1,2 @@
-"""QSGD wire kernels: Hopper CUDA kernels, plain torch versions, tree wrappers."""
+"""Hopper CUDA kernels (QSGD, flash attention), their plain torch versions,
+their build, and the QSGD leaf and tree wrappers."""

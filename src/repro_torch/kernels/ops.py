@@ -1,10 +1,14 @@
 """Leaf and tree QSGD wrappers around the kernels (port of `repro/kernels/ops.py`).
 
-These pad each leaf to whole blocks, derive the per-leaf keys and map over a
-message's leaves; `kernels/qsgd.py` only sees dense (senders, nb, block)
-tiles.  A leaf on the card goes through the Hopper kernels and a leaf on the
-CPU through their plain versions, as the reference routes to its Pallas
-kernels on a TPU and to the jnp oracle elsewhere.
+The dense-code API (`qsgd_quantize`, `qsgd_dequantize`, `qsgd_roundtrip`)
+pads a whole array to tiles of 8 blocks, as the reference does, and keys
+its dither with one key over the flat padded index.  The packed wire
+(`qsgd_encode`/`decode(_tree)`, `qsgd_compress_tree`) pads each leaf to
+whole blocks, derives the per-leaf keys and maps over a message's leaves.
+`kernels/qsgd.py` only sees dense tiles.  A leaf on the card goes through
+the Hopper kernels and a leaf on the CPU through their plain versions, as
+the reference routes to its Pallas kernels on a TPU and to the jnp oracle
+elsewhere.
 
 Keys are raw uint32 key words (numpy, see `core/prng.py`).  Where the
 reference vmaps a message function over a stacked uplink, these functions
@@ -21,12 +25,18 @@ import numpy as np
 import torch
 
 from repro_torch.core.prng import split
-from repro_torch.kernels.qsgd import qsgd_quantize_pack, qsgd_unpack_dequantize
+from repro_torch.kernels.qsgd import (
+    qsgd_dequantize_blocks,
+    qsgd_quantize_blocks,
+    qsgd_quantize_pack,
+    qsgd_unpack_dequantize,
+)
 from repro_torch.kernels.ref import cheap_uniform_ref
 from repro_torch.utils import tree_flatten, tree_unflatten
 
 Tree = Any
 DEFAULT_BLOCK = 1024
+ROWS_PER_TILE = 8  # the reference pads the dense-code API to tiles of 8 blocks
 
 
 def _cheap_uniform(key: np.ndarray, shape: tuple) -> torch.Tensor:
@@ -41,6 +51,44 @@ def _key_tensor(keys: np.ndarray, device) -> torch.Tensor:
     """(S, 2) uint32 key words -> int32 tensor of the same bits on `device`."""
     words = np.array(keys, dtype=np.uint32).view(np.int32)
     return torch.from_numpy(words).to(device)
+
+
+def _pad_to_blocks(v: torch.Tensor, block: int, rows_per_tile: int):
+    """Flatten to f32 and zero-pad to whole tiles: ((rows, block), n)."""
+    n = v.numel()
+    per_tile = block * rows_per_tile
+    flat = v.reshape(-1).to(torch.float32)
+    if n % per_tile:
+        padded = torch.zeros((-(-n // per_tile) * per_tile,), dtype=torch.float32,
+                             device=v.device)
+        padded[:n] = flat
+        flat = padded
+    return flat.reshape(-1, block).contiguous(), n
+
+
+def qsgd_quantize(v: torch.Tensor, key: np.ndarray, *, s: int = 16, block: int = DEFAULT_BLOCK):
+    """Quantize an arbitrary-shape array under one key (uint32 words (2,)).
+    Returns (q int8 (rows, block), norms f32 (rows,), original size); the
+    rows include the padding to whole tiles of 8 blocks."""
+    blocks, n = _pad_to_blocks(v, block, ROWS_PER_TILE)
+    q, norms = qsgd_quantize_blocks(blocks, _key_tensor(np.asarray(key), v.device), s)
+    return q, norms, n
+
+
+def qsgd_dequantize(q: torch.Tensor, norms: torch.Tensor, *, s: int = 16, shape: tuple = (),
+                    block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """Dense codes back to an f32 array of `shape` (the padding cut off)."""
+    del block  # implied by q's rows
+    flat = qsgd_dequantize_blocks(q, norms, s).reshape(-1)
+    n = math.prod(shape) if shape else flat.numel()
+    return flat[:n].reshape(shape)
+
+
+def qsgd_roundtrip(v: torch.Tensor, key: np.ndarray, *, s: int = 16,
+                   block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """quantize -> dequantize (the lossy channel a message traverses)."""
+    q, norms, _ = qsgd_quantize(v, key, s=s, block=block)
+    return qsgd_dequantize(q, norms, s=s, shape=tuple(v.shape), block=block)
 
 
 def _leaf_blocks(n: int, block: int) -> int:

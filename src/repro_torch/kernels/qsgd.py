@@ -1,97 +1,53 @@
-"""Hopper kernels for the QSGD packed wire, their plain versions and launch counts.
+"""Hopper kernels for QSGD, their plain versions and their wrappers.
 
-`qsgd_quantize_pack` and `qsgd_unpack_dequantize` take a tensor on the card
-to the hand-written CUDA kernels in `repro_torch/csrc/qsgd.cu` and a tensor
-on the CPU to their plain torch versions (`*_plain`, in this module).  A
-CUDA tensor never falls back to the plain version: the wrapper launches the
-kernel or raises.
+The packed wire: `qsgd_quantize_pack` and `qsgd_unpack_dequantize`.  The
+dense codes: `qsgd_quantize_blocks` (signed int8 codes and norms) and
+`qsgd_dequantize_blocks`.  Each takes a tensor on the card to its
+hand-written CUDA kernel in `repro_torch/csrc/qsgd.cu` and a tensor on the
+CPU to its plain torch version (`*_plain`, in this module).  A CUDA tensor
+never falls back to the plain version: the wrapper launches the kernel or
+raises.  Kernels are built at first use and counted in `build.LAUNCHES`.
 
-The kernels are built with `nvcc` for `sm_90a` at first use, into
-`build/kernels/` at the repository root, and loaded through a plain C
-interface with ctypes.  `LAUNCHES` counts the kernel launches each wrapper
-made, so a run can show that it went through the kernels.
-
-Unlike the TPU kernels they replace, the quantizer takes the senders' key
-words instead of a uniform tensor: it computes the dither of the reference's
-`ops._cheap_uniform` itself (see the note in `qsgd.cu`).
+Unlike the TPU kernels they replace, the quantizers take the key words
+instead of a uniform tensor: they compute the dither of the reference's
+`ops._cheap_uniform` themselves (see the note in `qsgd.cu`).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
+import functools
 
 import torch
 
+from repro_torch.kernels.build import LAUNCHES, library
 from repro_torch.kernels.ref import (
     MASK32,
     cheap_uniform_ref,
     i32_to_u32,
     qsgd_code_bits,
+    qsgd_dequantize_blocks_ref,
     qsgd_dequantize_codes_ref,
+    qsgd_quantize_blocks_ref,
     qsgd_quantize_codes_ref,
     u32_to_i32,
 )
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "qsgd.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_BLOCK = 4096
 MAX_LEVELS = 127  # codes in [0, 2s] must fit the kernels' 8 bit planes
 
-LAUNCHES = {"qsgd_quantize_pack": 0, "qsgd_unpack_dequantize": 0}
-_lib: ctypes.CDLL | None = None
 
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(cuda_home) / "bin" / "nvcc")
-
-
-def build() -> tuple[Path, str]:
-    """Compile `csrc/qsgd.cu` unless a library of the same source exists.
-    Returns (library path, compiler log; empty when nothing was built)."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libqsgd_{digest[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
-
-
+@functools.cache
 def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.qsgd_quantize_pack.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        lib.qsgd_quantize_pack.restype = i32
-        lib.qsgd_unpack_dequantize.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-        lib.qsgd_unpack_dequantize.restype = i32
-        _lib = lib
-    return _lib
+    lib = library("qsgd")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.qsgd_quantize_pack.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.qsgd_unpack_dequantize.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.qsgd_quantize.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.qsgd_dequantize.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    for fn in (lib.qsgd_quantize_pack, lib.qsgd_unpack_dequantize, lib.qsgd_quantize,
+               lib.qsgd_dequantize):
+        fn.restype = i32
+    return lib
 
 
 def _check_shape(block: int, s: int) -> None:
@@ -213,4 +169,71 @@ def qsgd_unpack_dequantize(payload: torch.Tensor, norms: torch.Tensor, s: int,
     if err:
         raise RuntimeError(f"qsgd_unpack_dequantize launch failed: cudaError {err}")
     LAUNCHES["qsgd_unpack_dequantize"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dense codes: quantize to signed int8, dequantize
+# ---------------------------------------------------------------------------
+
+
+def qsgd_quantize_blocks_plain(v: torch.Tensor, key: torch.Tensor, s: int):
+    """The kernel's function in plain torch: the `_cheap_uniform` dither of
+    the key over the flat index of the whole (nb, block) array, then the
+    reference quantizer."""
+    nb, block = v.shape
+    u = cheap_uniform_ref(key.reshape(1, 2), nb * block).reshape(nb, block)
+    return qsgd_quantize_blocks_ref(v, u, s)
+
+
+def qsgd_dequantize_blocks_plain(q: torch.Tensor, norms: torch.Tensor, s: int) -> torch.Tensor:
+    return qsgd_dequantize_blocks_ref(q, norms, s)
+
+
+def qsgd_quantize_blocks(v: torch.Tensor, key: torch.Tensor, s: int):
+    """QSGD quantize of one message's blocks to dense codes.
+
+    v: (nb, block) f32; key: (2,) int32 key words (uint32 bit patterns) on
+    v's device.  Returns (q (nb, block) int8 in [-s, s], norms (nb,) f32)."""
+    nb, block = v.shape
+    _check_shape(block, s)
+    if key.shape != (2,):
+        raise ValueError(f"key must be (2,), got {tuple(key.shape)}")
+    if nb * block > MASK32 + 1:
+        raise ValueError("the padded message must fit 32-bit indices")
+    if v.device.type == "cpu":
+        return qsgd_quantize_blocks_plain(v, key, s)
+    _check_cuda(v, torch.float32, "v", align=16)
+    _check_cuda(key, torch.int32, "key")
+    if nb < 1:
+        raise ValueError("nothing to encode")
+    q = torch.empty((nb, block), dtype=torch.int8, device=v.device)
+    norms = torch.empty((nb,), dtype=torch.float32, device=v.device)
+    err = _load().qsgd_quantize(v.data_ptr(), key.data_ptr(), q.data_ptr(), norms.data_ptr(),
+                                nb, block, s, _stream(v))
+    if err:
+        raise RuntimeError(f"qsgd_quantize launch failed: cudaError {err}")
+    LAUNCHES["qsgd_quantize"] += 1
+    return q, norms
+
+
+def qsgd_dequantize_blocks(q: torch.Tensor, norms: torch.Tensor, s: int) -> torch.Tensor:
+    """Dense codes back to values: q (nb, block) int8 + norms (nb,) f32 ->
+    q * (norm / s) as (nb, block) f32."""
+    rows, block = q.shape
+    _check_shape(block, s)
+    if norms.shape != (rows,):
+        raise ValueError(f"norms {tuple(norms.shape)} do not match q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return qsgd_dequantize_blocks_plain(q, norms, s)
+    _check_cuda(q, torch.int8, "q")
+    _check_cuda(norms, torch.float32, "norms")
+    if rows < 1:
+        raise ValueError("nothing to decode")
+    out = torch.empty((rows, block), dtype=torch.float32, device=q.device)
+    err = _load().qsgd_dequantize(q.data_ptr(), norms.data_ptr(), out.data_ptr(), rows, block,
+                                  s, _stream(q))
+    if err:
+        raise RuntimeError(f"qsgd_dequantize launch failed: cudaError {err}")
+    LAUNCHES["qsgd_dequantize"] += 1
     return out

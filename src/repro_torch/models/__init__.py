@@ -1,1 +1,2 @@
-"""Appendix-A classifiers (MLP, LeNet) and the FedModel adapter."""
+"""Models: the Appendix-A classifiers (MLP, LeNet), the transformer LM, and
+their FedModel adapters."""

@@ -1,0 +1,167 @@
+"""GQA self-attention, full or sliding-window (port of the training path of
+`repro/models/attention.py`).
+
+Training attention is *blockwise*: an online softmax over KV chunks, so the
+(T, S) score matrix is never held whole.  With `cfg.use_flash` it goes
+through the flash-attention kernel instead (`FlashAttention`): the forward
+is the kernel, and the backward recomputes attention with this module's
+blockwise path and differentiates that, as the reference's
+`_flash_attention_ad` does.  Residuals are (q, k, v) only.
+
+`FlashAttention` is a `torch.autograd.Function` with a `vmap` rule, so it
+composes with `torch.func.vmap(grad_and_value(loss))`, the engine's
+per-client step: the rule folds the vmapped client axis into the batch
+axis, and one kernel launch serves every client of a step.  (A
+`torch.library.custom_op` with `register_autograd` cannot run under
+`torch.func` transforms: its generated autograd function has no
+`setup_context`.)
+
+Not ported: decode attention with caches, and MLA.
+
+Shapes: x (B, T, D); q (B, T, H, hd); kv (B, S, Hkv, hd).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.func import vjp
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import apply_rope, dense_init, rms_norm, rope_angles
+
+NEG_INF = -1e30
+
+
+def init_attention(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()) -> dict:
+    """Attention params; `lead` = (layers,) stacks that many blocks."""
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, d, h * hd, lead=lead, dtype=dtype),
+        "wk": dense_init(gen, d, hkv * hd, lead=lead, dtype=dtype),
+        "wv": dense_init(gen, d, hkv * hd, lead=lead, dtype=dtype),
+        "wo": dense_init(gen, h * hd, d, lead=lead, dtype=dtype),
+    }
+    dev = gen.device
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((*lead, h * hd), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((*lead, hkv * hd), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((*lead, hkv * hd), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((*lead, hd), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones((*lead, hd), dtype=dtype, device=dev)
+    return p
+
+
+def blockwise_attention(q, k, v, *, causal: bool, window: int | None = None,
+                        kv_block: int = 512, q_offset: int = 0):
+    """Online-softmax attention. q (B,T,H,hd), k/v (B,S,Hkv,hd) -> (B,T,H,hd).
+
+    Loops over S in `kv_block` chunks keeping running (max, sum, acc), as
+    the reference's `lax.scan` does.  GQA: H % Hkv == 0, kv heads broadcast.
+    `q_offset`: absolute position of q[0] (0 for training)."""
+    B, T, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    pad = (-S) % kv_block
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    nblk = (S + pad) // kv_block
+
+    qf = (q * scale).float().reshape(B, T, Hkv, g, hd)
+    kf, vf = k.float(), v.float()
+    q_pos = q_offset + torch.arange(T, device=q.device)
+    m = torch.full((B, T, Hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, T, Hkv, g), dtype=torch.float32, device=q.device)  # noqa: E741
+    acc = torch.zeros((B, T, Hkv, g, hd_v), dtype=torch.float32, device=q.device)
+    for i in range(nblk):
+        kblk = kf[:, i * kv_block:(i + 1) * kv_block]
+        vblk = vf[:, i * kv_block:(i + 1) * kv_block]
+        kv_pos = i * kv_block + torch.arange(kv_block, device=q.device)
+        s = torch.einsum("bthgd,bshd->bthgs", qf, kblk)
+        mask = (kv_pos[None, :] < S).expand(T, kv_block)  # padding
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(mask[None, :, None, None, :], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)  # noqa: E741
+        acc = acc * corr[..., None] + torch.einsum("bthgs,bshd->bthgd", p, vblk)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, T, H, hd_v).to(q.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the kernel's forward, the blockwise
+    path's backward (recomputed from the residuals q, k, v).  The backward
+    launches no kernel: the reference has no backward kernel either."""
+
+    @staticmethod
+    def forward(q, k, v, causal: bool, window: int | None):
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+
+    @staticmethod
+    def backward(ctx, ct):
+        q, k, v = ctx.saved_tensors
+        _, pullback = vjp(
+            lambda q, k, v: blockwise_attention(q, k, v, causal=ctx.causal, window=ctx.window),
+            q, k, v)
+        return (*pullback(ct), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        """Fold the vmapped axis into the batch axis: one launch for all."""
+        n = info.batch_size
+
+        def folded(x, dim):
+            x = x.movedim(dim, 0) if dim is not None else x.expand(n, *x.shape)
+            return x.reshape(n * x.shape[1], *x.shape[2:])
+
+        q, k, v = (folded(x, d) for x, d in zip((q, k, v), in_dims[:3]))
+        out = FlashAttention.apply(q, k, v, causal, window)
+        return out.reshape(n, -1, *out.shape[1:]), 0
+
+
+def _project_qkv(cfg: ArchConfig, p, x, positions):
+    B, T, _ = x.shape
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, T, h, hd)
+    k = k.reshape(B, T, hkv, hd)
+    v = v.reshape(B, T, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def attention_forward(cfg: ArchConfig, p, x, *, window: int | None = None):
+    """Training self-attention (causal)."""
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    if cfg.use_flash:
+        out = FlashAttention.apply(q, k, v, True, window)
+    else:
+        out = blockwise_attention(q, k, v, causal=True, window=window)
+    return out.reshape(B, T, -1) @ p["wo"]

@@ -1,0 +1,60 @@
+"""Shared neural building blocks (port of `repro/models/common.py`).
+
+Plain functions over tensors in the reference's layouts: dense weights
+(in, out), activations (..., T, H, D).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(gen: torch.Generator, n_in: int, n_out: int, *, scale: float | None = None,
+               lead: tuple = (), dtype=torch.float32) -> torch.Tensor:
+    """Normal weights of shape (*lead, n_in, n_out) times `scale` (default
+    1/sqrt(n_in)), drawn in f32 on the generator's device."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(n_in)
+    w = torch.randn((*lead, n_in, n_out), generator=gen, device=gen.device, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions: (..., T) int -> cos, sin of shape (..., T, head_dim//2)."""
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta ** exponent)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., T, H, D); cos/sin: (..., T, D/2). Rotate-half convention."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    if name == "relu":
+        return F.relu
+    raise ValueError(name)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits (B, T, V) any float dtype; labels (B, T) int. Mean NLL in f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - ll)

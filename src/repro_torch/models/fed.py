@@ -1,19 +1,27 @@
-"""FedModel adapter for the Appendix-A classifiers (port of `repro/models/fed.py`).
+"""FedModel adapters (port of `repro/models/fed.py`).
 
-`ClassifierFedModel` is what the round engine sees of the task: parameter
-init, the loss of one batch ``{"x": images, "y": labels}`` and the test-set
-accuracy.  The LM model is not ported yet.
+A FedModel is what the round engine sees of the task: parameter init, the
+loss of one batch tree, and the held-out metric.
+
+  * `ClassifierFedModel` — the Appendix-A classifiers; batches are
+    ``{"x": images, "y": labels}`` and the metric is test-set accuracy.
+  * `LMFedModel` — a decoder transformer LM from `configs.ArchConfig` +
+    `models.transformer`; batches are ``{"tokens", "labels"}`` and the
+    metric is held-out perplexity (lower is better).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.data.loader import batch_iterator
+from repro_torch.models import transformer as tf
 from repro_torch.models.classifier import Classifier
-from repro_torch.utils import tree_leaves
+from repro_torch.utils import resolve_device, tree_leaves
 
 Tree = Any
 Batch = Any
@@ -51,8 +59,59 @@ class ClassifierFedModel:
         return n_correct / max(n, 1)
 
 
-def as_fed_model(model) -> ClassifierFedModel:
-    """Raw `Classifier`s get wrapped; FedModels pass through."""
+@dataclasses.dataclass(frozen=True)
+class LMFedModel:
+    """Decoder transformer LM as a FedModel.
+
+    Batch = {"tokens": (B, T) int32, "labels": (B, T) int32}; the loss is the
+    next-token cross entropy of `models.transformer.loss_fn`, the metric the
+    perplexity over a fixed held-out batch set.  `flash` routes
+    self-attention through the flash-attention kernel (sets
+    `cfg.use_flash`).  Not ported: `remat=True` and the blocks
+    `transformer.check_ported` names; both raise NotImplementedError."""
+
+    cfg: ArchConfig
+    remat: bool = False
+    flash: bool = False
+
+    metric_name: str = dataclasses.field(default="perplexity", init=False)
+    metric_mode: str = dataclasses.field(default="min", init=False)
+
+    def __post_init__(self):
+        if self.remat:
+            raise NotImplementedError("LMFedModel(remat=True) is not ported to repro_torch yet")
+        tf.check_ported(self.cfg)
+
+    @property
+    def name(self) -> str:
+        return f"lm-{self.cfg.name}"
+
+    def _run_cfg(self) -> ArchConfig:
+        if self.flash and not self.cfg.use_flash:
+            return dataclasses.replace(self.cfg, use_flash=True)
+        return self.cfg
+
+    def init(self, seed: int = 0, device=None) -> Tree:
+        return tf.init_params(self.cfg, seed, resolve_device(device))
+
+    def loss(self, params: Tree, batch: Batch) -> torch.Tensor:
+        return tf.loss_fn(self._run_cfg(), params, batch)
+
+    def eval_metric(self, params: Tree, eval_data) -> float:
+        """exp(mean next-token CE) over `eval_data`: a batch dict with a
+        leading eval-batch axis on every leaf (numpy), one forward each."""
+        device = tree_leaves(params)[0].device
+        n = len(next(iter(eval_data.values())))
+        with torch.no_grad():
+            losses = [self.loss(params, {k: torch.from_numpy(np.ascontiguousarray(a[i]))
+                                         .to(device) for k, a in eval_data.items()})
+                      for i in range(n)]
+            return float(torch.exp(torch.stack(losses).mean()))
+
+
+def as_fed_model(model):
+    """Raw `Classifier`s get wrapped; FedModels (`LMFedModel` included) pass
+    through."""
     if isinstance(model, Classifier):
         return ClassifierFedModel(model)
     return model

@@ -1,9 +1,10 @@
-"""Small shared utilities: nested-dict tree helpers, device resolution.
+"""Small shared utilities: tree helpers over dicts and lists, device resolution.
 
-Parameters, gradients and messages are nested dicts of tensors.  Leaves are
-always visited in sorted-key order, the order `jax.tree.flatten` gives a
-dict in the reference package: per-leaf QSGD keys and per-leaf message
-sizes depend on that order, so every helper here keeps it.
+Parameters, gradients and messages are trees of tensors: nested dicts,
+lists and tuples.  Leaves are visited in the order `jax.tree.flatten` gives
+the same tree in the reference package (dict keys sorted, lists and tuples
+in index order, an empty container has no leaves): per-leaf QSGD keys and
+per-leaf message sizes depend on that order, so every helper here keeps it.
 """
 from __future__ import annotations
 
@@ -11,33 +12,40 @@ from typing import Any, Callable
 
 import torch
 
-Tree = Any  # nested dict of tensors (or a bare tensor)
+Tree = Any  # nested dicts / lists / tuples of tensors (or a bare tensor)
 
 
 def tree_flatten(tree: Tree) -> tuple[list, Any]:
-    """Leaves in sorted-key order, plus the structure to rebuild the tree."""
+    """Leaves in `jax.tree.flatten` order, plus the structure to rebuild the
+    tree: None for a leaf, else (container type, keys, child structures,
+    leaves per child)."""
     if isinstance(tree, dict):
-        leaves, defs = [], []
-        for k in sorted(tree):
-            sub, d = tree_flatten(tree[k])
-            leaves += sub
-            defs.append((k, d, len(sub)))
-        return leaves, defs
-    if isinstance(tree, tuple) and not tree:
-        return [], ()
-    return [tree], None
+        keys = sorted(tree)
+        children = [tree[k] for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys, children = None, list(tree)
+    else:
+        return [tree], None
+    leaves, defs, counts = [], [], []
+    for child in children:
+        sub, d = tree_flatten(child)
+        leaves += sub
+        defs.append(d)
+        counts.append(len(sub))
+    return leaves, (type(tree), keys, defs, counts)
 
 
 def tree_unflatten(treedef: Any, leaves: list) -> Tree:
     if treedef is None:
         return leaves[0]
-    if treedef == ():
-        return ()
-    out, i = {}, 0
-    for k, d, n in treedef:
-        out[k] = tree_unflatten(d, leaves[i : i + n])
+    kind, keys, defs, counts = treedef
+    children, i = [], 0
+    for d, n in zip(defs, counts):
+        children.append(tree_unflatten(d, leaves[i : i + n]))
         i += n
-    return out
+    if kind is dict:
+        return dict(zip(keys, children))
+    return kind(children)
 
 
 def tree_leaves(tree: Tree) -> list:

@@ -1,7 +1,8 @@
 """Carry parameters from the reference package into the port.
 
 The port stores weights in the reference's layout (dense (in, out), conv
-HWIO), so the conversion is a copy of every leaf, key for key.
+HWIO, a transformer's layers stacked on a leading axis), so the conversion
+is a copy of every leaf, key for key and index for index.
 """
 from __future__ import annotations
 
@@ -14,9 +15,11 @@ from repro_torch.utils import resolve_device
 
 
 def params_from_jax(np_tree: Any, device=None) -> Any:
-    """Nested dict of arrays (e.g. `np.asarray` of the reference's params) ->
-    the same nested dict of tensors on `device` (the card unless asked)."""
+    """Tree of arrays (e.g. `np.asarray` of the reference's params: dicts and
+    lists) -> the same tree of tensors on `device` (the card unless asked)."""
     device = resolve_device(device)
     if isinstance(np_tree, dict):
         return {k: params_from_jax(v, device) for k, v in np_tree.items()}
+    if isinstance(np_tree, (list, tuple)):
+        return type(np_tree)(params_from_jax(v, device) for v in np_tree)
     return torch.from_numpy(np.array(np_tree, copy=True)).to(device)

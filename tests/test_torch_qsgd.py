@@ -1,5 +1,5 @@
-"""The port's QSGD wire (dither, quantize->pack, unpack->dequantize, tree
-wrappers, channel sizes) against the reference package.
+"""The port's QSGD (dither, quantize->pack, unpack->dequantize, the dense
+codes, tree wrappers, channel sizes) against the reference package.
 
 The reference's Pallas kernels run as its own tests run them on the CPU, in
 interpret mode; its `kernels.ops` routes to the jnp oracle.
@@ -23,7 +23,13 @@ from repro.comm.channels import channel_wire_bits as jax_channel_wire_bits
 from repro.core.engine import compress_uplinks as jax_compress_uplinks
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro.kernels.qsgd import qsgd_quantize_pack_blocks, qsgd_unpack_dequantize_blocks
+from repro.kernels.qsgd import (
+    qsgd_dequantize_blocks,
+    qsgd_quantize_blocks,
+    qsgd_quantize_pack_blocks,
+    qsgd_unpack_dequantize_blocks,
+)
+from repro_torch import comm
 from repro_torch.comm.channels import DenseChannel, QSGDChannel, channel_wire_bits
 from repro_torch.core.engine import compress_uplinks
 from repro_torch.kernels import ops, qsgd, ref
@@ -167,3 +173,52 @@ def test_channel_rejects_what_the_kernels_cannot_take():
         QSGDChannel(16, block=100)
     with pytest.raises(ValueError):
         qsgd.qsgd_quantize_pack(torch.zeros(1, 1, 8192), torch.zeros(1, 2, dtype=torch.int32), 16)
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 1024), (5000,), (2, 3, 700)])
+@pytest.mark.parametrize("s", [1, 16, 127])
+def test_dense_codes_bit_exact_on_dyadic_inputs(s, shape):
+    """`qsgd_quantize` pads to tiles of 8 blocks and keeps the padded rows;
+    codes and norms equal the reference's bit for bit.  Dequantized values
+    and the roundtrip at the same key agree to rtol 1e-6: the port divides
+    norm / s correctly rounded, as the CUDA kernel does, while XLA's jit of
+    the reference rewrites the division by the constant s (at s = 3 its
+    result differs from the correctly rounded one in the last place at
+    about a quarter of the entries)."""
+    rng = np.random.default_rng(s + len(shape))
+    v = dyadic(rng, shape)
+    key = key_words(s * 3 + 1)
+    jq, jnorms, jn = jops.qsgd_quantize(jnp.asarray(v), jnp.asarray(key), s=s)
+    q, norms, n = comm.qsgd_quantize(torch.from_numpy(v), key, s=s)
+    assert n == jn and q.dtype == torch.int8 and q.shape == jq.shape
+    assert q.shape[0] % 8 == 0
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(norms.numpy(), np.asarray(jnorms))
+    want = jops.qsgd_dequantize(jq, jnorms, s=s, shape=shape)
+    got = comm.qsgd_dequantize(q, norms, s=s, shape=shape)
+    assert got.shape == shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(
+        comm.qsgd_roundtrip(torch.from_numpy(v), key, s=s).numpy(),
+        np.asarray(jops.qsgd_roundtrip(jnp.asarray(v), jnp.asarray(key), s=s)),
+        rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("s", [3, 16])
+def test_dense_code_plain_versions_match_the_pallas_kernels(s):
+    """The plain versions against the reference's Pallas kernels, run in
+    interpret mode, with the dither of the same key (dequantized values to
+    rtol 1e-6, for the reason above)."""
+    rng = np.random.default_rng(s)
+    v = dyadic(rng, (16, 128))
+    v[3] = 0.0
+    key = key_words(s)
+    u = jops._cheap_uniform(jnp.asarray(key), v.shape)
+    jq, jnorms = qsgd_quantize_blocks(jnp.asarray(v), u, s=s)
+    q, norms = qsgd.qsgd_quantize_blocks(torch.from_numpy(v),
+                                         torch.from_numpy(key.view(np.int32).copy()), s)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(norms.numpy(), np.asarray(jnorms))
+    np.testing.assert_allclose(qsgd.qsgd_dequantize_blocks(q, norms, s).numpy(),
+                               np.asarray(qsgd_dequantize_blocks(jq, jnorms, s=s)),
+                               rtol=1e-6, atol=0)

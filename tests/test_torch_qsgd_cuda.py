@@ -44,3 +44,24 @@ def test_cuda_kernels_match_plain_versions(s):
                                                 c_norms.reshape(-1), s, block)
             torch.cuda.synchronize()
             assert torch.equal(c_out.cpu(), out)
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA GPU with nvcc")
+@pytest.mark.parametrize("s", LEVELS)
+def test_cuda_dense_code_kernels_match_plain_versions(s):
+    rng = np.random.default_rng(100 + s)
+    for block in BLOCKS:
+        for nb in (1, 8, 300):
+            v = dyadic(rng, (nb, block))
+            v[0] = 0.0
+            key = torch.from_numpy(rng.integers(0, 2**32, size=2, dtype=np.uint32)
+                                   .view(np.int32))
+            q, norms = qsgd.qsgd_quantize_blocks_plain(torch.from_numpy(v), key, s)
+            c_q, c_norms = qsgd.qsgd_quantize_blocks(torch.from_numpy(v).cuda(), key.cuda(), s)
+            torch.cuda.synchronize()
+            assert torch.equal(c_q.cpu(), q)
+            assert torch.equal(c_norms.cpu(), norms)
+            out = qsgd.qsgd_dequantize_blocks_plain(q, norms, s)
+            c_out = qsgd.qsgd_dequantize_blocks(c_q, c_norms, s)
+            torch.cuda.synchronize()
+            assert torch.equal(c_out.cpu(), out)
