@@ -32,10 +32,15 @@ Phases, each of which fails the script (non-zero exit, no result line):
         every leaf of the trained LM;
      d. a 2-layer smoke-config LM run on the card held against the same run
         on the CPU's plain path, beside two controls on the CPU that the
-        bounds must reject: no update at all, and unquantized uplinks;
+        bounds must reject: no update at all, and unquantized uplinks; then
+        the same LM in grad mode (dense uplinks, no code to flip), held to
+        GRAD_BOUND of its update, beside a wrong-mask control on the CPU;
   4. time each kernel at its path's shapes with CUDA events (L2 flushed
-     before every launch), beside its plain version, its bound and, for
-     flash attention, torch's scaled_dot_product_attention.
+     before every launch, the card kept busy while the host enqueues it),
+     beside its plain version, its bound and, for flash attention, torch's
+     scaled_dot_product_attention.  Flash f32 is bounded by its 3xTF32 route
+     (3 x operations at the TF32 rate) and also printed against the f32 FMA
+     bound of the CUDA cores.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; exits non-zero without
 one, and outside a checkout of the repository.
@@ -53,12 +58,17 @@ import time
 from pathlib import Path
 
 LEVELS = (1, 3, 7, 15, 16, 127)
-BLOCKS = (128, 1024)
+BLOCKS = (32, 96, 128, 1024, 4096)  # W = block / 32 = 1, 3, 4, 32, 128
 NBS = (1, 7, 6272)
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12    # H100 SXM TF32 tensor cores, dense
 MAIN_ROUNDS, MAIN_K, MAIN_E = 6, 20, 5
+# phase 3d grad mode: card-vs-CPU gap over the update p_T - p_0.  With the
+# earlier flash kernel (f32 on the CUDA cores) an H100 80GB HBM3 at 700 W
+# read 5.36e-6, and the wrong-mask control 1.2.
+GRAD_BOUND = 1e-4
 
 # the LM path: qwen3-0.6b, 4 clients in 2 clusters (the example's i % 2)
 LM_ARCH = "qwen3-0.6b"
@@ -69,9 +79,9 @@ LM_LR = 3.0  # constant plain-SGD step, finite at this width
 LM_LEAVES, LM_PARAMS = 14, 751_632_384
 
 # flash attention: the reference's kernel-test sweep, and the path's shape
-FLASH_TS = ((128, 128), (64, 256), (200, 200), (50, 77))
+FLASH_TS = ((128, 128), (64, 256), (200, 200), (50, 77), (80, 70))
 FLASH_HEADS = ((4, 4), (8, 2), (16, 8))
-FLASH_HDS = (32, 64, 128)
+FLASH_HDS = tuple(range(32, 257, 32))  # every head dim the kernel takes
 FLASH_WINDOWS = (None, 16, 64)
 FLASH_PATH = (LM_BATCH * 2, LM_SEQ, LM_SEQ, 16, 8, 128)  # B (2 clients x 2), T, S, H, Hkv, hd
 
@@ -83,6 +93,59 @@ REPLACES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:57"),
 }
+
+
+# kernels whose ptxas lines phase 1 prints, and which must not spill; the
+# packing kernel as the paths launch it: block 1024 (NV 8), s = 16
+PACK_LEVELS = 16
+
+
+def ptxas_shown(ref) -> dict[str, str]:
+    bits = ref.qsgd_code_bits(PACK_LEVELS)
+    return {"flash f32, hd 128": "flash_fwd_kernelIfLi128E",
+            "flash bf16, hd 128": "flash_fwd_kernelI13__nv_bfloat16Li128E",
+            f"quantize -> pack, block 1024, s = {PACK_LEVELS}":
+                f"quantize_pack_regs_kernelILi8ELi{bits}E"}
+
+
+def ptxas_kernels(log: str) -> list[tuple[str, int, int, int]]:
+    """(mangled name, registers, spill-store bytes, spill-load bytes) of each
+    kernel in an `nvcc -Xptxas -v` log."""
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spill = (nums[1], nums[2])
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            out.append((name, regs, *spill))
+            name, spill = None, (0, 0)
+    return out
+
+
+def sass_per_entry(lib, key: str) -> None:
+    """Static SASS of the packing kernel at block 1024, s = 16 (mangled name
+    `key`): its instructions over the 32 entries a lane packs per row."""
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    body = sass.split("Function : ")
+    fn = next(b for b in body if b.startswith("_Z") and key in b.split()[0])
+    ops = []
+    for ln in fn.splitlines():
+        if ln.strip().startswith("/*") and "*/" in ln and ";" in ln:
+            words = ln.split("*/", 1)[1].split(";")[0].split()
+            words = words[1:] if words and words[0].startswith("@") else words
+            if words:
+                ops.append(words[0].split(".")[0])
+    count = {op: ops.count(op) for op in ("VOTE", "LDG", "STG", "MUFU", "I2F", "F2I", "FRND")}
+    print(f"  SASS: quantize -> pack (block 1024, s = {PACK_LEVELS}, {key}): {len(ops)} "
+          f"instructions, "
+          f"{len(ops) / 32:.1f} per entry a lane packs in a row (static count); {count}")
 
 
 def fail(msg: str) -> None:
@@ -249,20 +312,44 @@ def flash_vs_plain(torch, fa):
         FLASH_TS, FLASH_HEADS, FLASH_HDS, masks)]
     cases.append(FLASH_PATH + (True, None))
     n_cases = 0
-    for (B, T, S, H, Hkv, hd, causal, window), dtype in itertools.product(cases, tol):
-        q, k, v = flash_inputs(torch, gen, B, T, S, H, Hkv, hd, dtype)
+
+    def held(q, k, v, causal, window, where):
+        nonlocal n_cases
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         d = float((out.float() - want.float()).abs().max())
-        check(out.dtype == dtype and out.shape == q.shape and d <= tol[dtype],
-              f"flash attention off by {d:.3g} at B={B} T={T} S={S} H={H} Hkv={Hkv} "
-              f"hd={hd} causal={causal} window={window} {dtype}")
-        worst[dtype] = max(worst[dtype], d)
+        check(out.dtype == q.dtype and out.shape == q.shape and d <= tol[q.dtype],
+              f"flash attention off by {d:.3g} at {where} causal={causal} window={window} "
+              f"{q.dtype}")
+        worst[q.dtype] = max(worst[q.dtype], d)
         n_cases += 1
+
+    for (B, T, S, H, Hkv, hd, causal, window), dtype in itertools.product(cases, tol):
+        q, k, v = flash_inputs(torch, gen, B, T, S, H, Hkv, hd, dtype)
+        held(q, k, v, causal, window, f"B={B} T={T} S={S} H={H} Hkv={Hkv} hd={hd}")
+    for dtype in tol:
+        # views into one fused projection (aligned rows, read through strides)
+        B, T, H, Hkv, hd = 2, 96, 8, 2, 64
+        fused = torch.randn((B, T, (H + 2 * Hkv) * hd), generator=gen).to(dtype).cuda()
+        q = fused[..., :H * hd].reshape(B, T, H, hd)
+        k = fused[..., H * hd:(H + Hkv) * hd].reshape(B, T, Hkv, hd)
+        v = fused[..., (H + Hkv) * hd:].reshape(B, T, Hkv, hd)
+        check(fa._rows_aligned(q) and not q.is_contiguous(), "the fused views")
+        for causal, window in masks:
+            held(q, k, v, causal, window, "fused-projection views")
+        # views one element past an aligned base: the wrapper's aligned copies
+        views = []
+        for shape in ((B, 70, H, 96), (B, 90, Hkv, 96), (B, 90, Hkv, 96)):
+            flat = torch.randn(math.prod(shape) + 1, generator=gen).to(dtype).cuda()
+            views.append(flat[1:].view(shape))
+        check(not any(fa._rows_aligned(x) for x in views), "the misaligned views")
+        for causal, window in masks:
+            held(*views, causal, window, "misaligned views")
     print(f"phase 2: flash attention vs plain passed on {n_cases} cases (T,S in {FLASH_TS}, "
-          f"H,Hkv in {FLASH_HEADS}, hd in {FLASH_HDS}, (causal, window) in {masks}, and "
-          f"the LM path's shape {FLASH_PATH}; f32 + bf16); max |diff| "
+          f"H,Hkv in {FLASH_HEADS}, hd in {FLASH_HDS}, (causal, window) in {masks}; the LM "
+          f"path's shape {FLASH_PATH}; fused-projection views and views off 16-byte "
+          f"alignment; f32 + bf16); max |diff| "
           f"{worst[torch.float32]:.3g} in f32, {worst[torch.bfloat16]:.3g} in bf16")
     return worst[torch.float32]
 
@@ -578,14 +665,47 @@ def lm_cross_check(torch):
     check(upd > 0.03, "the params bound would pass a run that never updates")
     check(ctrl_rel > 0.03 and ctrl_ppl > 0.02,
           "the bounds would pass a run whose uplinks skip the quantizer")
+    lm_grad_cross_check(torch, cfg, kw)
+
+
+def lm_grad_cross_check(torch, cfg, kw):
+    """Phase 3d, continued: the same smoke-config LM in grad mode (dense
+    uplinks, E = 1, 2 rounds, flash on), card against CPU.  No code can flip
+    here, so only float order separates the runs, and the gap is held to
+    GRAD_BOUND of the update p_T - p_0.  A CPU control with the wrong mask
+    (a 16-key window in place of full causal attention) must read above it."""
+    from repro_torch.comm.channels import DenseChannel
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+
+    config = FedCHSConfig(rounds=2, local_steps=4, local_epochs=1, eval_every=1,
+                          channel=DenseChannel(), seed=0, schedule=lambda k: 0.3)
+    on_card = run_fed_chs(lm_task(cfg, init_on_cpu=True, **kw), config)
+    cpu_task = lm_task(cfg, device="cpu", init_on_cpu=True, **kw)
+    p0 = cpu_task.init_params()
+    on_cpu = run_fed_chs(cpu_task, config)
+    _, upd_rel, upd, _ = card_vs_cpu(torch, on_card, on_cpu, p0)
+    ppl = max(abs(x / y - 1) for x, y in zip(on_card.test_acc, on_cpu.test_acc))
+    wrong = dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16)
+    ctrl = run_fed_chs(lm_task(wrong, device="cpu", init_on_cpu=True, **kw), config)
+    _, ctrl_rel, _, _ = card_vs_cpu(torch, ctrl, on_cpu, p0)
+    print(f"  grad mode (dense uplinks, E=1, 2 rounds), card vs CPU plain path: params gap "
+          f"{upd_rel:.3g} of the update p_T - p_0 (which is {upd:.3g} of p_T; bound "
+          f"{GRAD_BOUND:g}), perplexity within {ppl:.3g}; wrong-mask control on the CPU "
+          f"(window 16) reads {ctrl_rel:.3g}")
+    check(upd_rel <= GRAD_BOUND, "card grad-mode LM run strays from the CPU run")
+    check(ctrl_rel > GRAD_BOUND, "the grad-mode bound would pass a wrong attention mask")
 
 
 def time_launches(torch, fn, reps, flush):
-    """Median of per-launch CUDA-event times (ms), L2 flushed before each."""
+    """Median of per-launch CUDA-event times (ms), L2 flushed before each.
+    A spin of about a millisecond on the card comes first, so the host has
+    enqueued the flush, the events and the launch before the card reaches
+    them: the interval is the card's time, not the wrapper's host time."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
         flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -679,10 +799,15 @@ def flash_timings(torch, fa, flush):
     gen = torch.Generator().manual_seed(4)
     B, T, S, H, Hkv, hd = FLASH_PATH
     rows = {}
-    for dtype, ops_per_s in ((torch.float32, F32_OPS_PER_S), (torch.bfloat16, BF16_OPS_PER_S)):
+    # f32 runs as split TF32 on the tensor cores, three TF32 products per f32
+    # product: its rate is a third of TF32's, and that bounds the row
+    for dtype, ops_per_s in ((torch.float32, TF32_OPS_PER_S / 3),
+                             (torch.bfloat16, BF16_OPS_PER_S)):
         q, k, v = flash_inputs(torch, gen, B, T, S, H, Hkv, hd, dtype)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, T, hd) views
         nbytes, ops = flash_work(B, T, S, H, Hkv, hd, q.element_size())
+        if dtype == torch.float32:
+            nbytes_f32, ops_f32 = nbytes, ops
         rows[dtype] = timed_row(
             torch, flush, "flash_attention", f"B={B} T=S={T} H={H} Hkv={Hkv} hd={hd} {dtype}",
             nbytes, ops, lambda: fa.flash_attention(q, k, v, causal=True),
@@ -690,7 +815,16 @@ def flash_timings(torch, fa, flush):
             library=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                            enable_gqa=True),
             ops_per_s=ops_per_s)
-    return rows[torch.float32]
+    row, bf16 = rows[torch.float32], rows[torch.bfloat16]
+    fma_ms, fma_by = bound(nbytes_f32, ops_f32, F32_OPS_PER_S)
+    print(f"phase 4: flash_attention f32: {row['ms'] / row['bound_ms']:.2f}x the 3xTF32 bound "
+          f"(3 x operations at {TF32_OPS_PER_S / 1e12:g} TFLOP/s of dense TF32, "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}: the bound of the row); "
+          f"{row['ms'] / fma_ms:.2f}x the f32 FMA bound (operations at "
+          f"{F32_OPS_PER_S / 1e12:g} TFLOP/s outside the tensor cores, {fma_ms:.4f} ms by "
+          f"{fma_by}); {row['ms'] / row['library_ms']:.3f}x SDPA's f32 time; bf16 "
+          f"{bf16['ms'] / bf16['library_ms']:.3f}x SDPA's bf16 time")
+    return row
 
 
 def main() -> None:
@@ -718,10 +852,18 @@ def main() -> None:
     built = build.build()
     print(f"phase 1: built {', '.join(p.name for p, _ in built.values())} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for _, log in built.values():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"  ptxas: {line.strip()}")
+    kernels = [k for _, log in built.values() for k in ptxas_kernels(log)]
+    spilling = [k for k in kernels if k[2] or k[3]]
+    print(f"  ptxas: {len(kernels)} kernels, {len(spilling)} with spills")
+    shown = ptxas_shown(ref)
+    for name, regs, stores, loads in kernels:
+        if stores or loads or any(key in name for key in shown.values()):
+            print(f"  ptxas: {name}: {regs} registers, {stores} bytes spill stores, "
+                  f"{loads} bytes spill loads")
+    for name, key in shown.items():
+        hit = [k for k in kernels if key in k[0]]
+        check(len(hit) == 1 and hit[0][2] == hit[0][3] == 0, f"{name} spills (or is missing)")
+    sass_per_entry(built["qsgd"][0], shown[f"quantize -> pack, block 1024, s = {PACK_LEVELS}"])
 
     lm_sizes = lm_leaf_sizes(torch)
     err = packed_vs_plain(torch, qsgd, ref, lm_sizes)

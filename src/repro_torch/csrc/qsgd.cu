@@ -23,22 +23,37 @@
 //     sender's key words and the entry's flat index within the leaf (the
 //     keyed murmur3-fmix hash of the reference's ops._cheap_uniform), so the
 //     uniform tensor the TPU kernel reads never touches device memory;
-//   * one CTA owns one block row: float4 loads, a warp-shuffle plus shared
-//     memory reduction for the norm, codes staged in a [32][W+1] shared tile
-//     (the +1 pad spreads the stride-W column reads over the banks), and one
-//     __ballot_sync per bit plane builds a payload word: lane k of the warp
-//     for word w holds code k*W + w, exactly the reference's bit layout;
-//   * payload words and dequantized values are staged in shared memory and
-//     written with coalesced stores.
-// The packing quantizer runs over every sender of one leaf in one launch
-// (grid.y).  The dense-code quantizer is the same row pass without the
-// pack: it stores each thread's four codes as one char4, and its dither
-// index is the flat index of the whole padded message (one key per call, as
-// the reference's ops.qsgd_quantize draws it).
+//   * quantize -> pack: one warp owns a block row, and a persistent grid of
+//     warps walks over the rows of every sender of the leaf (one launch).
+//     Lane k holds the W = block/32 contiguous entries k*W .. k*W + W - 1 in
+//     registers (float4 loads), so register w of lane k is code k*W + w and
+//     one __ballot_sync over register w is word w of a bit plane: exactly
+//     the reference's bit layout, with no shared memory and no
+//     __syncthreads (the norm is a warp-shuffle sum).  Each warp loads the
+//     next row before it quantizes and packs this one, so a row's bytes
+//     stay in flight while it computes; lane w keeps word w of each plane
+//     and the warp stores the plane with one coalesced store.  The kernel
+//     is built for each code width at W = 32 (block 1024, the channels'
+//     default and the only block the model paths use); every other block
+//     takes a two-pass warp-per-row kernel, which handles any W;
+//   * unpack -> dequantize: one CTA owns one block row, codes staged in a
+//     [32][W+1] shared tile (the +1 pad spreads the stride-W column reads
+//     over the banks), payload words and dequantized values staged in
+//     shared memory and written with coalesced stores.
+// The dense-code quantizer is one CTA per row, a row pass without the pack:
+// it stores each thread's four codes as one char4, and its dither index is
+// the flat index of the whole padded message (one key per call, as the
+// reference's ops.qsgd_quantize draws it).
 //
-// Rounding: every float operation is an explicit round-to-nearest intrinsic
-// in the reference's order ((|v| / norm) * s, then + u; (c - s) * (norm / s)),
-// so no FMA contraction changes a code.  Never build with fast math.
+// Rounding: every float operation of a code is an explicit round-to-nearest
+// intrinsic in the reference's order ((|v| / norm) * s, then + u;
+// (c - s) * (norm / s)), so no FMA contraction changes a code.  Never build
+// with fast math.  The norm's sum of squares is the exception: its order is
+// not the reference's, and the two packing kernels sum differently (the
+// register kernel with four fused partial sums per lane, the two-pass kernel
+// with a multiply and an add per entry), so on inputs whose squares do not
+// add exactly their norms differ from the reference's, and from each other,
+// by rounding (held at rtol 1e-6); on dyadic inputs every sum is exact.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,15 +90,28 @@ __device__ __forceinline__ float block_sum(float x, float* scratch) {
   return __shfl_sync(0xffffffffu, t, 0);
 }
 
-__device__ __forceinline__ uint32_t quantize_one(float x, uint32_t half, float norm,
-                                                 float safe, int s) {
-  const float sf = static_cast<float>(s);
-  const float u = __fmul_rn(static_cast<float>(half), 1.0f / 65536.0f);
-  const float p = __fmul_rn(__fdiv_rn(fabsf(x), safe), sf);
-  float q = fminf(fmaxf(floorf(__fadd_rn(p, u)), 0.0f), sf);
-  if (!(norm > 0.0f)) q = 0.0f;
-  const int qi = static_cast<int>(q);
-  return static_cast<uint32_t>(s + (x > 0.0f ? qi : (x < 0.0f ? -qi : 0)));
+// The code c = s + sign(x) * q, q = clip(floor(|x| / norm * s + u), 0, s)
+// (0 where the norm is not positive), with u = half / 65536.  Every float
+// operation rounds as the reference's does; the steps around them use the
+// full-rate pipes instead of conversions (I2F, FRND, F2I run at a quarter
+// of the rate, and one entry needed three):
+//   * u: the float with bits 1.0f | half << 7 is 1 + half/65536 exactly, and
+//     subtracting 1 is exact;
+//   * floor: t lies in [0, s + 1) (fmaxf also sends NaN to 0, as the
+//     reference's clip does), so t + 2^23 rounded down is 2^23 + floor(t),
+//     whose low mantissa bits are the integer;
+//   * hi = s where the norm is positive and 0 where it is not: one clamp;
+//   * sign: m = -1 for a set sign bit, and (q ^ m) - m is -q (q is 0 for
+//     -0.0 and NaN, as the reference's 0).
+__device__ __forceinline__ uint32_t quantize_one(float x, uint32_t half, float safe, int s,
+                                                 int hi) {
+  const float u = __fadd_rn(__uint_as_float(0x3F800000u | (half << 7)), -1.0f);
+  const float p = __fmul_rn(__fdiv_rn(fabsf(x), safe), static_cast<float>(s));
+  const float t = fmaxf(__fadd_rn(p, u), 0.0f);
+  const int q = min(static_cast<int>(__float_as_uint(__fadd_rd(t, 8388608.0f)) - 0x4B000000u),
+                    hi);
+  const int m = static_cast<int>(__float_as_uint(x)) >> 31;
+  return static_cast<uint32_t>(s + ((q ^ m) - m));
 }
 
 // Loads one block row into registers (a float4 per thread and step) and
@@ -108,65 +136,161 @@ __device__ __forceinline__ float load_row_norm(const float4* __restrict__ vrow, 
 // Sign-folded codes of four entries whose first has the even flat index g:
 // they take the two halves of dither words g/2 and g/2 + 1.
 __device__ __forceinline__ void quantize4(const float4& x, uint32_t g, uint32_t k0,
-                                          uint32_t k1, float norm, float safe, int s,
+                                          uint32_t k1, float safe, int s, int hi,
                                           uint32_t (&codes)[4]) {
   const uint32_t h0 = dither_word(g >> 1, k0, k1);
   const uint32_t h1 = dither_word((g >> 1) + 1u, k0, k1);
-  codes[0] = quantize_one(x.x, h0 & 0xFFFFu, norm, safe, s);
-  codes[1] = quantize_one(x.y, h0 >> 16, norm, safe, s);
-  codes[2] = quantize_one(x.z, h1 & 0xFFFFu, norm, safe, s);
-  codes[3] = quantize_one(x.w, h1 >> 16, norm, safe, s);
+  codes[0] = quantize_one(x.x, h0 & 0xFFFFu, safe, s, hi);
+  codes[1] = quantize_one(x.y, h0 >> 16, safe, s, hi);
+  codes[2] = quantize_one(x.z, h1 & 0xFFFFu, safe, s, hi);
+  codes[3] = quantize_one(x.w, h1 >> 16, safe, s, hi);
 }
 
-// grid (nb, senders); v (senders, nb, block) f32; keys (senders, 2) words;
-// payload (senders, nb, bits*W) words; norms (senders, nb).
-__global__ void __launch_bounds__(kThreads)
-quantize_pack_kernel(const float* __restrict__ v, const uint32_t* __restrict__ keys,
-                     uint32_t* __restrict__ payload, float* __restrict__ norms,
-                     int nb, int block, int s, int bits) {
-  __shared__ uint32_t tile[32 * (kMaxW + 1)];
-  __shared__ uint32_t words[kMaxBits * kMaxW];
-  __shared__ float scratch[kWarps];
-  const int row = blockIdx.x, sender = blockIdx.y;
-  const size_t row_id = static_cast<size_t>(sender) * nb + row;
-  const int nvec = block >> 2, W = block >> 5;
-  const float4* vrow = reinterpret_cast<const float4*>(v + row_id * block);
+// ---------------------------------------------------------------------------
+// quantize -> pack: one warp owns a row, and a persistent grid of warps walks
+// over the rows of every sender.  Lane k holds the W = block / 32 contiguous
+// entries k*W .. k*W + W - 1, so register w of lane k is code k*W + w, and
+// one __ballot_sync over register w gives word w of a bit plane in the
+// reference's layout: no shared memory, no __syncthreads.
+// ---------------------------------------------------------------------------
 
-  float4 r[kVecPerThread];
-  const float norm = load_row_norm(vrow, nvec, r, scratch);
-  const float safe = norm > 0.0f ? norm : 1.0f;
-  const uint32_t k0 = keys[2 * sender], k1 = keys[2 * sender + 1];
-  const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(block);
+constexpr int kPackWarps = 4;  // warps per CTA of the packing kernels
 
+__device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int t = 0; t < kVecPerThread; ++t) {
-    const int i = threadIdx.x + t * kThreads;
-    if (i < nvec) {
-      // entries 4i..4i+3 of the row, at flat leaf index base + 4i
-      uint32_t codes[4];
-      quantize4(r[t], base + 4u * static_cast<uint32_t>(i), k0, k1, norm, safe, s, codes);
+  for (int o = 16; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// __ballot_sync of (x & bit) != 0, written so that the predicate is one
+// and-test of the register (the compiler's own form shifts, masks, compares)
+__device__ __forceinline__ uint32_t ballot_bit(uint32_t x, uint32_t bit) {
+  uint32_t r;
+  asm volatile("{\n.reg .pred p;\n.reg .b32 t;\nand.b32 t, %1, %2;\nsetp.ne.b32 p, t, 0;\n"
+      "vote.sync.ballot.b32 %0, p, 0xffffffff;\n}\n"
+      : "=r"(r)
+      : "r"(x), "r"(bit));
+  return r;
+}
+
+template <int NV>
+__device__ __forceinline__ void load_lane(const float4* __restrict__ src, float4 (&r)[NV]) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int e = 4 * i + c;
-        tile[(e / W) * (W + 1) + e % W] = codes[c];
+  for (int i = 0; i < NV; ++i) r[i] = __ldg(src + i);
+}
+
+// W = 4 NV words per plane (block 128 NV; launched at NV = 8).  The next row's
+// float4s are loaded before this row is quantized and packed, so each warp
+// keeps a row's bytes in flight while it computes.
+template <int NV, int BITS>
+__global__ void __launch_bounds__(32 * kPackWarps)
+quantize_pack_regs_kernel(const float* __restrict__ v, const uint32_t* __restrict__ keys,
+                          uint32_t* __restrict__ payload, float* __restrict__ norms,
+                          int nb, int senders, int s) {
+  constexpr int W = 4 * NV, block = 32 * W;
+  const int lane = threadIdx.x & 31;
+  const long long rows = static_cast<long long>(nb) * senders;
+  const long long step = static_cast<long long>(gridDim.x) * kPackWarps;
+  long long row_id = static_cast<long long>(blockIdx.x) * kPackWarps + (threadIdx.x >> 5);
+  const float4* lane_src = reinterpret_cast<const float4*>(v) + lane * NV;
+  float4 r[NV];
+  if (row_id < rows) load_lane<NV>(lane_src + row_id * (block / 4), r);
+  for (; row_id < rows; row_id += step) {
+    float4 x[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) x[i] = r[i];
+    if (row_id + step < rows) load_lane<NV>(lane_src + (row_id + step) * (block / 4), r);
+
+    // four partial sums (one per float4 lane) shorten the dependent chain;
+    // fused multiply-adds (the norm's order is not the reference's anyway,
+    // and on dyadic entries every square and sum is exact)
+    float ax = 0.0f, ay = 0.0f, az = 0.0f, aw = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      ax = __fmaf_rn(x[i].x, x[i].x, ax);
+      ay = __fmaf_rn(x[i].y, x[i].y, ay);
+      az = __fmaf_rn(x[i].z, x[i].z, az);
+      aw = __fmaf_rn(x[i].w, x[i].w, aw);
+    }
+    const float norm = __fsqrt_rn(warp_sum(__fadd_rn(__fadd_rn(ax, ay), __fadd_rn(az, aw))));
+    const float safe = norm > 0.0f ? norm : 1.0f;
+    const int hi = norm > 0.0f ? s : 0;  // codes' top level: none without a norm
+    const uint32_t sender = static_cast<uint32_t>(row_id) / static_cast<uint32_t>(nb);
+    const uint32_t row = static_cast<uint32_t>(row_id) - sender * static_cast<uint32_t>(nb);
+    const uint32_t k0 = keys[2 * sender], k1 = keys[2 * sender + 1];
+    // flat leaf index of this lane's first entry (even: W is a multiple of 4)
+    const uint32_t base = row * static_cast<uint32_t>(block) + static_cast<uint32_t>(lane * W);
+
+    // The codes first, four to a register (8 bits each), then the ballots.
+    // The division's rare slow path is a branch, and the compiler wraps a
+    // __ballot_sync that may follow divergence in a warp-sync sequence of a
+    // dozen instructions; after __syncwarp the inline vote is one VOTE.
+    uint32_t packed[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      uint32_t c4[4];
+      quantize4(x[i], base + 4u * i, k0, k1, safe, s, hi, c4);
+      packed[i] = c4[0] | (c4[1] << 8) | (c4[2] << 16) | (c4[3] << 24);
+    }
+    __syncwarp();
+
+    // word w of plane j = ballot of bit j of code w; lane w keeps it, and the
+    // warp stores each plane's W words with one coalesced store
+    uint32_t mine[BITS];
+#pragma unroll
+    for (int j = 0; j < BITS; ++j) mine[j] = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const bool keep = lane == w;
+#pragma unroll
+      for (int j = 0; j < BITS; ++j) {
+        const uint32_t word = ballot_bit(packed[w >> 2], 1u << (8 * (w & 3) + j));
+        mine[j] = keep ? word : mine[j];
       }
     }
+    uint32_t* out = payload + row_id * static_cast<long long>(BITS * W);
+#pragma unroll
+    for (int j = 0; j < BITS; ++j)
+      if (lane < W) out[j * W + lane] = mine[j];
+    if (lane == 0) norms[row_id] = norm;
   }
-  __syncthreads();
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int w = warp; w < W; w += kWarps) {
-    const uint32_t code = tile[lane * (W + 1) + w];
-    for (int j = 0; j < bits; ++j) {
-      const uint32_t word = __ballot_sync(0xffffffffu, (code >> j) & 1u);
-      if (lane == 0) words[j * W + w] = word;
+// Any W in [1, 128] (block 32 .. 4096): the same warp per row in two passes
+// over the row, the norm from coalesced loads, then one entry per lane and
+// word, its dither half picked from the entry's own word.
+__global__ void __launch_bounds__(32 * kPackWarps)
+quantize_pack_any_kernel(const float* __restrict__ v, const uint32_t* __restrict__ keys,
+                         uint32_t* __restrict__ payload, float* __restrict__ norms, int nb,
+                         int senders, int block, int s, int bits) {
+  const int lane = threadIdx.x & 31, W = block >> 5;
+  const long long rows = static_cast<long long>(nb) * senders;
+  const long long step = static_cast<long long>(gridDim.x) * kPackWarps;
+  for (long long row_id = static_cast<long long>(blockIdx.x) * kPackWarps + (threadIdx.x >> 5);
+       row_id < rows; row_id += step) {
+    const float* vrow = v + row_id * block;
+    float acc = 0.0f;
+    for (int e = lane; e < block; e += 32) acc = __fadd_rn(acc, __fmul_rn(vrow[e], vrow[e]));
+    const float norm = __fsqrt_rn(warp_sum(acc));
+    const float safe = norm > 0.0f ? norm : 1.0f;
+    const int hi = norm > 0.0f ? s : 0;  // codes' top level: none without a norm
+    const int sender = static_cast<int>(row_id / nb), row = static_cast<int>(row_id % nb);
+    const uint32_t k0 = keys[2 * sender], k1 = keys[2 * sender + 1];
+    uint32_t* out = payload + row_id * static_cast<long long>(bits * W);
+    for (int w = 0; w < W; ++w) {
+      const int e = lane * W + w;
+      const uint32_t g = static_cast<uint32_t>(row) * static_cast<uint32_t>(block) +
+                         static_cast<uint32_t>(e);
+      const uint32_t h = dither_word(g >> 1, k0, k1);
+      uint32_t code = quantize_one(vrow[e], (g & 1u) ? h >> 16 : h & 0xFFFFu, safe, s, hi);
+      for (int j = 0; j < bits; ++j) {
+        const uint32_t word = __ballot_sync(0xffffffffu, code & 1u);
+        code >>= 1;
+        if (lane == ((j * W + w) & 31)) out[j * W + w] = word;
+      }
     }
+    if (lane == 0) norms[row_id] = norm;
   }
-  __syncthreads();
-
-  uint32_t* out = payload + row_id * static_cast<size_t>(bits * W);
-  for (int i = threadIdx.x; i < bits * W; i += kThreads) out[i] = words[i];
-  if (threadIdx.x == 0) norms[row_id] = norm;
 }
 
 // grid (rows); payload (rows, bits*W) words; norms (rows,); out (rows, block).
@@ -217,6 +341,7 @@ quantize_kernel(const float* __restrict__ v, const uint32_t* __restrict__ key,
   float4 r[kVecPerThread];
   const float norm = load_row_norm(vrow, nvec, r, scratch);
   const float safe = norm > 0.0f ? norm : 1.0f;
+  const int hi = norm > 0.0f ? s : 0;  // codes' top level: none without a norm
   const uint32_t k0 = key[0], k1 = key[1];
   const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(block);
   char4* qrow = reinterpret_cast<char4*>(q + row * block);
@@ -226,7 +351,7 @@ quantize_kernel(const float* __restrict__ v, const uint32_t* __restrict__ key,
     const int i = threadIdx.x + t * kThreads;
     if (i < nvec) {
       uint32_t codes[4];
-      quantize4(r[t], base + 4u * static_cast<uint32_t>(i), k0, k1, norm, safe, s, codes);
+      quantize4(r[t], base + 4u * static_cast<uint32_t>(i), k0, k1, safe, s, hi, codes);
       qrow[i] = make_char4(static_cast<signed char>(static_cast<int>(codes[0]) - s),
                            static_cast<signed char>(static_cast<int>(codes[1]) - s),
                            static_cast<signed char>(static_cast<int>(codes[2]) - s),
@@ -256,13 +381,45 @@ dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ norms,
 
 }  // namespace
 
+// A persistent grid: as many CTAs as fit on the card at once, or fewer when
+// the rows run out.
+template <typename Kernel>
+int pack_grid(Kernel kernel, long long rows) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * kPackWarps, 0);
+  const long long want = (rows + kPackWarps - 1) / kPackWarps;
+  const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  return static_cast<int>(want < fit ? want : fit);
+}
+
 extern "C" int qsgd_quantize_pack(const float* v, const uint32_t* keys, uint32_t* payload,
                                   float* norms, int senders, int nb, int block, int s,
                                   int bits, void* stream) {
-  if (senders > 0 && nb > 0) {
-    quantize_pack_kernel<<<dim3(nb, senders), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(v, keys, payload, norms,
-                                                                nb, block, s, bits);
+  if (senders <= 0 || nb <= 0) return static_cast<int>(cudaGetLastError());
+  const long long rows = static_cast<long long>(senders) * nb;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int kT = 32 * kPackWarps;
+  if (bits < 2 || bits > kMaxBits) return static_cast<int>(cudaErrorInvalidValue);
+  // the register kernel at block 1024 (the channels' default) for each code
+  // width; every other block goes to the two-pass kernel
+  if (block == 1024) {
+    switch (bits) {
+#define QSGD_PACK(BITS)                                                                    \
+  case BITS: {                                                                             \
+    auto* k = quantize_pack_regs_kernel<8, BITS>;                                          \
+    k<<<pack_grid(k, rows), kT, 0, st>>>(v, keys, payload, norms, nb, senders, s);         \
+    break;                                                                                 \
+  }
+      QSGD_PACK(2) QSGD_PACK(3) QSGD_PACK(4) QSGD_PACK(5) QSGD_PACK(6) QSGD_PACK(7) QSGD_PACK(8)
+#undef QSGD_PACK
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    auto* k = quantize_pack_any_kernel;
+    k<<<pack_grid(k, rows), kT, 0, st>>>(v, keys, payload, norms, nb, senders, block, s,
+                                         bits);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -74,6 +74,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """The kernel copies rows of the head dim in 16-byte pieces: the head dim
+    must be contiguous and every row must start on 16 bytes."""
+    size = x.element_size()
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(st * size % 16 == 0 for st in x.stride()[:3]))
+
+
+def _aligned_copy(x: torch.Tensor) -> torch.Tensor:
+    """A fresh contiguous copy: its base is the allocator's (aligned) and its
+    strides are multiples of hd, so its rows start on 16 bytes."""
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None) -> torch.Tensor:
     """q (B,T,H,hd); k, v (B,S,Hkv,hd) -> (B,T,H,hd) in q's dtype."""
@@ -91,7 +105,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {hd}")
     if B * H >= 2**31 or T >= 65535 * 64:
         raise ValueError(f"too large for one launch: B*H={B * H}, T={T}")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    q, k, v = (x if _rows_aligned(x) else _aligned_copy(x) for x in (q, k, v))
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     err = _load().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],

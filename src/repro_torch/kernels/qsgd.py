@@ -132,8 +132,8 @@ def qsgd_quantize_pack(v: torch.Tensor, keys: torch.Tensor, s: int):
         return qsgd_quantize_pack_plain(v, keys, s)
     _check_cuda(v, torch.float32, "v", align=16)
     _check_cuda(keys, torch.int32, "keys")
-    if not 1 <= senders <= 65535:
-        raise ValueError(f"at most 65535 senders per launch, got {senders}")
+    if not 1 <= senders or senders * nb >= 2**31:
+        raise ValueError(f"need 1 <= senders and senders * nb < 2^31, got {senders} x {nb}")
     bits = qsgd_code_bits(s)
     payload = torch.empty((senders, nb, bits * block // 32), dtype=torch.int32, device=v.device)
     norms = torch.empty((senders, nb), dtype=torch.float32, device=v.device)

@@ -131,3 +131,25 @@ def test_wrapper_rejects_bad_inputs():
         flash_attention(q, k[..., :8], v[..., :8])
     with pytest.raises(ValueError, match="dtype"):
         flash_attention(q, k.double(), v.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_alignment_check_finds_views_the_kernel_cannot_copy(dtype):
+    """The kernel copies rows in 16-byte pieces: the wrapper must copy a view
+    whose base or strides break that, and only such a view."""
+    from repro_torch.kernels.flash_attention import _aligned_copy, _rows_aligned
+
+    B, T, H, hd = 2, 5, 3, 32
+    n = B * T * H * hd
+    flat = torch.arange(2 * n, dtype=torch.float32).to(dtype)
+    base = flat[:n].view(B, T, H, hd)
+    assert _rows_aligned(base)
+    fused = flat.view(B, T, 2 * H * hd)[..., :H * hd].reshape(B, T, H, hd)
+    assert not fused.is_contiguous() and _rows_aligned(fused)
+    shifted = flat[1:n + 1].view(B, T, H, hd)
+    assert not _rows_aligned(shifted)
+    odd = flat[:B * T * (H * hd + 1)].view(B, T, H * hd + 1)[..., 1:].reshape(B, T, H, hd)
+    assert not _rows_aligned(odd)
+    for x in (shifted, odd):
+        y = _aligned_copy(x)
+        assert _rows_aligned(y) and torch.equal(y, x)

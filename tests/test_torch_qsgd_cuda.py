@@ -15,7 +15,7 @@ from repro_torch.kernels import qsgd
 torch.set_num_threads(1)
 
 LEVELS = [1, 3, 7, 15, 16, 127]
-BLOCKS = [128, 1024]
+BLOCKS = [32, 96, 128, 1024, 4096]  # W = block / 32 = 1, 3, 4, 32, 128
 
 
 def dyadic(rng, shape):
