@@ -5,13 +5,17 @@
 
 Phases, each of which fails the script (non-zero exit, no result line):
   1. build every kernel source in src/repro_torch/csrc with nvcc for sm_90a,
-     one nvcc per source, all at once;
+     one nvcc per source, all at once; the ptxas lines of the kernels the
+     paths lean on (no spill allowed), and the static SASS of the QSGD
+     packing and unpacking kernels at block 1024 (the unpacking one must
+     have no barrier);
   2. hold each kernel against its plain torch version on the card, on a grid
      of shapes and at every shape the main paths give it (each leaf of the
      LeNet and qwen3-0.6b messages).  QSGD: bit for bit on dyadic inputs
      (entries k * 2^-8, |k| <= 64, whose block norms are exact in any
      summation order); on Gaussian inputs norms at rtol 1e-6 and codes
-     within 1 at no more than 0.1% of entries.  Flash attention: the
+     within 1 at no more than 0.1% of entries, and the dequantized values
+     of the kernel's own payload bit for bit.  Flash attention: the
      reference's kernel-test sweep, causal and not, plus the LM path's
      shape, atol 3e-5 in f32 and 2e-2 in bf16;
   3. the paths, through the entry points a user calls, each with the launch
@@ -40,7 +44,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
      beside its plain version, its bound and, for flash attention, torch's
      scaled_dot_product_attention.  Flash f32 is bounded by its 3xTF32 route
      (3 x operations at the TF32 rate) and also printed against the f32 FMA
-     bound of the CUDA cores.
+     bound of the CUDA cores.  Unpack -> dequantize is also timed over a
+     whole uplink message of each path, one launch per leaf.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; exits non-zero without
 one, and outside a checkout of the repository.
@@ -57,7 +62,7 @@ import sys
 import time
 from pathlib import Path
 
-LEVELS = (1, 3, 7, 15, 16, 127)
+LEVELS = (1, 3, 7, 15, 16, 63, 127)
 BLOCKS = (32, 96, 128, 1024, 4096)  # W = block / 32 = 1, 3, 4, 32, 128
 NBS = (1, 7, 6272)
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -96,7 +101,7 @@ REPLACES = {
 
 
 # kernels whose ptxas lines phase 1 prints, and which must not spill; the
-# packing kernel as the paths launch it: block 1024 (NV 8), s = 16
+# packing and unpacking kernels as the paths launch them: block 1024, s = 16
 PACK_LEVELS = 16
 
 
@@ -105,7 +110,9 @@ def ptxas_shown(ref) -> dict[str, str]:
     return {"flash f32, hd 128": "flash_fwd_kernelIfLi128E",
             "flash bf16, hd 128": "flash_fwd_kernelI13__nv_bfloat16Li128E",
             f"quantize -> pack, block 1024, s = {PACK_LEVELS}":
-                f"quantize_pack_regs_kernelILi8ELi{bits}E"}
+                f"quantize_pack_regs_kernelILi8ELi{bits}E",
+            f"unpack -> dequantize, block 1024, s = {PACK_LEVELS}":
+                f"unpack_dequantize_regs_kernelILi{bits}E"}
 
 
 def ptxas_kernels(log: str) -> list[tuple[str, int, int, int]]:
@@ -125,9 +132,10 @@ def ptxas_kernels(log: str) -> list[tuple[str, int, int, int]]:
     return out
 
 
-def sass_per_entry(lib, key: str) -> None:
-    """Static SASS of the packing kernel at block 1024, s = 16 (mangled name
-    `key`): its instructions over the 32 entries a lane packs per row."""
+def sass_per_entry(lib, label: str, key: str) -> dict[str, int]:
+    """Static SASS of one kernel (mangled name `key`) of library `lib`: its
+    instructions over the 32 entries a lane handles per row (block 1024), and
+    the count of a few of them.  Returns the counts."""
     from repro_torch.kernels import build
 
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
@@ -142,10 +150,11 @@ def sass_per_entry(lib, key: str) -> None:
             words = words[1:] if words and words[0].startswith("@") else words
             if words:
                 ops.append(words[0].split(".")[0])
-    count = {op: ops.count(op) for op in ("VOTE", "LDG", "STG", "MUFU", "I2F", "F2I", "FRND")}
-    print(f"  SASS: quantize -> pack (block 1024, s = {PACK_LEVELS}, {key}): {len(ops)} "
-          f"instructions, "
-          f"{len(ops) / 32:.1f} per entry a lane packs in a row (static count); {count}")
+    count = {op: ops.count(op) for op in ("VOTE", "LDG", "STG", "MUFU", "I2F", "F2I", "FRND",
+                                          "BAR")}
+    print(f"  SASS: {label} ({key}): {len(ops)} instructions, {len(ops) / 32:.1f} per entry "
+          f"a lane handles in a row (static count); {count}")
+    return count
 
 
 def fail(msg: str) -> None:
@@ -735,10 +744,11 @@ def timed_row(torch, flush, name, label, nbytes, ops, kernel, plain, library=Non
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def qsgd_timings(torch, qsgd, ref, flush):
+def qsgd_timings(torch, qsgd, ref, flush, lm_sizes):
     """Phase 4, QSGD: each kernel at its path's largest launch, the LM's
     embedding leaf (151936 blocks of 1024; 2 senders on the packed wire),
-    and the packed pair also at the LeNet path's fc1/w leaf of 10 senders."""
+    and the packed pair also at the LeNet path's fc1/w leaf of 10 senders;
+    then unpack -> dequantize over whole messages."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     s, block = 16, 1024
     bits = ref.qsgd_code_bits(s)
@@ -764,6 +774,7 @@ def qsgd_timings(torch, qsgd, ref, flush):
             lambda: qsgd.qsgd_unpack_dequantize(prow, nrow, s, block),
             lambda: qsgd.qsgd_unpack_dequantize_plain(prow, nrow, s, block)))
         del v, payload, norms, prow, nrow
+    message_decode_timings(torch, qsgd, ref, flush, lm_sizes)
     nb = 151936
     v = torch.randn((nb, block), generator=gen, device="cuda")
     key = torch.randint(-2**31, 2**31, (2,), generator=gen, device="cuda",
@@ -780,6 +791,44 @@ def qsgd_timings(torch, qsgd, ref, flush):
         lambda: qsgd.qsgd_dequantize_blocks(q, norms, s),
         lambda: qsgd.qsgd_dequantize_blocks_plain(q, norms, s))
     return rows
+
+
+def message_decode_timings(torch, qsgd, ref, flush, lm_sizes):
+    """Phase 4, unpack -> dequantize per uplink: one whole message decoded as
+    the paths decode it, one launch per leaf with all its senders, timed as a
+    sum of launches: the LM message (14 leaves x 2 senders, 2 messages a
+    round) and the LeNet message (10 leaves x 10 senders, 4 a round).  It
+    measures only; nothing of it enters the kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    s, block = 16, 1024
+    bits = ref.qsgd_code_bits(s)
+    messages = ((f"{LM_ARCH} message", 2, [math.ceil(n / block) for n in lm_sizes],
+                 LM_K // LM_E),
+                ("LeNet message", 10, lenet_leaf_blocks(), MAIN_K // MAIN_E))
+    for label, senders, leaf_blocks, per_round in messages:
+        wires = []
+        for nb in leaf_blocks:
+            v = torch.randn((senders, nb, block), generator=gen, device="cuda")
+            keys = torch.randint(-2**31, 2**31, (senders, 2), generator=gen, device="cuda",
+                                 dtype=torch.int64).to(torch.int32)
+            payload, norms = qsgd.qsgd_quantize_pack(v, keys, s)
+            wires.append((payload.reshape(-1, payload.shape[-1]), norms.reshape(-1)))
+            del v
+
+        def decode():
+            for payload, norms in wires:
+                qsgd.qsgd_unpack_dequantize(payload, norms, s, block)
+
+        ms = time_launches(torch, decode, 20, flush)
+        rows = senders * sum(leaf_blocks)
+        n = rows * block
+        bound_ms, bound_by = bound(bits * n // 8 + 4 * rows + 4 * n, n + rows)
+        print(f"phase 4: qsgd_unpack_dequantize [{label}: {len(leaf_blocks)} leaves x "
+              f"{senders} senders, {len(leaf_blocks)} launches, {rows} rows, s={s}]: "
+              f"{ms:.4f} ms median per message; bound {bound_ms:.4f} ms by {bound_by}, "
+              f"{ms / bound_ms:.2f}x; {per_round} messages a round: {per_round * ms:.4f} ms "
+              f"a round")
+        del wires
 
 
 def flash_work(B, T, S, H, Hkv, hd, itemsize):
@@ -863,7 +912,11 @@ def main() -> None:
     for name, key in shown.items():
         hit = [k for k in kernels if key in k[0]]
         check(len(hit) == 1 and hit[0][2] == hit[0][3] == 0, f"{name} spills (or is missing)")
-    sass_per_entry(built["qsgd"][0], shown[f"quantize -> pack, block 1024, s = {PACK_LEVELS}"])
+    pack, unpack = (f"{op}, block 1024, s = {PACK_LEVELS}"
+                    for op in ("quantize -> pack", "unpack -> dequantize"))
+    sass_per_entry(built["qsgd"][0], pack, shown[pack])
+    check(sass_per_entry(built["qsgd"][0], unpack, shown[unpack])["BAR"] == 0,
+          "the unpacking kernel at block 1024 has a barrier")
 
     lm_sizes = lm_leaf_sizes(torch)
     err = packed_vs_plain(torch, qsgd, ref, lm_sizes)
@@ -880,7 +933,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
-    rows = qsgd_timings(torch, qsgd, ref, flush)
+    rows = qsgd_timings(torch, qsgd, ref, flush, lm_sizes)
     rows["flash_attention"] = flash_timings(torch, fa, flush)
 
     kernels = []

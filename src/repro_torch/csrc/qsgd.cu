@@ -36,10 +36,16 @@
 //     is built for each code width at W = 32 (block 1024, the channels'
 //     default and the only block the model paths use); every other block
 //     takes a two-pass warp-per-row kernel, which handles any W;
-//   * unpack -> dequantize: one CTA owns one block row, codes staged in a
-//     [32][W+1] shared tile (the +1 pad spreads the stride-W column reads
-//     over the banks), payload words and dequantized values staged in
-//     shared memory and written with coalesced stores.
+//   * unpack -> dequantize: the same persistent grid of a warp per row, the
+//     other way round.  At W = 32 lane l writes the float4s l + 32t, whose
+//     codes are bits 4t + l/8 of words 4(l%8) .. 4(l%8) + 3 of each plane:
+//     one 16-byte load a plane (the warp reads the row's payload once), the
+//     planes' bits gathered into a nibble per code by rotates and masks,
+//     each value made from its code's byte without a conversion, and each
+//     float4 stored coalesced (512 B a warp instruction).  No shared memory,
+//     no __syncthreads.  It is built for each code width at block 1024;
+//     every other block takes a kernel in which lane k decodes the W
+//     entries k*W .. k*W + W - 1 from broadcast loads of the words.
 // The dense-code quantizer is one CTA per row, a row pass without the pack:
 // it stores each thread's four codes as one char4, and its dither index is
 // the flat index of the whole padded message (one key per call, as the
@@ -63,7 +69,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlock = 4096;
-constexpr int kMaxW = kMaxBlock / 32;
 constexpr int kVecPerThread = kMaxBlock / 4 / kThreads;
 constexpr int kMaxBits = 8;  // s <= 127: codes in [0, 254]
 
@@ -293,38 +298,106 @@ quantize_pack_any_kernel(const float* __restrict__ v, const uint32_t* __restrict
   }
 }
 
-// grid (rows); payload (rows, bits*W) words; norms (rows,); out (rows, block).
-__global__ void __launch_bounds__(kThreads)
-unpack_dequantize_kernel(const uint32_t* __restrict__ payload,
-                         const float* __restrict__ norms, float* __restrict__ out,
-                         int block, int s, int bits) {
-  __shared__ uint32_t words[kMaxBits * kMaxW];
-  __shared__ float tile[32 * (kMaxW + 1)];
-  const size_t row = blockIdx.x;
-  const int W = block >> 5, nw = bits * W;
-  const uint32_t* in = payload + row * static_cast<size_t>(nw);
-  for (int i = threadIdx.x; i < nw; i += kThreads) words[i] = in[i];
-  const float scale = __fdiv_rn(norms[row], static_cast<float>(s));
-  __syncthreads();
+// ---------------------------------------------------------------------------
+// unpack -> dequantize: the packing kernels' shape, inverted.  One warp owns a
+// row, a persistent grid of warps walks over the rows of every sender, and a
+// row needs no shared memory and no __syncthreads.
+// ---------------------------------------------------------------------------
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int w = warp; w < W; w += kWarps) {
-    uint32_t code = 0;
-    for (int j = 0; j < bits; ++j) code |= ((words[j * W + w] >> lane) & 1u) << j;
-    tile[lane * (W + 1) + w] =
-        __fmul_rn(static_cast<float>(static_cast<int>(code) - s), scale);
-  }
-  __syncthreads();
+// (c - s) * scale from the code's bits, without I2F: the float with bits
+// 0x4B000000 | c is 2^23 + c, and subtracting offset = 2^23 + s is exact for
+// codes below 2^23, so the product is the reference's (c - s) * (norm / s).
+__device__ __forceinline__ float dequantize_bits(uint32_t float_bits, float offset,
+                                                 float scale) {
+  return __fmul_rn(__fsub_rn(__uint_as_float(float_bits), offset), scale);
+}
 
-  float4* orow = reinterpret_cast<float4*>(out + row * static_cast<size_t>(block));
-  for (int i = threadIdx.x; i < (block >> 2); i += kThreads) {
-    float vals[4];
+// Block 1024 (W = 32).  Lane l writes the float4s l + 32t (t = 0..7), the
+// entries 128t + 4l + c: codes k = 4t + l/8 of words w = 4(l%8) + c (c = 0..3).
+// So the lane needs words 4(l%8) .. 4(l%8) + 3 of each plane, one 16-byte
+// load a plane (8 distinct chunks a warp, each row's payload read once), and
+// bit 4t + l/8 of each.  (Loading the next row's words before decoding this
+// one measured no faster and held more registers.)
+template <int BITS>
+__device__ __forceinline__ void load_planes(const uint4* __restrict__ src, uint4 (&r)[BITS]) {
+#pragma unroll
+  for (int j = 0; j < BITS; ++j) r[j] = __ldg(src + 8 * j);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& x, int c) {
+  return c == 0 ? x.x : c == 1 ? x.y : c == 2 ? x.z : x.w;
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(32 * kPackWarps)
+unpack_dequantize_regs_kernel(const uint32_t* __restrict__ payload,
+                              const float* __restrict__ norms, float* __restrict__ out,
+                              long long rows, int s) {
+  constexpr int kRowVec = BITS * 8;  // uint4s of payload per row
+  const int lane = threadIdx.x & 31;
+  const long long step = static_cast<long long>(gridDim.x) * kPackWarps;
+  const uint4* lane_src = reinterpret_cast<const uint4*>(payload) + (lane & 7);
+  // rotating word w right by (l/8 - j) & 31 brings bit 4t + l/8 to 4t + j:
+  // bit j of code t sits in nibble t
+  const uint32_t sh = static_cast<uint32_t>(lane >> 3);
+  const float offset = __fadd_rn(8388608.0f, static_cast<float>(s));
+  const float fs = static_cast<float>(s);
+  for (long long row_id = static_cast<long long>(blockIdx.x) * kPackWarps + (threadIdx.x >> 5);
+       row_id < rows; row_id += step) {
+    uint4 x[BITS];
+    load_planes<BITS>(lane_src + row_id * kRowVec, x);
+    const float scale = __fdiv_rn(__ldg(norms + row_id), fs);
+    float4* orow = reinterpret_cast<float4*>(out + row_id * 1024) + lane;
+    // per word column c: lo holds bits 0..3 and hi bits 4..7 of code t in
+    // nibble t; then byte b of even (odd) is code t = 2b (2b + 1)
+    uint32_t even[4], odd[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int e = 4 * i + c;
-      vals[c] = tile[(e / W) * (W + 1) + e % W];
+      uint32_t lo = 0, hi = 0;
+#pragma unroll
+      for (int j = 0; j < BITS; ++j) {
+        const uint32_t w = word_of(x[j], c);
+        const uint32_t bit = __funnelshift_r(w, w, (sh - (j & 3)) & 31u) & (0x11111111u << (j & 3));
+        if (j < 4) lo |= bit; else hi |= bit;
+      }
+      even[c] = (lo & 0x0F0F0F0Fu) | ((hi << 4) & 0xF0F0F0F0u);
+      odd[c] = ((lo >> 4) & 0x0F0F0F0Fu) | (hi & 0xF0F0F0F0u);
     }
-    orow[i] = make_float4(vals[0], vals[1], vals[2], vals[3]);
+    // byte b of a word, over the bytes 0x00, 0x00, 0x4B: the bits of 2^23 + c
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      float v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint32_t z = (t & 1) ? odd[c] : even[c];
+        v[c] = dequantize_bits(__byte_perm(z, 0x4B000000u, 0x7540u | (t >> 1)), offset, scale);
+      }
+      orow[32 * t] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// Any W in [1, 128] (block 32 .. 4096): the same warp per row.  Lane k decodes
+// the entries k*W .. k*W + W - 1, codes k*W + w: bit k of word w of each plane,
+// each word a broadcast load.
+__global__ void __launch_bounds__(32 * kPackWarps)
+unpack_dequantize_any_kernel(const uint32_t* __restrict__ payload,
+                             const float* __restrict__ norms, float* __restrict__ out,
+                             long long rows, int block, int s, int bits) {
+  const int lane = threadIdx.x & 31, W = block >> 5;
+  const float offset = __fadd_rn(8388608.0f, static_cast<float>(s));
+  const float fs = static_cast<float>(s);
+  const long long step = static_cast<long long>(gridDim.x) * kPackWarps;
+  for (long long row_id = static_cast<long long>(blockIdx.x) * kPackWarps + (threadIdx.x >> 5);
+       row_id < rows; row_id += step) {
+    const uint32_t* in = payload + row_id * static_cast<long long>(bits * W);
+    const float scale = __fdiv_rn(__ldg(norms + row_id), fs);
+    float* orow = out + row_id * static_cast<long long>(block) + lane * W;
+    for (int w = 0; w < W; ++w) {
+      uint32_t code = 0;
+      for (int j = 0; j < bits; ++j) code |= ((__ldg(in + j * W + w) >> lane) & 1u) << j;
+      orow[w] = dequantize_bits(0x4B000000u | code, offset, scale);
+    }
   }
 }
 
@@ -426,9 +499,30 @@ extern "C" int qsgd_quantize_pack(const float* v, const uint32_t* keys, uint32_t
 
 extern "C" int qsgd_unpack_dequantize(const uint32_t* payload, const float* norms, float* out,
                                       int rows, int block, int s, int bits, void* stream) {
-  if (rows > 0) {
-    unpack_dequantize_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        payload, norms, out, block, s, bits);
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
+  if (bits < 2 || bits > kMaxBits) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  constexpr int kT = 32 * kPackWarps;
+  // the register kernel at block 1024 for each code width (its rows are read
+  // and written in 16-byte pieces); every other block goes to the any-W kernel
+  if (block == 1024) {
+    if (reinterpret_cast<uintptr_t>(payload) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    switch (bits) {
+#define QSGD_UNPACK(BITS)                                                                  \
+  case BITS: {                                                                             \
+    auto* k = unpack_dequantize_regs_kernel<BITS>;                                         \
+    k<<<pack_grid(k, rows), kT, 0, st>>>(payload, norms, out, rows, s);                    \
+    break;                                                                                 \
+  }
+      QSGD_UNPACK(2) QSGD_UNPACK(3) QSGD_UNPACK(4) QSGD_UNPACK(5) QSGD_UNPACK(6)
+      QSGD_UNPACK(7) QSGD_UNPACK(8)
+#undef QSGD_UNPACK
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    auto* k = unpack_dequantize_any_kernel;
+    k<<<pack_grid(k, rows), kT, 0, st>>>(payload, norms, out, rows, block, s, bits);
   }
   return static_cast<int>(cudaGetLastError());
 }

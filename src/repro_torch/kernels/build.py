@@ -56,13 +56,15 @@ def _target(name: str) -> tuple[Path, list[str]]:
 def build(names=None) -> dict[str, tuple[Path, str]]:
     """Compile every named source (default: all) whose library does not
     exist yet, one `nvcc` each, in parallel.  Returns {name: (library path,
-    compiler log; empty when nothing was built)}.  Raises if one fails."""
+    compiler log)}; the log of an earlier build is kept beside its library.
+    Raises if one fails."""
     names = list(SOURCES) if names is None else list(names)
     out, running = {}, []
     for name in names:
         lib, flags = _target(name)
         if lib.exists():
-            out[name] = (lib, "")
+            log = lib.with_suffix(".log")
+            out[name] = (lib, log.read_text() if log.exists() else "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -77,6 +79,7 @@ def build(names=None) -> dict[str, tuple[Path, str]]:
             os.unlink(tmp)
             failed.append(f"nvcc failed on csrc/{name}.cu:\n{log}")
             continue
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
         out[name] = (lib, log)
     if failed:

@@ -149,7 +149,8 @@ def qsgd_quantize_pack(v: torch.Tensor, keys: torch.Tensor, s: int):
 def qsgd_unpack_dequantize(payload: torch.Tensor, norms: torch.Tensor, s: int,
                            block: int) -> torch.Tensor:
     """Fused unpack + dequantize: payload (rows, bits*block/32) int32 + norms
-    (rows,) f32 -> (rows, block) f32."""
+    (rows,) f32 -> (rows, block) f32.  A payload whose base is not on 16
+    bytes is copied first."""
     _check_shape(block, s)
     rows = payload.shape[0]
     bits = qsgd_code_bits(s)
@@ -160,8 +161,10 @@ def qsgd_unpack_dequantize(payload: torch.Tensor, norms: torch.Tensor, s: int,
         return qsgd_unpack_dequantize_plain(payload, norms, s, block)
     _check_cuda(payload, torch.int32, "payload")
     _check_cuda(norms, torch.float32, "norms")
-    if rows < 1:
-        raise ValueError("nothing to decode")
+    if not 1 <= rows < 2**31:
+        raise ValueError(f"need 1 <= rows < 2^31, got {rows}")
+    if payload.data_ptr() % 16:  # the kernel at block 1024 reads rows in 16-byte pieces
+        payload = payload.clone()  # on the allocator's aligned base
     out = torch.empty((rows, block), dtype=torch.float32, device=payload.device)
     err = _load().qsgd_unpack_dequantize(payload.data_ptr(), norms.data_ptr(),
                                          out.data_ptr(), rows, block, s, bits,

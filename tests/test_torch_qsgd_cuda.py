@@ -14,7 +14,7 @@ from repro_torch.kernels import qsgd
 
 torch.set_num_threads(1)
 
-LEVELS = [1, 3, 7, 15, 16, 127]
+LEVELS = [1, 3, 7, 15, 16, 63, 127]
 BLOCKS = [32, 96, 128, 1024, 4096]  # W = block / 32 = 1, 3, 4, 32, 128
 
 
@@ -65,3 +65,49 @@ def test_cuda_dense_code_kernels_match_plain_versions(s):
             c_out = qsgd.qsgd_dequantize_blocks(c_q, c_norms, s)
             torch.cuda.synchronize()
             assert torch.equal(c_out.cpu(), out)
+
+
+def _gaussian_wire(gen, s, block, rows):
+    """Payload and norms of `rows` Gaussian blocks packed on the card; row 0
+    has norm 0."""
+    v = torch.randn((1, rows, block), generator=gen).cuda()
+    v[0, 0] = 0.0
+    keys = torch.randint(-2**31, 2**31, (1, 2), generator=gen, dtype=torch.int64)
+    payload, norms = qsgd.qsgd_quantize_pack(v, keys.to(torch.int32).cuda(), s)
+    return payload[0], norms[0]
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA GPU with nvcc")
+@pytest.mark.parametrize("s", LEVELS)
+def test_cuda_unpack_dequantize_matches_plain_on_gaussian_inputs(s):
+    """Decoding sums nothing, so the kernel is bit-equal to its plain version
+    on any payload.  Row counts: 1, 7, 300, and more rows than one wave of the
+    persistent grid can hold (64 resident warps on each SM), so warps stride
+    over rows and stop at the last."""
+    gen = torch.Generator().manual_seed(200 + s)
+    wave = torch.cuda.get_device_properties(0).multi_processor_count * 64
+    for block in BLOCKS:
+        for rows in (1, 7, 300, wave + 3):
+            payload, norms = _gaussian_wire(gen, s, block, rows)
+            assert float(norms[0]) == 0.0
+            out = qsgd.qsgd_unpack_dequantize(payload, norms, s, block)
+            torch.cuda.synchronize()
+            want = qsgd.qsgd_unpack_dequantize_plain(payload, norms, s, block)
+            assert torch.equal(out, want), (block, rows)
+            assert not bool(out[0].any())
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA GPU with nvcc")
+@pytest.mark.parametrize("block", BLOCKS)
+def test_cuda_unpack_dequantize_copies_misaligned_payloads(block):
+    """A payload view 4 bytes past a 16-byte boundary goes through the
+    wrapper's aligned copy and decodes as the aligned payload does."""
+    s, rows = 16, 300
+    payload, norms = _gaussian_wire(torch.Generator().manual_seed(block), s, block, rows)
+    flat = torch.empty(payload.numel() + 1, dtype=torch.int32, device="cuda")
+    view = flat[1:].view(payload.shape)
+    view.copy_(payload)
+    assert view.data_ptr() % 16 == 4
+    out = qsgd.qsgd_unpack_dequantize(view, norms, s, block)
+    torch.cuda.synchronize()
+    assert torch.equal(out, qsgd.qsgd_unpack_dequantize_plain(payload, norms, s, block))
