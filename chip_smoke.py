@@ -11,7 +11,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
      have no barrier);
   2. hold each kernel against its plain torch version on the card, on a grid
      of shapes and at every shape the main paths give it (each leaf of the
-     LeNet and qwen3-0.6b messages).  QSGD: bit for bit on dyadic inputs
+     LeNet and qwen3-0.6b messages, the LeNet leaves at the baselines'
+     shapes: 100 senders for Hier-Local-QSGD's client grid, 10 for its ES
+     hop, and s = 1, 7, 127 for `low_bit_channel(2/4/8)`).  QSGD: bit for
+     bit on dyadic inputs
      (entries k * 2^-8, |k| <= 64, whose block norms are exact in any
      summation order); on Gaussian inputs norms at rtol 1e-6 and codes
      within 1 at no more than 0.1% of entries, and the dequantized values
@@ -39,13 +42,24 @@ Phases, each of which fails the script (non-zero exit, no result line):
         bounds must reject: no update at all, and unquantized uplinks; then
         the same LM in grad mode (dense uplinks, no code to flip), held to
         GRAD_BOUND of its update, beside a wrong-mask control on the CPU;
+     e. the paper's comparison at the Appendix-A scale of 3a: Fed-CHS
+        QSGD(16) (3a's run), Hier-Local-QSGD with QSGD(16) on both hops,
+        FedAvg and WRWGD dense, and Fed-CHS over Top-K(5%), Sign-SGD and
+        4-bit QSGD; each arm's launch counts exact, every hop's messages and
+        bits at the closed form, its s/round, peak memory, accuracy and
+        traffic in the table `examples/compare_algorithms.py` prints;
+     f. a small Hier-Local-QSGD MLP run (MomentumSGD, uneven clusters) and
+        a dense FedAvg run with AdamW, each on the card against the same run
+        on the CPU's plain path, beside a CPU control the bound must reject;
   4. time each kernel at its path's shapes with CUDA events (L2 flushed
      before every launch, the card kept busy while the host enqueues it),
      beside its plain version, its bound and, for flash attention, torch's
      scaled_dot_product_attention.  Flash f32 is bounded by its 3xTF32 route
      (3 x operations at the TF32 rate) and also printed against the f32 FMA
-     bound of the CUDA cores.  Unpack -> dequantize is also timed over a
-     whole uplink message of each path, one launch per leaf.
+     bound of the CUDA cores.  The packed pair is also timed at the
+     comparison path's LeNet shapes (100 senders, 4-bit codes), and unpack
+     -> dequantize over a whole uplink message of each path, one launch per
+     leaf.  Rows after a kernel's first do not enter the kernels line.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; exits non-zero without
 one, and outside a checkout of the repository.
@@ -74,6 +88,13 @@ MAIN_ROUNDS, MAIN_K, MAIN_E = 6, 20, 5
 # earlier flash kernel (f32 on the CUDA cores) an H100 80GB HBM3 at 700 W
 # read 5.36e-6, and the wrong-mask control 1.2.
 GRAD_BOUND = 1e-4
+# phase 3f's AdamW run: card-vs-CPU gap over the update.  A ReLU classifier
+# is not held to GRAD_BOUND: on the card one pre-activation of one sample
+# can land on the other side of 0 than on the CPU, which moves that unit's
+# gradients by a few percent, and AdamW's normalised steps carry it into
+# every entry the unit touches.  The run also prints what its own CPU run
+# reads against weights 1 + 2^-23 apart.
+ADAM_BOUND = 0.05
 
 # the LM path: qwen3-0.6b, 4 clients in 2 clusters (the example's i % 2)
 LM_ARCH = "qwen3-0.6b"
@@ -252,6 +273,65 @@ def packed_vs_plain(torch, qsgd, ref, lm_sizes):
     return err
 
 
+BASELINE_SHAPES = [(16, 100), (16, 10), (1, 10), (7, 10), (127, 10)]  # (s, senders)
+
+
+def baseline_shapes_vs_plain(torch, qsgd, ref, err):
+    """Phase 2, packed wire at the comparison path's shapes: every LeNet leaf
+    with 100 senders (Hier-Local-QSGD's flattened client grid) and with 10
+    (its ES hop) at s = 16, and with 10 senders at s = 1, 7, 127
+    (`low_bit_channel(2/4/8)`).  Inputs are drawn on the card; the rules
+    of `packed_vs_plain`.  Updates `err` in place."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n_cases = 0
+    for (s, senders), nb in itertools.product(BASELINE_SHAPES, lenet_leaf_blocks()):
+        bits = ref.qsgd_code_bits(s)
+        for kind in ("dyadic", "gaussian"):
+            shape = (senders, nb, 1024)
+            if kind == "dyadic":
+                v = torch.randint(-64, 65, shape, generator=gen, device="cuda")
+                v = v.to(torch.float32).mul_(2.0**-8)
+            else:
+                v = torch.randn(shape, generator=gen, device="cuda")
+            v[senders - 1] = 0.0  # a padded slot's zero delta
+            keys = torch.randint(-2**31, 2**31, (senders, 2), generator=gen, device="cuda",
+                                 dtype=torch.int64).to(torch.int32)
+            payload, norms = qsgd.qsgd_quantize_pack(v, keys, s)
+            p_payload, p_norms = qsgd.qsgd_quantize_pack_plain(v, keys, s)
+            where = f"s={s} nb={nb} senders={senders} {kind}"
+            err["qsgd_quantize_pack"] = max(
+                err["qsgd_quantize_pack"], float((norms - p_norms).abs().max()))
+            if kind == "dyadic":
+                check(torch.equal(payload, p_payload), f"payload differs, {where}")
+                check(torch.equal(norms, p_norms), f"norms differ, {where}")
+            else:
+                check(torch.allclose(norms, p_norms, rtol=1e-6, atol=0),
+                      f"norms beyond rtol 1e-6, {where}")
+                rows = payload.reshape(-1, payload.shape[-1])
+                diff = (qsgd._unpack_words(rows, bits)
+                        - qsgd._unpack_words(p_payload.reshape(rows.shape), bits)).abs()
+                check(int(diff.max()) <= 1, f"a code differs by more than 1, {where}")
+                check(float((diff > 0).float().mean()) <= 1e-3,
+                      f"more than 0.1% of codes differ, {where}")
+            del p_payload, p_norms, v
+            rows, nrows = payload.reshape(-1, payload.shape[-1]), norms.reshape(-1)
+            out = qsgd.qsgd_unpack_dequantize(rows, nrows, s, 1024)
+            p_out = qsgd.qsgd_unpack_dequantize_plain(rows, nrows, s, 1024)
+            err["qsgd_unpack_dequantize"] = max(
+                err["qsgd_unpack_dequantize"], float((out - p_out).abs().max()))
+            check(torch.equal(out, p_out), f"dequantized values differ, {where}")
+            check(not bool(out.reshape(senders, -1)[senders - 1].any()),
+                  f"a zero delta does not decode to zeros, {where}")
+            del out, p_out, payload, norms
+            n_cases += 1
+    torch.cuda.empty_cache()
+    print(f"phase 2: packed QSGD kernels vs plain at the baselines' shapes passed on "
+          f"{n_cases} cases ((s, senders) in {BASELINE_SHAPES} x the LeNet message's "
+          f"10 leaves; dyadic + gaussian, the last sender all zero); max |norm diff| "
+          f"{err['qsgd_quantize_pack']:.3g}, max |dequantized diff| "
+          f"{err['qsgd_unpack_dequantize']:.3g}")
+
+
 def dense_codes_vs_plain(torch, qsgd, lm_sizes):
     """Phase 2, dense codes: every (s, block, nb) of the grid, and the
     padded row count of every leaf of the LM message (s = 16, block 1024,
@@ -386,12 +466,14 @@ def lenet_path(torch, build):
     J = MAIN_K // MAIN_E
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     t0 = time.perf_counter()
     res = run_fed_chs(task, cfg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     expected = MAIN_ROUNDS * J * len(leaf_sizes)
     print(f"phase 3a: LeNet-MNIST Fed-CHS QSGD(16): {d} params in {len(leaf_sizes)} leaves, "
@@ -423,7 +505,11 @@ def lenet_path(torch, build):
           "a same-seed run on the card did not repeat bit for bit")
     print("  a 2-round run repeats bit for bit; profiled (evals at rounds 0 and 1):")
     print_profile(wall_ms, plain_ms, events, 8)
-    return launches, secs / MAIN_ROUNDS
+    # phase 3e's Fed-CHS arm: this run's ledger and accuracy, the warm 2-round
+    # run's time (the first run on the card pays one-time costs)
+    arm = {"name": "Fed-CHS QSGD(16)", "res": res, "s_per_round": plain_ms / 2e3,
+           "rounds": MAIN_ROUNDS, "peak_gb": peak_gb, "launches": launches}
+    return task, arm
 
 
 def timed(torch, run):
@@ -705,6 +791,266 @@ def lm_grad_cross_check(torch, cfg, kw):
     check(ctrl_rel > GRAD_BOUND, "the grad-mode bound would pass a wrong attention mask")
 
 
+COMPARE_ROUNDS, WALK_ROUNDS = 2, 20  # phase 3e's cuts of the paper's 200 rounds
+
+
+def comparison_arm(torch, build, name, run, rounds):
+    """One arm of phase 3e: launch counts reset just before it and read just
+    after; its s/round (a synchronize ends it, evals included) and peak
+    memory."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return {"name": name, "res": res, "s_per_round": secs / rounds, "rounds": rounds,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": dict(build.LAUNCHES)}
+
+
+PS_HOPS = ("es_to_ps", "ps_to_es", "client_to_ps", "ps_to_client")
+
+
+def comparison_path(torch, build, task, chs_arm):
+    """Phase 3e: the paper's comparison (Table 1, Fig. 2) at the Appendix-A
+    scale of phase 3a, through the port's entry points: 100 clients, 10 ESs,
+    K = 20, E = 5.  Each arm's launches exact, every hop's messages and bits
+    at the closed form, PS traffic zero for Fed-CHS, finite traces and
+    params; then the table of `examples/compare_algorithms.py`."""
+    from repro_torch.comm.channels import (
+        DenseChannel,
+        QSGDChannel,
+        TopKChannel,
+        channel_wire_bits,
+        low_bit_channel,
+    )
+    from repro_torch.core.baselines import (
+        FedAvgConfig,
+        HierLocalQSGDConfig,
+        WRWGDConfig,
+        run_fedavg,
+        run_hier_local_qsgd,
+        run_wrwgd,
+    )
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    from repro_torch.utils import tree_leaves
+
+    R, K, E = COMPARE_ROUNDS, MAIN_K, MAIN_E
+    J, M, n = K // E, task.num_clusters, task.num_clients
+    leaf_sizes = task.param_leaf_sizes()
+    L, d = len(leaf_sizes), sum(leaf_sizes)
+    down = DenseChannel().message_bits(d)
+    qsgd16 = QSGDChannel(16)
+    arms = [chs_arm]
+    arms.append(comparison_arm(
+        torch, build, "Hier-Local-QSGD QSGD(16)", lambda: run_hier_local_qsgd(
+            task, HierLocalQSGDConfig(rounds=R, local_steps=K, local_epochs=E, eval_every=1,
+                                      qsgd_levels=16)), R))
+    arms.append(comparison_arm(torch, build, "FedAvg", lambda: run_fedavg(
+        task, FedAvgConfig(rounds=R, local_steps=K, eval_every=1)), R))
+    arms.append(comparison_arm(torch, build, "WRWGD", lambda: run_wrwgd(
+        task, WRWGDConfig(rounds=WALK_ROUNDS, local_steps=K, eval_every=10)), WALK_ROUNDS))
+    chs_channels = {"Fed-CHS Top-5%": TopKChannel(0.05), "Fed-CHS Sign-SGD": low_bit_channel(1),
+                    "Fed-CHS QSGD(7), 4-bit": low_bit_channel(4)}
+    for name, channel in chs_channels.items():
+        arms.append(comparison_arm(torch, build, name, lambda channel=channel: run_fed_chs(
+            task, FedCHSConfig(rounds=R, local_steps=K, local_epochs=E, eval_every=1,
+                               channel=channel, seed=0)), R))
+    chs_channels["Fed-CHS QSGD(16)"] = qsgd16
+
+    packed = ("qsgd_quantize_pack", "qsgd_unpack_dequantize")
+    for arm in arms:
+        name, res, led = arm["name"], arm["res"], arm["res"].ledger
+        if name.startswith("Fed-CHS"):
+            visited = [int(e.sender.split(":")[1]) for e in led.events if e.hop == "es_to_es"]
+            n_up = sum(J * len(task.cluster_members[m]) for m in visited)
+            up = channel_wire_bits(chs_channels[name], d, leaf_sizes)
+            want = {"client_to_es": (n_up, up), "es_to_client": (n_up, down),
+                    "es_to_es": (len(visited), down)}
+            kernels = {"Fed-CHS QSGD(16)": MAIN_ROUNDS * J * L,
+                       "Fed-CHS QSGD(7), 4-bit": R * J * L}.get(name, 0)
+        elif name.startswith("Hier"):
+            want = {"client_to_es": (R * J * n, channel_wire_bits(qsgd16, d, leaf_sizes)),
+                    "es_to_client": (R * J * n, down),
+                    "es_to_ps": (R * M, channel_wire_bits(qsgd16, d, leaf_sizes)),
+                    "ps_to_es": (R * M, down)}
+            kernels = R * (J * L + L)
+        elif name == "FedAvg":
+            want = {"client_to_ps": (R * n, channel_wire_bits(DenseChannel(), d, leaf_sizes)),
+                    "ps_to_client": (R * n, down)}
+            kernels = 0
+        else:
+            want = {"client_to_client": (WALK_ROUNDS, down)}
+            kernels = 0
+        got = {h: (led.messages[h], led.bits[h]) for h in led.messages if led.messages[h]}
+        check(got == {h: (m, m * b) for h, (m, b) in want.items()},
+              f"{name}: ledger {got} differs from the closed form {want}")
+        for k, v in arm["launches"].items():
+            check(v == (kernels if k in packed else 0),
+                  f"{name}: {k} launched {v} times, expected {kernels if k in packed else 0}")
+        check(all(math.isfinite(x) for x in res.test_acc + res.train_loss),
+              f"{name}: non-finite trace")
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(res.final_params)),
+              f"{name}: non-finite params")
+        arm["ps_mb"] = sum(led.bits[h] for h in PS_HOPS) / 8 / 1e6
+        if name.startswith("Fed-CHS"):
+            check(arm["ps_mb"] == 0, f"{name}: PS traffic")
+        print(f"phase 3e: {name}: {arm['rounds']} rounds, {arm['s_per_round']:.3f} s/round "
+              f"(evals included), peak memory {arm['peak_gb']:.2f} GB; launches "
+              f"{ {k: v for k, v in arm['launches'].items() if v} }, expected {kernels} of "
+              f"each packed kernel; ledger at the closed form {want}")
+    print(f"phase 3e: LeNet-MNIST, Dirichlet(0.6), {n} clients, {M} ES, K={K}, E={E} "
+          f"(Fed-CHS QSGD(16): phase 3a's {MAIN_ROUNDS}-round run, its s/round from 3a's warm "
+          f"unprofiled 2-round run; WRWGD {WALK_ROUNDS} walk rounds; the others {R} rounds)")
+    print(f"  {'algorithm':24s} {'rounds':>6s} {'s/round':>8s} {'peak GB':>8s} "
+          f"{'final_acc':>9s} {'total_MB':>9s} {'PS traffic MB':>14s}")
+    for arm in arms:
+        res = arm["res"]
+        print(f"  {arm['name']:24s} {arm['rounds']:6d} {arm['s_per_round']:8.3f} "
+              f"{arm['peak_gb']:8.2f} {res.final_acc():9.4f} "
+              f"{res.ledger.total_megabytes():9.1f} {arm['ps_mb']:14.1f}")
+    return arms
+
+
+def first_step_gaps(torch, task, params):
+    """The MLP's first local step on every client's first batch, computed as
+    the engine computes it (all clients under one `vmap`, params stacked),
+    on the card and on the CPU: (hidden pre-activations whose sign differs,
+    largest gradient gap over the largest gradient, over all leaves)."""
+    from torch.func import grad, vmap
+
+    from repro_torch.utils import tree_leaves, tree_map
+
+    task.reset_loaders(0)
+    n = task.num_clients
+    batch = {k: torch.stack([task.sample_client_batches(i, 1)[k][0] for i in range(n)])
+             for k in ("x", "y")}
+
+    def pre(p, x):
+        h, zs = x.reshape(x.shape[0], -1), []
+        for layer in ("fc1", "fc2"):
+            zs.append(h @ p[layer]["w"] + p[layer]["b"])
+            h = torch.relu(zs[-1])
+        return zs
+
+    z, g = {}, {}
+    for dev in ("cpu", "cuda"):
+        stacked = tree_map(lambda a: a.to(dev).expand((n,) + a.shape), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        z[dev] = [t.cpu() for t in vmap(pre)(stacked, b["x"])]
+        g[dev] = [t.cpu() for t in tree_leaves(vmap(grad(task.fed_model.loss))(stacked, b))]
+    flips = sum(int(((a > 0) != (c > 0)).sum()) for a, c in zip(z["cpu"], z["cuda"]))
+    gap = max(float((a - c).abs().max() / a.abs().max()) for a, c in zip(g["cpu"], g["cuda"]))
+    return flips, gap
+
+
+@dataclasses.dataclass(frozen=True)
+class _AdamWWithoutBiasCorrection:
+    """Phase 3f's control: AdamW's moments, no bias corrections."""
+
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+
+    def init(self, params):
+        from repro_torch.optim.adamw import adamw_init
+
+        return adamw_init(params)
+
+    def step(self, params, state, grads, lr):
+        from repro_torch.utils import tree_map
+
+        mu = tree_map(lambda m, g: self.b1 * m + (1 - self.b1) * g, state["mu"], grads)
+        nu = tree_map(lambda v, g: self.b2 * v + (1 - self.b2) * g * g, state["nu"], grads)
+        new = tree_map(lambda p, m, v: p - lr * (m / (v.sqrt() + self.eps)
+                                                 + self.weight_decay * p), params, mu, nu)
+        return new, {"mu": mu, "nu": nu, "count": state["count"] + 1}
+
+
+def baselines_cross_check(torch):
+    """Phase 3f: the new code, card against CPU.  A small Hier-Local-QSGD
+    QSGD(16) MLP run (20 clients in 3 uneven clusters, MomentumSGD) held to
+    params within 3% relative L2, beside two CPU controls that bound must
+    reject: no update, and dense uplinks.  Its accuracy and its gap over the
+    update are printed, not bounded, beside what the same CPU run reads
+    against itself with every initial weight scaled by 1 + 2^-23 (about an
+    ulp): code flips under momentum make float order alone move this run
+    further than phase 3a's tighter bounds allow.  A dense FedAvg run with
+    AdamW held to ADAM_BOUND of its update (see there), beside a CPU control
+    without AdamW's bias corrections and the same noise floor."""
+    from repro_torch.core.baselines import (
+        FedAvgConfig,
+        HierLocalQSGDConfig,
+        run_fedavg,
+        run_hier_local_qsgd,
+    )
+    from repro_torch.core.simulation import FLTask
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.models.classifier import make_classifier
+    from repro_torch.optim.local import AdamWOpt, MomentumSGD
+    from repro_torch.utils import tree_map
+
+    ds = make_dataset("mnist", train_size=4000, test_size=1000, seed=0)
+    clients = dirichlet_partition(ds.train_y, 20, 0.6, seed=0)
+    clusters = [list(range(0, 9)), list(range(9, 15)), list(range(15, 20))]
+    mlp = make_classifier("mlp", "mnist", ds.spec.image_shape, 10)
+
+    def both(run, cfg, ctrl_cfg):
+        on_card = run(FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0), cfg)
+        cpu_task = FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0, device="cpu")
+        p0 = cpu_task.init_params()
+        on_cpu = run(cpu_task, cfg)
+        return on_card, on_cpu, run(cpu_task, ctrl_cfg), p0
+
+    hier = HierLocalQSGDConfig(rounds=2, local_steps=10, local_epochs=5, eval_every=1,
+                               qsgd_levels=16, local_opt=MomentumSGD(0.9))
+    on_card, on_cpu, dense, p0 = both(run_hier_local_qsgd, hier,
+                                      dataclasses.replace(hier, qsgd_levels=None))
+    rel, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
+    b = flat_params(torch, on_cpu.final_params)
+    ctrl_rel = float((flat_params(torch, dense.final_params) - b).norm() / b.norm())
+    nudged = dataclasses.replace(mlp, init=lambda seed=0, device=None: tree_map(
+        lambda t: t * (1 + 2**-23), mlp.init(seed, device)))
+    ulp_run = run_hier_local_qsgd(
+        FLTask(nudged, ds, clients, clusters, batch_size=32, seed=0, device="cpu"), hier)
+    ulp_rel, ulp_upd_rel, _, ulp_gap = card_vs_cpu(torch, ulp_run, on_cpu, p0)
+    print(f"phase 3f: Hier-Local-QSGD QSGD(16) MLP, MomentumSGD(0.9), 20 clients in clusters "
+          f"of 9, 6, 5, 2 rounds, card vs CPU plain path: params rel L2 {rel:.3g} ({upd_rel:.3g} "
+          f"of the update p_T - p_0), accuracy gap {gap:.3g}; the CPU run against itself from "
+          f"weights 1 + 2^-23 apart: {ulp_rel:.3g} ({ulp_upd_rel:.3g} of the update), accuracy "
+          f"gap {ulp_gap:.3g}; controls on the CPU: no update reads {upd:.3g}, dense uplinks "
+          f"read {ctrl_rel:.3g}")
+    check(rel <= 0.03, "card Hier-Local-QSGD run strays from the CPU run")
+    check(upd > 0.03, "the params bound would pass a Hier-Local-QSGD run that never updates")
+    check(ctrl_rel > 0.03, "the params bound would pass a run whose uplinks skip the quantizer")
+
+    fedavg = FedAvgConfig(rounds=2, local_steps=5, eval_every=1, local_opt=AdamWOpt(),
+                          schedule=lambda k: 0.002)
+    on_card, on_cpu, ctrl, p0 = both(
+        run_fedavg, fedavg, dataclasses.replace(fedavg, local_opt=_AdamWWithoutBiasCorrection()))
+    _, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
+    _, ctrl_rel, _, _ = card_vs_cpu(torch, ctrl, on_cpu, p0)
+    ulp_run = run_fedavg(
+        FLTask(nudged, ds, clients, clusters, batch_size=32, seed=0, device="cpu"), fedavg)
+    _, ulp_upd_rel, _, _ = card_vs_cpu(torch, ulp_run, on_cpu, p0)
+    cpu_task = FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0, device="cpu")
+    flips, grad_gap = first_step_gaps(torch, cpu_task, cpu_task.init_params())
+    print(f"  FedAvg dense, AdamW, 2 rounds, card vs CPU plain path: params gap {upd_rel:.3g} "
+          f"of the update p_T - p_0 (which is {upd:.3g} of p_T; bound {ADAM_BOUND:g}), accuracy "
+          f"gap {gap:.3g}; the CPU run against itself from weights 1 + 2^-23 apart: "
+          f"{ulp_upd_rel:.3g}; first local step on the card vs the CPU: {flips} hidden "
+          f"pre-activations of opposite sign (of 20 clients x 32 samples x 400 units), "
+          f"gradients apart by {grad_gap:.3g} of the largest; control on the CPU without "
+          f"AdamW's bias corrections reads {ctrl_rel:.3g}")
+    check(upd_rel <= ADAM_BOUND, "card FedAvg AdamW run strays from the CPU run")
+    check(ctrl_rel > ADAM_BOUND, "the bound would pass AdamW without bias corrections")
+
+
 def time_launches(torch, fn, reps, flush):
     """Median of per-launch CUDA-event times (ms), L2 flushed before each.
     A spin of about a millisecond on the card comes first, so the host has
@@ -747,14 +1093,18 @@ def timed_row(torch, flush, name, label, nbytes, ops, kernel, plain, library=Non
 def qsgd_timings(torch, qsgd, ref, flush, lm_sizes):
     """Phase 4, QSGD: each kernel at its path's largest launch, the LM's
     embedding leaf (151936 blocks of 1024; 2 senders on the packed wire),
-    and the packed pair also at the LeNet path's fc1/w leaf of 10 senders;
-    then unpack -> dequantize over whole messages."""
+    and the packed pair also at the LeNet fc1/w leaf as the comparison path
+    launches it: 10 senders (Fed-CHS, the ES hop), 100 (Hier-Local-QSGD's
+    client grid), and 10 at 4-bit codes (s = 7); then unpack -> dequantize
+    over whole messages."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    s, block = 16, 1024
-    bits = ref.qsgd_code_bits(s)
+    block = 1024
     rows = {}
-    for label, senders, nb in (("LM embed leaf x 2 senders", 2, 151936),
-                               ("LeNet fc1/w leaf x 10 senders", 10, 6272)):
+    for label, senders, nb, s in (("LM embed leaf x 2 senders", 2, 151936, 16),
+                                  ("LeNet fc1/w leaf x 10 senders", 10, 6272, 16),
+                                  ("LeNet fc1/w leaf x 100 senders", 100, 6272, 16),
+                                  ("LeNet fc1/w leaf x 10 senders", 10, 6272, 7)):
+        bits = ref.qsgd_code_bits(s)
         v = torch.randn((senders, nb, block), generator=gen, device="cuda")
         keys = torch.randint(-2**31, 2**31, (senders, 2), generator=gen, device="cuda",
                              dtype=torch.int64).to(torch.int32)
@@ -774,8 +1124,9 @@ def qsgd_timings(torch, qsgd, ref, flush, lm_sizes):
             lambda: qsgd.qsgd_unpack_dequantize(prow, nrow, s, block),
             lambda: qsgd.qsgd_unpack_dequantize_plain(prow, nrow, s, block)))
         del v, payload, norms, prow, nrow
+        torch.cuda.empty_cache()
     message_decode_timings(torch, qsgd, ref, flush, lm_sizes)
-    nb = 151936
+    s, nb = 16, 151936
     v = torch.randn((nb, block), generator=gen, device="cuda")
     key = torch.randint(-2**31, 2**31, (2,), generator=gen, device="cuda",
                         dtype=torch.int64).to(torch.int32)
@@ -920,16 +1271,21 @@ def main() -> None:
 
     lm_sizes = lm_leaf_sizes(torch)
     err = packed_vs_plain(torch, qsgd, ref, lm_sizes)
+    baseline_shapes_vs_plain(torch, qsgd, ref, err)
     err.update(dense_codes_vs_plain(torch, qsgd, lm_sizes))
     err["flash_attention"] = flash_vs_plain(torch, fa)
 
-    lenet_path(torch, build)
+    lenet_task, chs_arm = lenet_path(torch, build)
     quickstart_and_cross_check(torch)
     launches, round_s, lm_params = lm_path(torch, build)
     launches.update({k: v for k, v in dense_code_path(torch, build, lm_params).items()
                      if k in ("qsgd_quantize", "qsgd_dequantize")})
     del lm_params
     lm_cross_check(torch)
+    torch.cuda.empty_cache()
+    comparison_path(torch, build, lenet_task, chs_arm)
+    del lenet_task, chs_arm
+    baselines_cross_check(torch)
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2

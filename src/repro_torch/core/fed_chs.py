@@ -13,7 +13,8 @@ Every message is metered in the `CommLedger` with its (round, phase,
 sender, receiver) event, exactly as the reference records it.  The
 reference's default executor (the whole-run scan) is pinned bit-identical
 to its looped driver, which this module ports; it covers full
-participation on a static topology in grad mode and delta mode.
+participation on a static topology in grad mode and delta mode, with any
+of the reference's uplink channels and client-held optimizers.
 """
 from __future__ import annotations
 
@@ -23,9 +24,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.comm.channels import Channel, DenseChannel, channel_wire_bits, make_channel
+from repro_torch.comm.channels import Channel, DenseChannel, channel_wire_bits
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.ledger import CommLedger
+from repro_torch.core.precision import downlink_bits_per_param, resolve_channel
 from repro_torch.core.prng import PRNGKey, split_chain
 from repro_torch.core.scheduler import FedCHSScheduler
 from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
@@ -52,7 +54,7 @@ class FedCHSConfig:
     qsgd_levels: int | None = None         # uplink compression (None = dense)
     channel: Channel | None = None         # explicit uplink channel; overrides
                                            # qsgd_levels/bits_per_param
-    local_opt: Any = None                  # None or PlainSGD (others not ported)
+    local_opt: Any = None                  # client-held optimizer; None = PlainSGD
     track_events: bool = True              # False: bits only, no CommEvent stream
     seed: int = 0
     schedule: Schedule | None = None       # default: paper eta_k = 1/(K sqrt(k+1))
@@ -71,8 +73,6 @@ class FedCHSConfig:
         unset = [f for f in _NOT_PORTED if getattr(self, f) is not None]
         if self.availability_scheduler:
             unset.append("availability_scheduler")
-        if self.local_opt is not None and not isinstance(self.local_opt, PlainSGD):
-            unset.append("local_opt")
         if unset:
             raise NotImplementedError(
                 f"FedCHSConfig fields not ported to repro_torch yet: {unset}")
@@ -100,15 +100,23 @@ def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
     leaf_sizes = tuple(leaf.numel() for leaf in tree_leaves(params))
     d = sum(leaf_sizes)
     ledger = CommLedger(track_events=config.track_events)
-    channel = config.channel or make_channel(config.qsgd_levels, config.bits_per_param)
+    channel = resolve_channel(config.precision, config.channel, config.qsgd_levels,
+                              config.bits_per_param)
     engine = RoundEngine(task.model, channel, local_opt=config.local_opt)
     key = PRNGKey(config.seed + 1)
 
-    down_bits = DenseChannel(config.bits_per_param).message_bits(d)
+    down_bits = DenseChannel(
+        downlink_bits_per_param(config.precision, config.bits_per_param)).message_bits(d)
     up_bits = channel_wire_bits(channel, d, leaf_sizes)
 
-    # literal Eq. (5): E=1 dense plain-SGD interactions are gradient uplinks
-    grad_mode = E == 1 and isinstance(channel, DenseChannel)
+    # literal Eq. (5): E=1 dense plain-SGD interactions are gradient uplinks;
+    # a lossy dense wire or a stateful optimizer takes delta mode
+    grad_mode = (
+        E == 1
+        and isinstance(channel, DenseChannel)
+        and channel.wire_dtype is None
+        and (config.local_opt is None or isinstance(config.local_opt, PlainSGD))
+    )
     opt_states: dict[int, Any] = {}  # cluster -> stacked client-held opt state
 
     recorder = RunRecorder(task, config.rounds, config.eval_every)

@@ -90,6 +90,10 @@ class FLTask:
         sizes = self.client_sizes[self.cluster_members[m]]
         return (sizes / sizes.sum()).astype(np.float32)
 
+    def global_weights(self) -> np.ndarray:
+        """gamma_n = D_n / D_A over all clients (FedAvg weighting)."""
+        return (self.client_sizes / self.client_sizes.sum()).astype(np.float32)
+
     def _to_device(self, batch: Batch) -> Batch:
         return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
 
@@ -100,6 +104,11 @@ class FLTask:
             _stack_batches([self.source.next_batch(i) for i in members])
             for _ in range(steps)
         ]))
+
+    def sample_client_batches(self, client: int, steps: int) -> Batch:
+        """One client's next `steps` batches on the device: leaves (steps, B, ...)."""
+        return self._to_device(
+            _stack_batches([self.source.next_batch(client) for _ in range(steps)]))
 
     def _stage_round_np(self, m: int, total_steps: int, epochs: int) -> Batch:
         """One round of cluster-m batches as numpy: leaves (J, n, E, B, ...),
@@ -118,6 +127,35 @@ class FLTask:
         leaves (J, n, E, B, ...) with J = total_steps // epochs."""
         return self._to_device({k: np.ascontiguousarray(a) for k, a in
                                 self._stage_round_np(m, total_steps, epochs).items()})
+
+    def sample_all_cluster_batches(self, total_steps: int, epochs: int) -> Batch:
+        """One 3-tier HFL round for every cluster, padded to a uniform client
+        width: leaves (J, M, n_max, E, B, ...).  Padded slots replicate the
+        cluster's first member and draw nothing extra (their updates are
+        masked out downstream, see `padded_cluster_weights`)."""
+        n_max = max(len(members) for members in self.cluster_members)
+        per_cluster = []
+        for m in range(self.num_clusters):
+            b = self._stage_round_np(m, total_steps, epochs)  # (J, n_m, E, ...)
+            pad = n_max - len(self.cluster_members[m])
+            if pad:
+                b = {k: np.concatenate([a, np.repeat(a[:, :1], pad, axis=1)], axis=1)
+                     for k, a in b.items()}
+            per_cluster.append(b)
+        return self._to_device({k: np.stack([b[k] for b in per_cluster], axis=1)
+                                for k in per_cluster[0]})
+
+    def padded_cluster_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(gammas, mask), both (M, n_max) on the device: per-cluster client
+        weights padded with zeros, and a 1/0 mask of real client slots."""
+        n_max = max(len(members) for members in self.cluster_members)
+        gammas = np.zeros((self.num_clusters, n_max), np.float32)
+        mask = np.zeros((self.num_clusters, n_max), np.float32)
+        for m in range(self.num_clusters):
+            w = self.cluster_weights(m)
+            gammas[m, : len(w)] = w
+            mask[m, : len(w)] = 1.0
+        return torch.from_numpy(gammas).to(self.device), torch.from_numpy(mask).to(self.device)
 
     def init_params(self) -> Tree:
         return self.fed_model.init(self.seed, self.device)
@@ -171,8 +209,30 @@ class RunResult:
     final_params: Tree
     metric_mode: str = "max"
 
+    def _empty_metric(self) -> float:
+        # an empty log reads as worst-possible in the metric's direction
+        return 0.0 if self.metric_mode == "max" else float("inf")
+
+    def best_acc(self) -> float:
+        if not self.test_acc:
+            return self._empty_metric()
+        return max(self.test_acc) if self.metric_mode == "max" else min(self.test_acc)
+
     def final_acc(self) -> float:
         """The last evaluated metric; worst-possible for an empty log."""
-        if self.test_acc:
-            return self.test_acc[-1]
-        return 0.0 if self.metric_mode == "max" else float("inf")
+        return self.test_acc[-1] if self.test_acc else self._empty_metric()
+
+    def _reached(self, value: float, gamma: float) -> bool:
+        return value >= gamma if self.metric_mode == "max" else value <= gamma
+
+    def rounds_to_accuracy(self, gamma: float) -> int | None:
+        """First eval round where the metric crosses `gamma` (>= for "max"
+        metrics, <= for "min" metrics such as perplexity)."""
+        for r, a in zip(self.rounds, self.test_acc):
+            if self._reached(a, gamma):
+                return r
+        return None
+
+    def bits_to_accuracy(self, gamma: float) -> int | None:
+        r = self.rounds_to_accuracy(gamma)
+        return None if r is None else self.ledger.bits_until(r)

@@ -5,6 +5,10 @@ pads a whole array to tiles of 8 blocks, as the reference does, and keys
 its dither with one key over the flat padded index.  The packed wire
 (`qsgd_encode`/`decode(_tree)`, `qsgd_compress_tree`) pads each leaf to
 whole blocks, derives the per-leaf keys and maps over a message's leaves.
+Sign-SGD (`signsgd_encode`/`decode`/`compress_tree`) packs one sign bit per
+entry with a mean-|v| scale per block, and Top-K (`topk_sparsify(_tree)`)
+keeps a message's largest-magnitude entries; the reference computes both in
+plain jnp, and so do these in plain torch on either device.
 `kernels/qsgd.py` only sees dense tiles.  A leaf on the card goes through
 the Hopper kernels and a leaf on the CPU through their plain versions, as
 the reference routes to its Pallas kernels on a TPU and to the jnp oracle
@@ -14,7 +18,8 @@ Keys are raw uint32 key words (numpy, see `core/prng.py`).  Where the
 reference vmaps a message function over a stacked uplink, these functions
 take the sender axis directly: a key array of shape (..., 2) gives every
 leaf the leading axes ``...``, one message per key, and all senders of a
-leaf are encoded by one kernel launch.
+leaf are encoded by one kernel launch.  The key-free Sign-SGD and Top-K
+ops take the leading message axes as ``lead`` instead.
 """
 from __future__ import annotations
 
@@ -26,12 +31,18 @@ import torch
 
 from repro_torch.core.prng import split
 from repro_torch.kernels.qsgd import (
+    _pack_words,
+    _unpack_words,
     qsgd_dequantize_blocks,
     qsgd_quantize_blocks,
     qsgd_quantize_pack,
     qsgd_unpack_dequantize,
 )
-from repro_torch.kernels.ref import cheap_uniform_ref
+from repro_torch.kernels.ref import (
+    cheap_uniform_ref,
+    signsgd_dequantize_codes_ref,
+    signsgd_quantize_codes_ref,
+)
 from repro_torch.utils import tree_flatten, tree_unflatten
 
 Tree = Any
@@ -95,14 +106,9 @@ def _leaf_blocks(n: int, block: int) -> int:
     return max(1, math.ceil(n / block))
 
 
-def qsgd_encode(v: torch.Tensor, keys: np.ndarray, *, s: int = 16,
-                block: int = DEFAULT_BLOCK) -> dict:
-    """Encode one leaf of every message to its wire form.
-
-    keys (..., 2): one key per message; v has the leading axes ``...``.
-    Returns {'payload': int32 (..., nb, bits*block/32), 'norms': f32 (..., nb)}
-    with nb = ceil(entries per message / block) blocks per leaf."""
-    lead = keys.shape[:-1]
+def _message_blocks(v: torch.Tensor, lead: tuple, block: int) -> torch.Tensor:
+    """Each message's part of one leaf as f32 blocks, the tail block
+    zero-padded: (senders, nb, block) with nb = ceil(entries / block)."""
     senders = math.prod(lead)
     flat = v.reshape(senders, -1).to(torch.float32)
     n = flat.shape[1]
@@ -111,7 +117,19 @@ def qsgd_encode(v: torch.Tensor, keys: np.ndarray, *, s: int = 16,
         padded = torch.zeros((senders, nb * block), dtype=torch.float32, device=v.device)
         padded[:, :n] = flat
         flat = padded
-    blocks = flat.reshape(senders, nb, block).contiguous()
+    return flat.reshape(senders, nb, block).contiguous()
+
+
+def qsgd_encode(v: torch.Tensor, keys: np.ndarray, *, s: int = 16,
+                block: int = DEFAULT_BLOCK) -> dict:
+    """Encode one leaf of every message to its wire form.
+
+    keys (..., 2): one key per message; v has the leading axes ``...``.
+    Returns {'payload': int32 (..., nb, bits*block/32), 'norms': f32 (..., nb)}
+    with nb = ceil(entries per message / block) blocks per leaf."""
+    lead = keys.shape[:-1]
+    blocks = _message_blocks(v, lead, block)
+    nb = blocks.shape[1]
     payload, norms = qsgd_quantize_pack(blocks, _key_tensor(keys.reshape(-1, 2), v.device), s)
     return {"payload": payload.reshape(*lead, nb, -1), "norms": norms.reshape(*lead, nb)}
 
@@ -160,3 +178,72 @@ def qsgd_compress_tree(tree: Tree, keys: np.ndarray, *, s: int = 16,
     receiver; leaf-wise with per-leaf keys."""
     return qsgd_decode_tree(qsgd_encode_tree(tree, keys, s=s, block=block), tree,
                             s=s, block=block)
+
+
+# -- sign-SGD (1-bit) ---------------------------------------------------------
+
+
+def signsgd_encode(v: torch.Tensor, *, block: int = DEFAULT_BLOCK, lead: tuple = ()) -> dict:
+    """1-bit sign codes + per-block mean-|v| scale of one leaf of every
+    message (v has the leading message axes `lead`), all senders in one
+    pass.  Deterministic (no key).  Returns {'payload': int32 (..., nb,
+    block/32), 'norms': f32 (..., nb)}."""
+    blocks = _message_blocks(v, tuple(lead), block)
+    senders, nb, _ = blocks.shape
+    codes, scales = signsgd_quantize_codes_ref(blocks)
+    payload = _pack_words(codes.reshape(senders * nb, block), 1)
+    return {"payload": payload.reshape(*lead, nb, -1), "norms": scales.reshape(*lead, nb)}
+
+
+def signsgd_decode(wire: dict, *, shape: tuple = (), block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """±scale per entry back to an f32 leaf of `shape` (the leading message
+    axes included); the padding is cut off."""
+    payload, norms = wire["payload"], wire["norms"]
+    senders = math.prod(payload.shape[:-2])
+    codes = _unpack_words(payload.reshape(-1, payload.shape[-1]), 1)
+    rows = signsgd_dequantize_codes_ref(codes, norms.reshape(-1))
+    n = math.prod(shape) // senders
+    return rows.reshape(senders, -1)[:, :n].reshape(shape)
+
+
+def signsgd_compress_tree(tree: Tree, *, block: int = DEFAULT_BLOCK, lead: tuple = ()) -> Tree:
+    """Sign-SGD channel roundtrip, leaf-wise.  The tail block's zero padding
+    decodes to +scale but is cut off; an all-zero leaf (a padded sender's
+    delta) has scale 0 everywhere and decodes to exact zeros."""
+    leaves, treedef = tree_flatten(tree)
+    out = [signsgd_decode(signsgd_encode(leaf, block=block, lead=lead), shape=tuple(leaf.shape),
+                          block=block).to(leaf.dtype)
+           for leaf in leaves]
+    return tree_unflatten(treedef, out)
+
+
+# -- Top-K sparsification -------------------------------------------------------
+
+
+def topk_sparsify(v: torch.Tensor, *, k: int, lead: tuple = ()) -> torch.Tensor:
+    """Keep the k largest-magnitude entries of each message of v (leading
+    message axes `lead`), zero the rest.  Among equal magnitudes the lower
+    index wins, as in `jax.lax.top_k`: a stable descending sort of |v|, then
+    its first k positions."""
+    senders = math.prod(lead)
+    flat = v.reshape(senders, -1)
+    k = min(k, flat.shape[1])
+    order = torch.sort(torch.abs(flat), dim=1, descending=True, stable=True).indices
+    mask = torch.zeros_like(flat).scatter_(1, order[:, :k], 1.0)
+    return (flat * mask).reshape(v.shape)
+
+
+def topk_sparsify_tree(tree: Tree, *, fraction: float, lead: tuple = ()) -> Tree:
+    """Whole-message Top-K: keep the ceil(fraction * d) largest-magnitude
+    entries over ALL leaves of each message (the leaves concatenated in
+    leaf order as one d-vector)."""
+    leaves, treedef = tree_flatten(tree)
+    senders = math.prod(lead)
+    flat = torch.cat([leaf.reshape(senders, -1).to(torch.float32) for leaf in leaves], dim=1)
+    sparse = topk_sparsify(flat, k=max(1, math.ceil(fraction * flat.shape[1])), lead=(senders,))
+    out, off = [], 0
+    for leaf in leaves:
+        size = leaf.numel() // senders
+        out.append(sparse[:, off:off + size].reshape(leaf.shape).to(leaf.dtype))
+        off += size
+    return tree_unflatten(treedef, out)

@@ -23,7 +23,6 @@ from repro_torch.kernels.build import LAUNCHES, library
 from repro_torch.kernels.ref import (
     MASK32,
     cheap_uniform_ref,
-    i32_to_u32,
     qsgd_code_bits,
     qsgd_dequantize_blocks_ref,
     qsgd_dequantize_codes_ref,
@@ -75,24 +74,28 @@ def _stream(t: torch.Tensor) -> int:
 
 def _pack_words(codes: torch.Tensor, bits: int) -> torch.Tensor:
     """(rows, block) int64 codes -> (rows, bits*block/32) int32 payload, the
-    layout of `ref.pack_codes_ref`, vectorized over the 32 codes of a word."""
+    layout of `ref.pack_codes_ref`, vectorized over the 32 codes of a word.
+    Each plane's word is a sum of distinct powers of two taken as int32 bit
+    patterns (bit 31 negative), which no order of addition overflows."""
     rows, block = codes.shape
-    c = codes.reshape(rows, 32, block // 32)
-    pos = torch.arange(32, dtype=torch.int64, device=codes.device)[None, :, None]
-    planes = [(((c >> j) & 1) << pos).sum(dim=1) for j in range(bits)]
-    return u32_to_i32(torch.cat(planes, dim=1))
+    c = codes.to(torch.int32).reshape(rows, 32, block // 32)
+    weight = u32_to_i32(1 << torch.arange(32, dtype=torch.int64, device=codes.device))
+    weight = weight[None, :, None]
+    planes = [(((c >> j) & 1) * weight).sum(dim=1, dtype=torch.int32) for j in range(bits)]
+    return torch.cat(planes, dim=1)
 
 
 def _unpack_words(payload: torch.Tensor, bits: int) -> torch.Tensor:
-    """Exact inverse of `_pack_words`: (rows, bits*W) int32 -> (rows, 32*W) int64."""
+    """Exact inverse of `_pack_words`: (rows, bits*W) int32 -> (rows, 32*W) int64.
+    Bit k of an int32 word survives its sign-extending shift right by k."""
     rows, total = payload.shape
     w = total // bits
-    words = i32_to_u32(payload).reshape(rows, bits, 1, w)
-    pos = torch.arange(32, dtype=torch.int64, device=payload.device)[None, :, None]
-    c = torch.zeros((rows, 32, w), dtype=torch.int64, device=payload.device)
+    words = payload.reshape(rows, bits, 1, w)
+    pos = torch.arange(32, dtype=torch.int32, device=payload.device)[None, :, None]
+    c = torch.zeros((rows, 32, w), dtype=torch.int32, device=payload.device)
     for j in range(bits):
         c |= ((words[:, j] >> pos) & 1) << j
-    return c.reshape(rows, 32 * w)
+    return c.reshape(rows, 32 * w).to(torch.int64)
 
 
 def qsgd_quantize_pack_plain(v: torch.Tensor, keys: torch.Tensor, s: int):

@@ -136,3 +136,19 @@ def unpack_codes_ref(payload: torch.Tensor, bits: int) -> torch.Tensor:
         for k in range(32):
             c[:, k, :] |= ((word >> k) & 1) << j
     return c.reshape(nb, 32 * w_per_plane)
+
+
+def signsgd_quantize_codes_ref(v: torch.Tensor):
+    """1-bit sign-SGD codes with per-block norm scaling over the last axis:
+    code 1 = non-negative (-0.0 included), scale = mean |v| of the block,
+    zeros of the padding included.  Returns (codes int64 in {0, 1}, scales
+    f32).  The block's sum is divided by a tensor (see `_scale`)."""
+    total = torch.abs(v).sum(dim=-1)
+    scales = total / torch.full_like(total, v.shape[-1])
+    return (v >= 0).to(torch.int64), scales.to(torch.float32)
+
+
+def signsgd_dequantize_codes_ref(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Decode ±scale; all-zero blocks (scale 0) decode to exact zeros."""
+    sign = codes.to(torch.float32) * 2.0 - 1.0
+    return sign * scales[..., None]

@@ -152,7 +152,6 @@ def test_qsgd_delta_run_matches_reference(tasks):
     ("dynamic", "leo"), ("client_microbatch", 2), ("precision", object()),
     ("link_delay", lambda a, b: 0.0), ("sampler", object()), ("obs", object()),
     ("mesh", object()), ("checkpoint", "ck"), ("availability_scheduler", True),
-    ("local_opt", object()),
 ])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):

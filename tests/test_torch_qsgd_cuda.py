@@ -111,3 +111,33 @@ def test_cuda_unpack_dequantize_copies_misaligned_payloads(block):
     out = qsgd.qsgd_unpack_dequantize(view, norms, s, block)
     torch.cuda.synchronize()
     assert torch.equal(out, qsgd.qsgd_unpack_dequantize_plain(payload, norms, s, block))
+
+
+# blocks of 1024 per leaf of the LeNet-MNIST message, in leaf order
+LENET_LEAF_BLOCKS = [1, 2, 1, 400, 1, 6272, 1, 64, 1, 2]
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA GPU with nvcc")
+@pytest.mark.parametrize("senders,s", [(100, 16), (10, 16), (10, 1), (10, 7), (10, 127)],
+                         ids=["hier_grid_s16", "es_hop_s16", "2bit", "4bit", "8bit"])
+def test_cuda_kernels_match_plain_at_the_baselines_shapes(senders, s):
+    """Every LeNet leaf with the shapes the comparison path gives the packed
+    pair: Hier-Local-QSGD's flattened client grid (100 senders), its ES hop
+    (10 senders), and `low_bit_channel(2/4/8)`'s code widths (s = 1, 7,
+    127).  The plain versions run on the card too: dyadic inputs, so bit for
+    bit."""
+    gen = torch.Generator(device="cuda").manual_seed(senders + s)
+    for nb in LENET_LEAF_BLOCKS:
+        v = torch.randint(-64, 65, (senders, nb, 1024), generator=gen, device="cuda")
+        v = v.to(torch.float32).mul_(2.0**-8)
+        v[senders - 1] = 0.0  # a padded slot's zero delta
+        keys = torch.randint(-2**31, 2**31, (senders, 2), generator=gen, device="cuda",
+                             dtype=torch.int64).to(torch.int32)
+        payload, norms = qsgd.qsgd_quantize_pack(v, keys, s)
+        p_payload, p_norms = qsgd.qsgd_quantize_pack_plain(v, keys, s)
+        assert torch.equal(payload, p_payload) and torch.equal(norms, p_norms), nb
+        rows, nrows = payload.reshape(-1, payload.shape[-1]), norms.reshape(-1)
+        out = qsgd.qsgd_unpack_dequantize(rows, nrows, s, 1024)
+        assert torch.equal(out, qsgd.qsgd_unpack_dequantize_plain(rows, nrows, s, 1024)), nb
+        assert not bool(out.reshape(senders, -1)[senders - 1].any())
+        del v, payload, p_payload, out
