@@ -51,6 +51,18 @@ Phases, each of which fails the script (non-zero exit, no result line):
      f. a small Hier-Local-QSGD MLP run (MomentumSGD, uneven clusters) and
         a dense FedAvg run with AdamW, each on the card against the same run
         on the CPU's plain path, beside a CPU control the bound must reject;
+     g. partial participation and dynamic ES graphs at the scale of 3a:
+        Fed-CHS QSGD(16) under Gilbert-Elliott churn, without and with the
+        availability-aware rule (each round's uplinks exactly J per
+        participant, B1 and B2 exactly J x leaves per trained round, the
+        visit order the rule's own replay), then with two forced dark
+        rounds (no launch, no client traffic, params bit-equal across
+        them); Hier-Local-QSGD QSGD(16) under Bernoulli(0.7) churn
+        (es_to_ps only from clusters that trained, ps_to_es to all);
+        Fed-CHS on the IoV and LEO graphs (visit order equal to the
+        scheduler's `precompute(dynamic=...)`); a masked MLP run on the card
+        against the CPU's plain path; every arm of 3e and 3g replayed
+        through netsim's edge-cloud network;
   4. time each kernel at its path's shapes with CUDA events (L2 flushed
      before every launch, the card kept busy while the host enqueues it),
      beside its plain version, its bound and, for flash attention, torch's
@@ -1051,6 +1063,244 @@ def baselines_cross_check(torch):
     check(ctrl_rel > ADAM_BOUND, "the bound would pass AdamW without bias corrections")
 
 
+CHURN_ROUNDS, HIER_CHURN_ROUNDS, DYN_ROUNDS = 6, 2, 4  # phase 3g's cuts of 200 rounds
+
+
+class _DarkRounds:
+    """Phase 3g's pass-through arm: `inner`'s participants, but nobody in
+    the `dark` rounds."""
+
+    def __init__(self, inner, dark):
+        self.inner, self.dark = inner, set(dark)
+
+    def participants(self, round_idx, clients):
+        return [] if round_idx in self.dark else self.inner.participants(round_idx, clients)
+
+
+def churn_ledger_checks(name, res, task, sampler, channel, J):
+    """A Fed-CHS run under `sampler`: each round's uplinks are exactly J per
+    participant of the visited cluster, every message at the closed form.
+    Returns (visit order, trained rounds)."""
+    from repro_torch.comm.channels import DenseChannel, channel_wire_bits
+
+    leaf_sizes = task.param_leaf_sizes()
+    d = sum(leaf_sizes)
+    up, down = channel_wire_bits(channel, d, leaf_sizes), DenseChannel().message_bits(d)
+    led = res.ledger
+    hops = [e for e in led.events if e.hop == "es_to_es"]
+    visits = [int(hops[0].sender.split(":")[1])] + [int(e.receiver.split(":")[1]) for e in hops]
+    trained, n_up = [], 0
+    for t, events in sorted(led.round_events().items()):
+        parts = sampler.participants(t, task.cluster_members[visits[t]])
+        ups = sorted((e.phase, e.sender, e.n_bits) for e in events if e.hop == "client_to_es")
+        want = sorted((j, f"client:{i}", up) for j in range(J) for i in parts)
+        check(ups == want, f"{name}: round {t}'s uplinks differ from J per participant")
+        downs = sum(1 for e in events if e.hop == "es_to_client" and e.n_bits == down)
+        check(downs == len(want), f"{name}: round {t}'s broadcasts differ from its uplinks")
+        if parts:
+            trained.append(t)
+        n_up += len(want)
+    want = {"client_to_es": (n_up, n_up * up), "es_to_client": (n_up, n_up * down),
+            "es_to_es": (len(hops), len(hops) * down)}
+    got = {h: (led.messages[h], led.bits[h]) for h in led.messages if led.messages[h]}
+    check(got == want, f"{name}: ledger {got} differs from the closed form {want}")
+    return visits[:-1], trained
+
+
+def participation_path(torch, build, task, arms):
+    """Phase 3g: partial participation, dynamic ES graphs and the netsim
+    replay, at the Appendix-A scale of phases 3a and 3e.  Fed-CHS QSGD(16)
+    under Gilbert-Elliott churn without and with the availability-aware
+    rule, then with two forced dark rounds (pass-throughs that must launch
+    nothing, send nothing and leave the params bit-equal); Hier-Local-QSGD
+    QSGD(16) on both hops under Bernoulli churn; Fed-CHS on the IoV and LEO
+    graphs, whose visit order must be the scheduler's own replay; a small
+    masked MLP run on the card against the CPU's plain path; and every arm
+    of 3e and 3g replayed through netsim's edge-cloud network."""
+    from repro_torch.comm.channels import DenseChannel, QSGDChannel, channel_wire_bits
+    from repro_torch.core.baselines import HierLocalQSGDConfig, run_hier_local_qsgd
+    from repro_torch.core.dynamics import make_dynamic
+    from repro_torch.core.fed_chs import FedCHSConfig, _make_scheduler, run_fed_chs
+    from repro_torch.core.scheduler import FedCHSScheduler
+    from repro_torch.core.topology import make_topology
+    from repro_torch.netsim import edge_cloud_network, simulate_run
+    from repro_torch.part import AvailabilityAware, BernoulliTrace, GilbertElliottTrace
+    from repro_torch.utils import tree_leaves
+
+    K, E = MAIN_K, MAIN_E
+    J, M = K // E, task.num_clusters
+    leaf_sizes = task.param_leaf_sizes()
+    L, d = len(leaf_sizes), sum(leaf_sizes)
+    qsgd16 = QSGDChannel(16)
+    packed = ("qsgd_quantize_pack", "qsgd_unpack_dequantize")
+
+    def churn():  # examples/participation_tour.py's trace
+        return AvailabilityAware(GilbertElliottTrace(p_fail=0.25, p_recover=0.35, seed=5))
+
+    def chs_cfg(rounds, **kw):
+        return FedCHSConfig(rounds=rounds, local_steps=K, local_epochs=E, eval_every=2,
+                            channel=qsgd16, seed=0, **kw)
+
+    def check_launches(arm, want):
+        for k, v in arm["launches"].items():
+            check(v == (want if k in packed else 0),
+                  f"{arm['name']}: {k} launched {v} times, expected {want if k in packed else 0}")
+
+    def check_finite(arm):
+        res = arm["res"]
+        check(all(math.isfinite(x) for x in res.test_acc + res.train_loss),
+              f"{arm['name']}: non-finite trace")
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(res.final_params)),
+              f"{arm['name']}: non-finite params")
+
+    new = []
+    for name, sched in (("Fed-CHS QSGD(16), GE churn", False),
+                        ("Fed-CHS QSGD(16), GE churn + availability rule", True)):
+        cfg = chs_cfg(CHURN_ROUNDS, sampler=churn(), availability_scheduler=sched)
+        arm = comparison_arm(torch, build, name, lambda cfg=cfg: run_fed_chs(task, cfg),
+                             CHURN_ROUNDS)
+        visits, trained = churn_ledger_checks(name, arm["res"], task, cfg.sampler, qsgd16, J)
+        check_launches(arm, len(trained) * J * L)
+        check_finite(arm)
+        topo = make_topology(cfg.topology, M, seed=cfg.topology_seed)
+        replay = _make_scheduler(task, cfg, topo, visits[0]).precompute(CHURN_ROUNDS)
+        check(visits == list(replay), f"{name}: visit order {visits} is not the rule's {replay}")
+        passes = CHURN_ROUNDS - len(trained)
+        if sched:
+            check(passes == 0, f"{name}: {passes} pass-through rounds under the availability rule")
+        print(f"phase 3g: {name}: {CHURN_ROUNDS} rounds, {arm['s_per_round']:.3f} s/round, peak "
+              f"{arm['peak_gb']:.2f} GB; visits {visits} (the rule's replay); pass-through "
+              f"rounds {passes}; uplinks {arm['res'].ledger.messages['client_to_es']} "
+              f"(of {CHURN_ROUNDS * J * task.num_clients // M} at full participation), each "
+              f"J per participant; launches {arm['launches']}, expected {len(trained) * J * L} "
+              f"of each packed kernel; accuracy {arm['res'].test_acc}")
+        new.append(arm)
+
+    # forced pass-throughs: rounds 1 and 2 dark, everything else as under churn
+    dark = _DarkRounds(churn(), {1, 2})
+    name = "Fed-CHS QSGD(16), dark rounds 1-2"
+    arm = comparison_arm(torch, build, name, lambda: run_fed_chs(
+        task, chs_cfg(4, sampler=dark)), 4)
+    visits, trained = churn_ledger_checks(name, arm["res"], task, dark, qsgd16, J)
+    check(trained == [0, 3], f"{name}: trained rounds {trained}")
+    check_launches(arm, 2 * J * L)
+    check_finite(arm)
+    before = run_fed_chs(task, chs_cfg(1, sampler=dark)).final_params
+    after = run_fed_chs(task, chs_cfg(3, sampler=dark)).final_params
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(before), tree_leaves(after))),
+          "the pass-through rounds 1-2 moved the params")
+    print(f"phase 3g: {name}: launches {arm['launches']}, expected {2 * J * L} (rounds 0 and 3 "
+          f"only); rounds 1-2 carry only their ES->ES hop, and the params after round 2 equal "
+          f"those after round 0 bit for bit")
+    new.append(arm)
+
+    name = "Hier-Local-QSGD QSGD(16), Bernoulli(0.7)"
+    bern = AvailabilityAware(BernoulliTrace(p=0.7))
+    R = HIER_CHURN_ROUNDS
+    arm = comparison_arm(torch, build, name, lambda: run_hier_local_qsgd(task, HierLocalQSGDConfig(
+        rounds=R, local_steps=K, local_epochs=E, eval_every=1, qsgd_levels=16, sampler=bern)), R)
+    check_launches(arm, R * (J * L + L))
+    check_finite(arm)
+    up, down = channel_wire_bits(qsgd16, d, leaf_sizes), DenseChannel().message_bits(d)
+    led = arm["res"].ledger
+    for t in range(R):
+        parts = [bern.participants(t, members) for members in task.cluster_members]
+        events = led.round_events()[t]
+        ups = sorted((e.phase, e.sender, e.receiver) for e in events if e.hop == "client_to_es")
+        check(ups == sorted((j, f"client:{i}", f"es:{m}") for j in range(J)
+                            for m in range(M) for i in parts[m]),
+              f"{name}: round {t}'s uplinks differ from J per participant")
+        check(sorted(e.sender for e in events if e.hop == "es_to_ps")
+              == sorted(f"es:{m}" for m in range(M) if parts[m]),
+              f"{name}: round {t}: es_to_ps from clusters that did not train")
+        check(sorted(e.receiver for e in events if e.hop == "ps_to_es")
+              == sorted(f"es:{m}" for m in range(M)), f"{name}: round {t}: ps_to_es not to all")
+    n_up = led.messages["client_to_es"]
+    n_es = sum(1 for t in range(R) for m in task.cluster_members
+               if bern.participants(t, m))
+    want = {"client_to_es": (n_up, n_up * up), "es_to_client": (n_up, n_up * down),
+            "es_to_ps": (n_es, n_es * up), "ps_to_es": (R * M, R * M * down)}
+    got = {h: (led.messages[h], led.bits[h]) for h in led.messages if led.messages[h]}
+    check(got == want, f"{name}: ledger {got} differs from the closed form {want}")
+    print(f"phase 3g: {name}: {R} rounds, {arm['s_per_round']:.3f} s/round, peak "
+          f"{arm['peak_gb']:.2f} GB; launches {arm['launches']}, expected {R * (J * L + L)}; "
+          f"uplinks {n_up} of {R * J * task.num_clients}, es_to_ps {n_es}, ps_to_es {R * M}")
+    new.append(arm)
+
+    for kind in ("iov", "leo"):
+        name = f"Fed-CHS QSGD(16), dynamic {kind}"
+        cfg = chs_cfg(DYN_ROUNDS, dynamic=kind)
+        arm = comparison_arm(torch, build, name, lambda cfg=cfg: run_fed_chs(task, cfg),
+                             DYN_ROUNDS)
+        check_launches(arm, DYN_ROUNDS * J * L)
+        check_finite(arm)
+        visits, trained = churn_ledger_checks(name, arm["res"], task,
+                                              AvailabilityAware(), qsgd16, J)
+        dyn = make_dynamic(kind, M, seed=cfg.topology_seed)
+        replay = FedCHSScheduler(dyn(0), task.cluster_sizes, initial=visits[0]).precompute(
+            DYN_ROUNDS + 1, dynamic=dyn)
+        hops = [int(e.receiver.split(":")[1]) for e in arm["res"].ledger.events
+                if e.hop == "es_to_es"]
+        check(visits + hops[-1:] == list(replay),
+              f"{name}: visit order {visits + hops[-1:]} is not precompute's {list(replay)}")
+        print(f"phase 3g: {name}: {DYN_ROUNDS} rounds, {arm['s_per_round']:.3f} s/round; "
+              f"visits {visits + hops[-1:]} = precompute(dynamic={kind!r}); launches "
+              f"{arm['launches']}")
+        new.append(arm)
+
+    masked_cross_check(torch)
+
+    net = edge_cloud_network(seed=0)
+    print("phase 3g: netsim replay under edge_cloud_network(seed=0), simulated seconds:")
+    for arm in arms + new:
+        res = arm["res"]
+        tl = simulate_run(task, res, net, local_steps=K)
+        rounds = res.rounds[-1] + 1
+        check(math.isfinite(tl.makespan) and tl.makespan > 0, f"{arm['name']}: netsim makespan")
+        print(f"  {arm['name']:48s} {rounds:3d} rounds, {tl.makespan / rounds:10.3f} s/round, "
+              f"makespan {tl.makespan:10.3f} s")
+    return new
+
+
+def masked_cross_check(torch):
+    """Phase 3g, continued: a masked MLP QSGD(16) Fed-CHS run under churn on
+    the card against the same run on the CPU's plain path, at phase 3a's
+    bound, beside what the CPU run reads against itself from weights
+    1 + 2^-23 apart."""
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    from repro_torch.core.simulation import FLTask
+    from repro_torch.data.partition import assign_clusters, dirichlet_partition
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.models.classifier import make_classifier
+    from repro_torch.part import AvailabilityAware, GilbertElliottTrace
+    from repro_torch.utils import tree_map
+
+    ds = make_dataset("mnist", train_size=4000, test_size=1000, seed=0)
+    clients = dirichlet_partition(ds.train_y, 20, 0.6, seed=0)
+    clusters = assign_clusters(20, 4, seed=0)
+    mlp = make_classifier("mlp", "mnist", ds.spec.image_shape, 10)
+    cfg = FedCHSConfig(rounds=4, local_steps=10, local_epochs=5, eval_every=2, qsgd_levels=16,
+                       sampler=AvailabilityAware(GilbertElliottTrace(0.25, 0.35, seed=5)))
+    on_card = run_fed_chs(FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0), cfg)
+    cpu_task = FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0, device="cpu")
+    p0 = cpu_task.init_params()
+    on_cpu = run_fed_chs(cpu_task, cfg)
+    rel, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
+    nudged = dataclasses.replace(mlp, init=lambda seed=0, device=None: tree_map(
+        lambda t: t * (1 + 2**-23), mlp.init(seed, device)))
+    ulp_run = run_fed_chs(FLTask(nudged, ds, clients, clusters, batch_size=32, seed=0,
+                                 device="cpu"), cfg)
+    ulp_rel, ulp_upd_rel, _, ulp_gap = card_vs_cpu(torch, ulp_run, on_cpu, p0)
+    ups = on_cpu.ledger.messages["client_to_es"]
+    print(f"phase 3g: masked MLP QSGD(16) run under GE churn ({ups} uplinks of "
+          f"{4 * 2 * 5} at full participation), card vs CPU plain path: params rel L2 "
+          f"{rel:.3g} ({upd_rel:.3g} of the update p_T - p_0, which is {upd:.3g} of p_T), "
+          f"accuracy gap {gap:.3g}; the CPU run against itself from weights 1 + 2^-23 apart: "
+          f"{ulp_rel:.3g} ({ulp_upd_rel:.3g} of the update), accuracy gap {ulp_gap:.3g}")
+    check(rel <= 0.03 and upd_rel <= 0.03 and gap <= 0.02,
+          "card masked run strays from the CPU run")
+
+
 def time_launches(torch, fn, reps, flush):
     """Median of per-launch CUDA-event times (ms), L2 flushed before each.
     A spin of about a millisecond on the card comes first, so the host has
@@ -1283,8 +1533,9 @@ def main() -> None:
     del lm_params
     lm_cross_check(torch)
     torch.cuda.empty_cache()
-    comparison_path(torch, build, lenet_task, chs_arm)
-    del lenet_task, chs_arm
+    arms = comparison_path(torch, build, lenet_task, chs_arm)
+    participation_path(torch, build, lenet_task, arms)
+    del lenet_task, chs_arm, arms
     baselines_cross_check(torch)
     torch.cuda.empty_cache()
 

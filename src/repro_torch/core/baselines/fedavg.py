@@ -9,6 +9,11 @@ FedAvg round is one engine interaction with E = K over all n clients.
 Client-held optimizer state persists across rounds without traversing the
 channel.
 
+Participation (`repro_torch.part`): `FedAvgConfig.sampler` picks the
+reporting subset each round.  Dropped clients send nothing, keep their
+optimizer state frozen, and the D_n weights renormalize over the
+reporters.  A round with no reporter is skipped outright.
+
 The reference runs a whole-run scan by default and pins it bit-identical
 to this looped driver; `scan_rounds` and `chunk_rounds` are accepted and
 the looped driver runs either way.
@@ -28,10 +33,11 @@ from repro_torch.core.precision import downlink_bits_per_param, resolve_channel
 from repro_torch.core.prng import PRNGKey, split_chain
 from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
+from repro_torch.part import is_full_participation, participation_mask
 from repro_torch.utils import tree_leaves
 
 # reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("client_microbatch", "precision", "sampler", "obs", "mesh")
+_NOT_PORTED = ("client_microbatch", "precision", "obs", "mesh")
 
 
 @dataclasses.dataclass
@@ -43,6 +49,8 @@ class FedAvgConfig:
     qsgd_levels: int | None = None
     channel: Channel | None = None  # explicit uplink channel
     local_opt: Any = None           # client-held optimizer (None = plain SGD)
+    sampler: Any = None             # per-round participation (repro_torch.part);
+                                    # None / FullParticipation = the unmasked path
     track_events: bool = True       # False: bits only, no CommEvent stream
     scan_rounds: bool = True        # accepted; the looped driver runs
     chunk_rounds: int = 32          # accepted; unused by the looped driver
@@ -51,7 +59,6 @@ class FedAvgConfig:
     # not ported (see _NOT_PORTED): must stay unset
     client_microbatch: int | None = None
     precision: Any = None
-    sampler: Any = None
     obs: Any = None
     mesh: Any = None
 
@@ -84,28 +91,42 @@ def run_fedavg(task: FLTask, config: FedAvgConfig) -> RunResult:
 
     recorder = RunRecorder(task, config.rounds, config.eval_every)
     n = task.num_clients
+    full_part = is_full_participation(config.sampler)
+    all_clients = list(range(n))
     opt_state = engine.init_opt_state(params, n)  # client-held, cross-round
     losses = torch.full((1,), float("nan"))  # stays nan until a first trained round
     for t in range(config.rounds):
-        # every client stages its K batches, client by client: one E = K
-        # interaction, leaves (1, n, K, B, ...)
-        per_client = [task.sample_client_batches(i, K) for i in range(n)]
-        batch = {k: torch.stack([b[k] for b in per_client])[None] for k in per_client[0]}
-        subs = None
-        if channel.stochastic:
-            key, subs = split_chain(key, 1)
-        params, opt_state, losses = engine.cluster_round(
-            params, batch, gammas, lrs, subs, opt_state)
+        participating = (
+            all_clients if full_part else config.sampler.participants(t, all_clients))
+        if participating:
+            # every client stages its K batches, client by client, at full
+            # width even under churn: one E = K interaction, leaves
+            # (1, n, K, B, ...)
+            per_client = [task.sample_client_batches(i, K) for i in range(n)]
+            batch = {k: torch.stack([b[k] for b in per_client])[None] for k in per_client[0]}
+            subs = None
+            if channel.stochastic:
+                key, subs = split_chain(key, 1)
+            gammas_t, pmask = gammas, None
+            if not full_part:
+                # D_n weights renormalized over the reporters on the host
+                pmask = participation_mask(all_clients, participating)
+                w = task.global_weights() * pmask
+                gammas_t = torch.from_numpy((w / w.sum()).astype(np.float32)).to(task.device)
+            params, opt_state, losses = engine.cluster_round(
+                params, batch, gammas_t, lrs, subs, opt_state, mask=pmask)
 
-        if ledger.track_events:
-            for i in range(n):
-                ledger.record("ps_to_client", down_bits, round=t, phase=0,
-                              sender="ps", receiver=f"client:{i}")
-                ledger.record("client_to_ps", up_bits, round=t, phase=0,
-                              sender=f"client:{i}", receiver="ps")
-        else:
-            ledger.record("ps_to_client", down_bits, n)
-            ledger.record("client_to_ps", up_bits, n)
+            if ledger.track_events:
+                for i in participating:
+                    ledger.record("ps_to_client", down_bits, round=t, phase=0,
+                                  sender="ps", receiver=f"client:{i}")
+                    ledger.record("client_to_ps", up_bits, round=t, phase=0,
+                                  sender=f"client:{i}", receiver="ps")
+            else:
+                ledger.record("ps_to_client", down_bits, len(participating))
+                ledger.record("client_to_ps", up_bits, len(participating))
+        # else: nobody reported, and the round is skipped outright (no
+        # draws, no keys, no traffic, params unchanged)
         engine.end_round(ledger, t)
         recorder.record(t, params, losses)
 

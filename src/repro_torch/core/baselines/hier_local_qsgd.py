@@ -11,6 +11,13 @@ Per global round:
     per cluster, split per leaf inside the channel), which takes the
     D_{A,m}/D_A-weighted average and broadcasts it back.
 
+Participation (`repro_torch.part`): `HierLocalQSGDConfig.sampler` picks
+each cluster's reporters per round.  Dropouts fold into the engine's
+masked (M, n_max) client slots (zero gamma, zero uplink bits, frozen
+optimizer state); a cluster with no reporter makes its ES a pass-through:
+zero delta, zero PS weight, no ES->PS upload, though it still receives the
+PS broadcast.  A round with no reporter anywhere is skipped outright.
+
 Client-held optimizer state lives in one (M, n_max)-stacked tree that
 persists across rounds.  The reference runs a whole-run scan by default
 and pins it bit-identical to this looped driver; `scan_rounds` and
@@ -31,10 +38,11 @@ from repro_torch.core.precision import downlink_bits_per_param, resolve_channel
 from repro_torch.core.prng import PRNGKey, split_chain
 from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
+from repro_torch.part import is_full_participation, participation_mask
 from repro_torch.utils import tree_leaves
 
 # reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("client_microbatch", "precision", "sampler", "obs", "mesh")
+_NOT_PORTED = ("client_microbatch", "precision", "obs", "mesh")
 
 
 @dataclasses.dataclass
@@ -48,6 +56,8 @@ class HierLocalQSGDConfig:
     channel: Channel | None = None     # explicit client->ES channel
     es_channel: Channel | None = None  # explicit ES->PS channel (defaults to channel)
     local_opt: Any = None              # client-held optimizer (None = plain SGD)
+    sampler: Any = None                # per-round participation (repro_torch.part);
+                                       # None / FullParticipation = the unmasked path
     track_events: bool = True          # False: bits only, no CommEvent stream
     scan_rounds: bool = True           # accepted; the looped driver runs
     chunk_rounds: int = 32             # accepted; unused by the looped driver
@@ -56,7 +66,6 @@ class HierLocalQSGDConfig:
     # not ported (see _NOT_PORTED): must stay unset
     client_microbatch: int | None = None
     precision: Any = None
-    sampler: Any = None
     obs: Any = None
     mesh: Any = None
 
@@ -65,6 +74,23 @@ class HierLocalQSGDConfig:
         if unset:
             raise NotImplementedError(
                 f"HierLocalQSGDConfig fields not ported to repro_torch yet: {unset}")
+
+
+def _participation_arrays(task: FLTask, parts_t, M: int, n_max: int):
+    """One round's participation-renormalized (gammas, mask, sizes) rows as
+    numpy: gamma rows renormalize over each cluster's reporters, and a
+    cluster with none keeps an all-zero row (its ES is a pass-through)."""
+    pmask = np.zeros((M, n_max), np.float32)
+    gnp = np.zeros((M, n_max), np.float32)
+    sizes = np.zeros(M, np.float32)
+    for m, members in enumerate(task.cluster_members):
+        row = participation_mask(members, parts_t[m])
+        pmask[m, : len(members)] = row
+        w = task.cluster_weights(m) * row
+        if w.sum() > 0:
+            gnp[m, : len(members)] = w / w.sum()
+        sizes[m] = sum(task.client_sizes[i] for i in parts_t[m])
+    return gnp, pmask, sizes
 
 
 def run_hier_local_qsgd(task: FLTask, config: HierLocalQSGDConfig) -> RunResult:
@@ -95,11 +121,34 @@ def run_hier_local_qsgd(task: FLTask, config: HierLocalQSGDConfig) -> RunResult:
     gammas, mask = task.padded_cluster_weights()
     sizes = np.array(task.cluster_sizes, dtype=np.float32)
     es_weights = torch.from_numpy(sizes / sizes.sum()).to(task.device)
-    opt_state = engine.init_opt_state(params, M, mask.shape[1])  # client-held, cross-round
+    n_max = mask.shape[1]
+    full_part = is_full_participation(config.sampler)
+    opt_state = engine.init_opt_state(params, M, n_max)  # client-held, cross-round
 
     recorder = RunRecorder(task, config.rounds, config.eval_every)
     losses = torch.full((1, 1), float("nan"))  # stays nan until a first trained round
     for t in range(config.rounds):
+        if full_part:
+            parts = list(task.cluster_members)
+            gammas_t, mask_t, es_weights_t = gammas, mask, es_weights
+            any_participants = True
+        else:
+            # per-cluster reporters -> masked (M, n_max) slots; ES weights
+            # renormalize over the clusters that trained at all
+            parts = [config.sampler.participants(t, members)
+                     for members in task.cluster_members]
+            gnp, pmask, sizes = _participation_arrays(task, parts, M, n_max)
+            any_participants = sizes.sum() > 0
+            if any_participants:
+                gammas_t = torch.from_numpy(gnp).to(task.device)
+                mask_t = torch.from_numpy(pmask).to(task.device)
+                es_weights_t = torch.from_numpy(sizes / sizes.sum()).to(task.device)
+        if not any_participants:
+            # nobody anywhere: no draws, no keys, no traffic, params unchanged
+            engine.end_round(ledger, t)
+            recorder.record(t, params, losses)
+            continue
+
         batch = task.sample_all_cluster_batches(K, E)  # (J, M, n_max, E, B, ...)
         subs = es_subs = None
         if channel.stochastic:
@@ -108,26 +157,32 @@ def run_hier_local_qsgd(task: FLTask, config: HierLocalQSGDConfig) -> RunResult:
         if es_channel.stochastic:
             key, es_subs = split_chain(key, M)
         params, opt_state, losses = engine.multi_cluster_round(
-            params, batch, gammas, mask, es_weights, lrs_grouped, subs, es_subs, opt_state)
+            params, batch, gammas_t, mask_t, es_weights_t, lrs_grouped, subs, es_subs,
+            opt_state)
+        if not full_part:
+            # the loss over the clusters that trained (a dark one reads 0)
+            losses = losses[:, torch.from_numpy(sizes > 0).to(losses.device)]
 
         if ledger.track_events:
             for j in range(interactions):
-                for m, members in enumerate(task.cluster_members):
-                    for i in members:
+                for m in range(M):
+                    for i in parts[m]:
                         ledger.record("es_to_client", down_bits, round=t, phase=j,
                                       sender=f"es:{m}", receiver=f"client:{i}")
                         ledger.record("client_to_es", up_bits, round=t, phase=j,
                                       sender=f"client:{i}", receiver=f"es:{m}")
             for m in range(M):
-                ledger.record("es_to_ps", es_up_bits, round=t, phase=interactions,
-                              sender=f"es:{m}", receiver="ps")
+                if parts[m]:  # a pass-through ES uploads nothing
+                    ledger.record("es_to_ps", es_up_bits, round=t, phase=interactions,
+                                  sender=f"es:{m}", receiver="ps")
+                # every ES still receives the broadcast, to stay in sync
                 ledger.record("ps_to_es", down_bits, round=t, phase=interactions + 1,
                               sender="ps", receiver=f"es:{m}")
         else:
-            n = task.num_clients
-            ledger.record("es_to_client", down_bits, interactions * n)
-            ledger.record("client_to_es", up_bits, interactions * n)
-            ledger.record("es_to_ps", es_up_bits, M)
+            n_part = sum(len(p) for p in parts)
+            ledger.record("es_to_client", down_bits, interactions * n_part)
+            ledger.record("client_to_es", up_bits, interactions * n_part)
+            ledger.record("es_to_ps", es_up_bits, sum(1 for p in parts if p))
             ledger.record("ps_to_es", down_bits, M)
         engine.end_round(ledger, t)
         recorder.record(t, params, losses)

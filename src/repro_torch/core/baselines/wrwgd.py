@@ -8,6 +8,11 @@ size (or uniformly).  One client->client model hop per round, metered at the
 dense width.  The walk is host-side numpy rng, replayed draw for draw as the
 reference does it.
 
+Participation (`repro_torch.part`): `WRWGDConfig.sampler` gates both ends
+of the walk.  A visited client that is down this round forwards the model
+without training (and draws no data); the next hop is drawn from the
+neighbours that are up next round, or from all of them when none is.
+
 The reference runs a whole-run scan by default and pins it bit-identical
 to this looped driver; `scan_rounds` and `chunk_rounds` are accepted and
 the looped driver runs either way.
@@ -26,10 +31,11 @@ from repro_torch.core.ledger import CommLedger
 from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
 from repro_torch.core.topology import make_topology
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
+from repro_torch.part import is_full_participation
 from repro_torch.utils import tree_leaves, tree_map
 
 # reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("client_microbatch", "sampler", "obs", "mesh")
+_NOT_PORTED = ("client_microbatch", "obs", "mesh")
 
 
 @dataclasses.dataclass
@@ -39,6 +45,8 @@ class WRWGDConfig:
     topology: str = "random_sparse"   # client-level graph, degree <= 3 (paper B.1)
     topology_seed: int = 0
     weighting: str = "data_size"      # or "uniform"
+    sampler: Any = None               # per-round participation (repro_torch.part);
+                                      # None / FullParticipation = every visit trains
     track_events: bool = True         # False: bits only, no CommEvent stream
     scan_rounds: bool = True          # accepted; the looped driver runs
     chunk_rounds: int = 32            # accepted; unused by the looped driver
@@ -49,7 +57,6 @@ class WRWGDConfig:
                                       # K local steps of that visit
     # not ported (see _NOT_PORTED): must stay unset
     client_microbatch: int | None = None
-    sampler: Any = None
     obs: Any = None
     mesh: Any = None
 
@@ -67,11 +74,14 @@ def _precompute_walk(task: FLTask, config: WRWGDConfig):
     topo = make_topology(config.topology, task.num_clients, seed=config.topology_seed)
     rng = np.random.default_rng(config.seed)
     current = int(rng.integers(task.num_clients))
+    full_part = is_full_participation(config.sampler)
     visits, trains, hops = [], [], []
-    for _ in range(config.rounds):
+    for t in range(config.rounds):
         visits.append(current)
-        trains.append(True)
+        trains.append(full_part or bool(config.sampler.participants(t, [current])))
         nbrs = list(topo.neighbors(current))
+        if not full_part:
+            nbrs = config.sampler.participants(t + 1, nbrs) or nbrs
         if config.weighting == "data_size":
             w = task.client_sizes[nbrs]
             w = w / w.sum()
@@ -115,6 +125,8 @@ def run_wrwgd(task: FLTask, config: WRWGDConfig) -> RunResult:
             batch = tree_map(lambda a: a[:, None],
                              task.sample_client_batches(int(visits[t]), config.local_steps))
             params, losses = engine.grad_round(params, batch, gamma_one, lrs_r[t])
+        # else: the visited client is down, a pass-through: the model is
+        # forwarded untouched and the round draws no data
         prev, nxt = hops[t]
         ledger.record("client_to_client", hop_bits, round=t, phase=0,
                       sender=f"client:{prev}", receiver=f"client:{nxt}")

@@ -5,7 +5,9 @@
   SGD).
 * `cluster_round` — delta mode: clients run E local optimizer steps,
   upload channel-compressed model deltas, the ES adds the gamma-weighted
-  aggregate; repeated over the J = K/E interactions of a round.
+  aggregate; repeated over the J = K/E interactions of a round.  An
+  optional participation mask zeroes the dropped clients' deltas before
+  compression and freezes their optimizer state.
 * `multi_cluster_round` — the Hier-Local-QSGD round: the delta-mode
   interaction for all M clusters at once over a padded (M, n_max) client
   grid (padded slots carry zero gamma, their deltas are zeroed before
@@ -17,9 +19,9 @@ clusters); here a round is a Python loop over steps and interactions, with
 the client axis carried by `torch.func.vmap`.  The multi-cluster round
 flattens its client grid into that one axis, so each QSGD uplink leaf is
 encoded and decoded by one kernel launch for all M * n_max senders, and
-the ES hop by one launch per leaf for all M.  Not ported yet: the
-participation masks of `cluster_round`, client microbatching, mixed
-precision, telemetry taps and the whole-run scan executor.
+the ES hop by one launch per leaf for all M.  Not ported yet:
+client microbatching, mixed precision, telemetry taps and the whole-run
+scan executor.
 """
 from __future__ import annotations
 
@@ -98,25 +100,45 @@ class RoundEngine:
         Returns (params, per-step gamma-weighted losses (K,))."""
         return grad_phase(self.model)(params, batch, gammas, lrs)
 
-    def cluster_round(self, params, batch, gammas, lrs, subs=None, opt_state=None):
+    def cluster_round(self, params, batch, gammas, lrs, subs=None, opt_state=None,
+                      mask=None):
         """One delta-mode round.  batch leaves (J, n, E, B, ...), gammas (n,)
         tensor, lrs (J, E), subs (J, 2) key words (stochastic channels).
-        Returns (params, opt_state, per-interaction mean losses (J,))."""
+        `mask` (n,) is the optional per-client participation mask: masked-out
+        clients upload a zero delta (zeroed before compression, keyed by
+        their slot all the same), keep their optimizer state frozen and
+        leave the loss average; `gammas` must already be renormalized over
+        the participants.  With `mask=None` the round is the unmasked
+        computation.  Returns (params, opt_state, per-interaction mean
+        losses (J,))."""
         first = tree_leaves(batch)[0]
         J, n = first.shape[:2]
         if opt_state is None:
             opt_state = self.init_opt_state(params, n)
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.float32, device=first.device)
         local = local_opt_steps(self.model, self.local_opt)
         losses = []
         for j in range(J):
             stacked = tree_map(lambda a: a.expand((n,) + a.shape), params)
-            new_p, opt_state, client_losses = local(
+            new_p, new_state, client_losses = local(
                 stacked, opt_state, tree_map(lambda a: a[j], batch), lrs[j])
-            raw = tree_map(lambda a, base: a - base[None], new_p, params)
+            if mask is None:
+                opt_state = new_state
+                raw = tree_map(lambda a, base: a - base[None], new_p, params)
+            else:
+                opt_state = _freeze_masked(mask, new_state, opt_state)
+                raw = tree_map(
+                    lambda a, base: (a - base[None])
+                    * mask.to(a.dtype).reshape((-1,) + (1,) * (a.ndim - 1)),
+                    new_p, params)
             deltas = compress_uplinks(self.channel, raw, None if subs is None else subs[j])
             agg = tree_map(lambda d: torch.tensordot(gammas, d, dims=1), deltas)
             params = tree_add(params, agg)
-            losses.append(client_losses.mean())
+            if mask is None:
+                losses.append(client_losses.mean())
+            else:
+                losses.append((client_losses * mask).sum() / torch.clamp(mask.sum(), min=1.0))
         return params, opt_state, torch.stack(losses)
 
     def multi_cluster_round(self, params, batch, gammas, mask, es_weights, lrs,

@@ -12,9 +12,21 @@ Round t:
 Every message is metered in the `CommLedger` with its (round, phase,
 sender, receiver) event, exactly as the reference records it.  The
 reference's default executor (the whole-run scan) is pinned bit-identical
-to its looped driver, which this module ports; it covers full
-participation on a static topology in grad mode and delta mode, with any
-of the reference's uplink channels and client-held optimizers.
+to its looped driver, which this module ports in grad mode and delta mode,
+with any of the reference's uplink channels and client-held optimizers;
+`scan_rounds` and `chunk_rounds` are accepted and the looped driver runs
+either way.
+
+Participation (`repro_torch.part`): `FedCHSConfig.sampler` decides which
+of the active cluster's clients report each round.  Participants run the
+masked engine round (gammas renormalized over them, frozen optimizer state
+for everyone else); a cluster whose clients are all unavailable becomes a
+pass-through hop that forwards the model over the ES->ES pass without
+training.  `availability_scheduler=True` makes the 2-step rule skip
+unreachable neighbours, `link_delay` breaks its ties by ES-pair delay, and
+`dynamic` ("leo", "iov") swaps in each round's graph before the hop
+(`core/dynamics.py`).  With no sampler the path is the full-participation
+round, unmasked.
 """
 from __future__ import annotations
 
@@ -25,20 +37,27 @@ import numpy as np
 import torch
 
 from repro_torch.comm.channels import Channel, DenseChannel, channel_wire_bits
+from repro_torch.core.dynamics import make_dynamic
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.ledger import CommLedger
 from repro_torch.core.precision import downlink_bits_per_param, resolve_channel
 from repro_torch.core.prng import PRNGKey, split_chain
-from repro_torch.core.scheduler import FedCHSScheduler
+from repro_torch.core.scheduler import (
+    AvailabilityAwareScheduler,
+    FedCHSScheduler,
+    LatencyAwareScheduler,
+)
 from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
 from repro_torch.core.topology import make_topology
 from repro_torch.optim.local import PlainSGD
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
+from repro_torch.part import is_full_participation, participation_mask
 from repro_torch.utils import tree_leaves
 
-# reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("dynamic", "client_microbatch", "precision", "link_delay", "sampler",
-               "obs", "mesh", "checkpoint")
+# reference config fields this port does not implement yet, with their
+# defaults: setting one away from its default raises
+_NOT_PORTED = {"client_microbatch": None, "precision": None, "obs": None, "mesh": None,
+               "checkpoint": None, "checkpoint_every": 1, "resume": False}
 
 
 @dataclasses.dataclass
@@ -48,6 +67,8 @@ class FedCHSConfig:
     local_epochs: int = 1                  # E (local steps per upload); K % E == 0
     topology: str = "random_sparse"        # paper B.1: random sparse, degree <= 3
     topology_seed: int = 0
+    dynamic: str | None = None             # "leo" / "iov": per-round graphs
+                                           # (core/dynamics.py, Appendix D)
     initial_cluster: int | None = None     # None -> random per Algorithm 1 line 4
     eval_every: int = 10
     bits_per_param: int = 32
@@ -55,27 +76,48 @@ class FedCHSConfig:
     channel: Channel | None = None         # explicit uplink channel; overrides
                                            # qsgd_levels/bits_per_param
     local_opt: Any = None                  # client-held optimizer; None = PlainSGD
+    link_delay: Callable[[int, int], float] | None = None
+                                           # ES-pair delay (seconds): switches the
+                                           # scheduler to LatencyAwareScheduler
+    sampler: Any = None                    # per-round participation
+                                           # (repro_torch.part); None /
+                                           # FullParticipation = the unmasked path
+    availability_scheduler: bool = False   # with a sampler: 2-step rule over
+                                           # reachable neighbours only
     track_events: bool = True              # False: bits only, no CommEvent stream
+    scan_rounds: bool = True               # accepted; the looped driver runs
+    chunk_rounds: int = 32                 # accepted; unused by the looped driver
     seed: int = 0
     schedule: Schedule | None = None       # default: paper eta_k = 1/(K sqrt(k+1))
-    # not ported (see _NOT_PORTED): must stay unset
-    dynamic: str | None = None
+    # not ported (see _NOT_PORTED): must keep their defaults
     client_microbatch: int | None = None
     precision: Any = None
-    link_delay: Callable[[int, int], float] | None = None
-    sampler: Any = None
-    availability_scheduler: bool = False
     obs: Any = None
     mesh: Any = None
     checkpoint: str | None = None
+    checkpoint_every: int = 1
+    resume: bool = False
 
     def __post_init__(self):
-        unset = [f for f in _NOT_PORTED if getattr(self, f) is not None]
-        if self.availability_scheduler:
-            unset.append("availability_scheduler")
+        unset = [f for f, default in _NOT_PORTED.items() if getattr(self, f) != default]
         if unset:
             raise NotImplementedError(
                 f"FedCHSConfig fields not ported to repro_torch yet: {unset}")
+
+
+def _make_scheduler(task: FLTask, config: FedCHSConfig, topo, m0: int):
+    """The 2-step rule, availability-aware with `availability_scheduler`,
+    latency-aware with `link_delay`, the paper's own otherwise."""
+    if config.availability_scheduler:
+        assert config.sampler is not None, "availability_scheduler needs a sampler"
+
+        def reachable(m_: int, r: int) -> bool:
+            return len(config.sampler.participants(r, task.cluster_members[m_])) > 0
+
+        return AvailabilityAwareScheduler(topo, task.cluster_sizes, reachable, initial=m0)
+    if config.link_delay is not None:
+        return LatencyAwareScheduler(topo, task.cluster_sizes, config.link_delay, initial=m0)
+    return FedCHSScheduler(topo, task.cluster_sizes, initial=m0)
 
 
 def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
@@ -87,14 +129,20 @@ def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
     lrs = np.array([sched_fn(k) for k in range(K)], dtype=np.float32)
     lrs_grouped = lrs.reshape(interactions, E)
 
-    topo = make_topology(config.topology, task.num_clusters, seed=config.topology_seed)
+    dyn = None
+    if config.dynamic is not None:
+        dyn = make_dynamic(config.dynamic, task.num_clusters, seed=config.topology_seed)
+        topo = dyn(0)
+    else:
+        topo = make_topology(config.topology, task.num_clusters, seed=config.topology_seed)
     rng = np.random.default_rng(config.seed)
     m0 = (
         int(rng.integers(task.num_clusters))
         if config.initial_cluster is None
         else config.initial_cluster
     )
-    scheduler = FedCHSScheduler(topo, task.cluster_sizes, initial=m0)
+    full_part = is_full_participation(config.sampler)
+    scheduler = _make_scheduler(task, config, topo, m0)
 
     params = task.init_params()  # drawn once: the sizes below come from it
     leaf_sizes = tuple(leaf.numel() for leaf in tree_leaves(params))
@@ -110,9 +158,11 @@ def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
     up_bits = channel_wire_bits(channel, d, leaf_sizes)
 
     # literal Eq. (5): E=1 dense plain-SGD interactions are gradient uplinks;
-    # a lossy dense wire or a stateful optimizer takes delta mode
+    # a lossy dense wire, a stateful optimizer or a sampler (dropouts need
+    # the masked round) takes delta mode
     grad_mode = (
-        E == 1
+        full_part
+        and E == 1
         and isinstance(channel, DenseChannel)
         and channel.wire_dtype is None
         and (config.local_opt is None or isinstance(config.local_opt, PlainSGD))
@@ -124,11 +174,22 @@ def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
     losses = torch.full((1,), float("nan"))  # stays nan until a first trained round
     for t in range(config.rounds):
         members = task.cluster_members[m]
-        gammas = torch.from_numpy(task.cluster_weights(m)).to(task.device)
+        participating = members if full_part else config.sampler.participants(t, members)
         if grad_mode:
+            gammas = torch.from_numpy(task.cluster_weights(m)).to(task.device)
             batch = task.sample_cluster_batches(m, K)
             params, losses = engine.grad_round(params, batch, gammas, lrs)
-        else:
+        elif participating:
+            pmask = None
+            w = task.cluster_weights(m)
+            if not full_part:
+                # masked round: gammas renormalized over the participants on
+                # the host, as the reference does; batches are staged at full
+                # cluster width, so the data schedule does not depend on churn
+                pmask = participation_mask(members, participating)
+                w = w * pmask
+                w = (w / w.sum()).astype(np.float32)
+            gammas = torch.from_numpy(w).to(task.device)
             batch = task.sample_round_batches(m, K, E)
             subs = None
             if channel.stochastic:
@@ -136,23 +197,31 @@ def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
             if m not in opt_states:
                 opt_states[m] = engine.init_opt_state(params, len(members))
             params, opt_states[m], losses = engine.cluster_round(
-                params, batch, gammas, lrs_grouped, subs, opt_states[m])
+                params, batch, gammas, lrs_grouped, subs, opt_states[m], mask=pmask)
+        # else: the whole cluster is unavailable, and the ES is a pass-through
+        # hop: no training, no draws, no keys, no client traffic; the model is
+        # forwarded on the ES->ES pass below (losses keeps its last value)
 
-        # comm accounting: one broadcast + one upload per client per
-        # interaction, metered per message so netsim sees the phase barriers
+        # comm accounting: one broadcast + one upload per participating
+        # client per interaction, metered per message so netsim sees the
+        # phase barriers
         es, prev_m = f"es:{m}", m
-        if ledger.track_events:
-            for j in range(interactions):
-                for i in members:
-                    ledger.record("es_to_client", down_bits, round=t, phase=j,
-                                  sender=es, receiver=f"client:{i}")
-                    ledger.record("client_to_es", up_bits, round=t, phase=j,
-                                  sender=f"client:{i}", receiver=es)
-        else:
-            ledger.record("es_to_client", down_bits, interactions * len(members))
-            ledger.record("client_to_es", up_bits, interactions * len(members))
+        if participating:
+            if ledger.track_events:
+                for j in range(interactions):
+                    for i in participating:
+                        ledger.record("es_to_client", down_bits, round=t, phase=j,
+                                      sender=es, receiver=f"client:{i}")
+                        ledger.record("client_to_es", up_bits, round=t, phase=j,
+                                      sender=f"client:{i}", receiver=es)
+            else:
+                ledger.record("es_to_client", down_bits, interactions * len(participating))
+                ledger.record("client_to_es", up_bits, interactions * len(participating))
 
-        # next passing cluster (2-step rule) + one ES->ES model hop
+        # next passing cluster (2-step rule) + one ES->ES model hop; under a
+        # dynamic network the ES sees this round's graph when it chooses
+        if dyn is not None:
+            scheduler.set_topology(dyn(t))
         m = scheduler.advance()
         ledger.record("es_to_es", down_bits, round=t, phase=interactions,
                       sender=f"es:{prev_m}", receiver=f"es:{m}")

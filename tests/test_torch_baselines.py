@@ -325,7 +325,7 @@ def test_fed_chs_channels_and_optimizers_match_reference(tasks, kw, tol):
 
 @pytest.mark.parametrize("cls,field", [
     (cls, field) for cls in (tb.FedAvgConfig, tb.WRWGDConfig, tb.HierLocalQSGDConfig)
-    for field in ("client_microbatch", "precision", "sampler", "obs", "mesh")
+    for field in ("client_microbatch", "precision", "obs", "mesh")
     if field in {f.name for f in dataclasses.fields(cls)}
 ], ids=lambda x: getattr(x, "__name__", x))
 def test_unported_baseline_fields_raise(cls, field):

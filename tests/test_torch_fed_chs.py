@@ -148,11 +148,30 @@ def test_qsgd_delta_run_matches_reference(tasks):
     assert np.linalg.norm(got - want) <= 0.03 * np.linalg.norm(want)
 
 
+# ids as the cases had them when the list also held the fields ported since
 @pytest.mark.parametrize("field,value", [
-    ("dynamic", "leo"), ("client_microbatch", 2), ("precision", object()),
-    ("link_delay", lambda a, b: 0.0), ("sampler", object()), ("obs", object()),
-    ("mesh", object()), ("checkpoint", "ck"), ("availability_scheduler", True),
-])
+    ("client_microbatch", 2), ("precision", object()), ("obs", object()),
+    ("mesh", object()), ("checkpoint", "ck"), ("checkpoint_every", 5), ("resume", True),
+], ids=["client_microbatch-2", "precision-value2", "obs-value5", "mesh-value6", "checkpoint-ck",
+        "checkpoint_every-5", "resume-True"])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         FedCHSConfig(**{field: value})
+
+
+@pytest.mark.parametrize("kw", [dict(scan_rounds=False), dict(scan_rounds=True, chunk_rounds=1)],
+                         ids=["looped", "chunked"])
+def test_scan_fields_are_accepted_and_run_the_looped_driver(tasks, kw):
+    """`FedCHSConfig(scan_rounds=False)`, as `benchmarks/engine_speedup.py`
+    passes it, constructs; either setting runs the looped driver, which
+    equals the reference's looped driver."""
+    jres, res = run_both(tasks, rounds=2, local_steps=4, eval_every=1, **kw)
+    assert_ledgers_equal(jres, res)
+    np.testing.assert_allclose(flat(tree_leaves(res.final_params)),
+                               flat(jax.tree.leaves(jres.final_params)), atol=1e-6, rtol=0)
+
+
+def test_fed_chs_config_keeps_the_reference_fields_and_defaults():
+    jf = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(FedCHSConfig)}
+    assert tf == jf

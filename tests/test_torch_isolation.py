@@ -1,6 +1,6 @@
-"""The port stands alone: `repro_torch` and `chip_smoke.py` import neither jax
-nor anything of the reference package `repro`, so they run where jax is not
-installed."""
+"""The port stands alone: `repro_torch`, its examples (`examples/torch_*.py`)
+and `chip_smoke.py` import neither jax nor anything of the reference package
+`repro`, so they run where jax is not installed."""
 import ast
 import os
 import pathlib
@@ -11,7 +11,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py"))
+           + [ROOT / "chip_smoke.py"])
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
