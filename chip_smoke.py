@@ -19,8 +19,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
      summation order); on Gaussian inputs norms at rtol 1e-6 and codes
      within 1 at no more than 0.1% of entries, and the dequantized values
      of the kernel's own payload bit for bit.  Flash attention: the
-     reference's kernel-test sweep, causal and not, plus the LM path's
-     shape, atol 3e-5 in f32 and 2e-2 in bf16;
+     reference's kernel-test sweep, causal and not, plus the LM paths'
+     shapes (2 clients of batch 2, and one client under phase 3h), atol
+     3e-5 in f32 and 2e-2 in bf16;
   3. the paths, through the entry points a user calls, each with the launch
      counts set to 0 just before it and read just after:
      a. LeNet-MNIST Fed-CHS with QSGD(16) uplinks at the paper's Appendix-A
@@ -63,6 +64,20 @@ Phases, each of which fails the script (non-zero exit, no result line):
         scheduler's `precompute(dynamic=...)`); a masked MLP run on the card
         against the CPU's plain path; every arm of 3e and 3g replayed
         through netsim's edge-cloud network;
+     h. the memory-lean engine: Hier-Local-QSGD QSGD(16) at
+        client_microbatch 2 and FedAvg at 10 on 3e's task (ledgers equal to
+        3e's, B1 and B2 once per leaf per client group, peak memory and
+        s/round beside 3e's); qwen3-0.6b at full width and depth under
+        `Precision()` (bf16 compute, f32 master, bf16 broadcasts),
+        client_microbatch 1 and `LMFedModel(remat=True, flash=True)`, with
+        the bf16 dense wire and with QSGD(16) uplinks (flash launched twice
+        per layer per client group and step, B1 and B2 once per leaf per
+        group, every hop at the closed form, loss and perplexity falling,
+        peak memory beside 3b's), a warm round profiled, and the peak of one
+        round with remat off and on at client_microbatch 2 and 1; the
+        smoke LM and 3a's MLP task under the same knobs on the card against
+        the CPU, each bounded by twice the CPU run's own gap from weights
+        one bf16 ulp apart, beside controls the bounds must reject;
   4. time each kernel at its path's shapes with CUDA events (L2 flushed
      before every launch, the card kept busy while the host enqueues it),
      beside its plain version, its bound and, for flash attention, torch's
@@ -122,6 +137,7 @@ FLASH_HEADS = ((4, 4), (8, 2), (16, 8))
 FLASH_HDS = tuple(range(32, 257, 32))  # every head dim the kernel takes
 FLASH_WINDOWS = (None, 16, 64)
 FLASH_PATH = (LM_BATCH * 2, LM_SEQ, LM_SEQ, 16, 8, 128)  # B (2 clients x 2), T, S, H, Hkv, hd
+FLASH_LEAN = (LM_BATCH, LM_SEQ, LM_SEQ, 16, 8, 128)  # phase 3h: one client (batch 2) at a time
 
 REPLACES = {
     "qsgd_quantize_pack": ("src/repro_torch/csrc/qsgd.cu", "src/repro/kernels/qsgd.py:194"),
@@ -411,7 +427,7 @@ def flash_vs_plain(torch, fa):
     masks = [(True, w) for w in FLASH_WINDOWS] + [(False, None), (False, 16)]
     cases = [(2, T, S, H, Hkv, hd) + m for (T, S), (H, Hkv), hd, m in itertools.product(
         FLASH_TS, FLASH_HEADS, FLASH_HDS, masks)]
-    cases.append(FLASH_PATH + (True, None))
+    cases += [FLASH_PATH + (True, None), FLASH_LEAN + (True, None)]
     n_cases = 0
 
     def held(q, k, v, causal, window, where):
@@ -450,7 +466,7 @@ def flash_vs_plain(torch, fa):
     print(f"phase 2: flash attention vs plain passed on {n_cases} cases (T,S in {FLASH_TS}, "
           f"H,Hkv in {FLASH_HEADS}, hd in {FLASH_HDS}, (causal, window) in {masks}; the LM "
           f"path's shape {FLASH_PATH}; fused-projection views and views off 16-byte "
-          f"alignment; f32 + bf16); max |diff| "
+          f"alignment; f32 + bf16), and the lean path's {FLASH_LEAN}; max |diff| "
           f"{worst[torch.float32]:.3g} in f32, {worst[torch.bfloat16]:.3g} in bf16")
     return worst[torch.float32]
 
@@ -558,6 +574,15 @@ def print_profile(wall_ms, plain_ms, events, top):
         print(f"    {e.device_time_total / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
+def print_gemm_share(events, plain_ms):
+    """The matrix-product kernels' share of the profiled kernel time."""
+    busy = sum(e.device_time_total for e in events)
+    gemm = sum(e.device_time_total for e in events
+               if any(k in e.key.lower() for k in ("gemm", "xmma", "cutlass", "nvjet")))
+    print(f"    matrix-product kernels {gemm / 1e3:.1f} ms = {100 * gemm / busy:.1f}% of the "
+          f"kernel time ({100 * gemm / 1e3 / plain_ms:.1f}% of the unprofiled wall)")
+
+
 def quickstart_and_cross_check(torch):
     """Phase 3a, continued: the quickstart grad-mode config on the card; a
     small QSGD run on the card against the same run on the CPU's plain path."""
@@ -613,24 +638,25 @@ def card_vs_cpu(torch, on_card, on_cpu, p0):
     return diff / float(b.norm()), diff / update, update / float(b.norm()), gap
 
 
-def lm_task(cfg, device=None, init_on_cpu=False, **source_kw):
-    """The LM task of the example: `LMFedModel` + `TokenSource` clients."""
+def lm_task(cfg, device=None, init_on_cpu=False, remat=False, scale=1.0, **source_kw):
+    """The LM task of the example: `LMFedModel` + `TokenSource` clients.
+    `scale` multiplies every initial weight (drawn on the CPU)."""
     from repro_torch.core.simulation import FLTask
     from repro_torch.data.sources import TokenSource
     from repro_torch.models.fed import LMFedModel
 
-    model = LMFedModel(cfg, flash=True, remat=False)
+    model = LMFedModel(cfg, flash=True, remat=remat)
     if init_on_cpu:  # the same initial weights on the card and on the CPU
-        model = _CpuInit(model)
+        model = _CpuInit(model, scale)
     source = TokenSource(cfg.vocab_size, topics=4, seed=0, **source_kw)
     return FLTask.from_source(model, source, LM_CLUSTERS, seed=0, device=device)
 
 
 class _CpuInit:
-    """An LMFedModel whose weights are drawn on the CPU, then moved."""
+    """An LMFedModel whose weights are drawn on the CPU, scaled, then moved."""
 
-    def __init__(self, model):
-        self.model = model
+    def __init__(self, model, scale=1.0):
+        self.model, self.scale = model, scale
 
     def __getattr__(self, name):
         return getattr(self.model, name)
@@ -638,7 +664,7 @@ class _CpuInit:
     def init(self, seed=0, device=None):
         from repro_torch.utils import tree_map
 
-        return tree_map(lambda t: t.to(device), self.model.init(seed, "cpu"))
+        return tree_map(lambda t: (t * self.scale).to(device), self.model.init(seed, "cpu"))
 
 
 def lm_path(torch, build):
@@ -707,7 +733,8 @@ def lm_path(torch, build):
     print(f"  one warm round (K={LM_K} steps, an eval of {n_eval_batches} batches), "
           f"unprofiled then profiled:")
     print_profile(wall_ms, plain_ms, events, 12)
-    return launches, plain_ms / 1e3, res.final_params
+    print_gemm_share(events, plain_ms)
+    return launches, plain_ms / 1e3, res.final_params, peak_gb
 
 
 def dense_code_path(torch, build, params):
@@ -1301,6 +1328,238 @@ def masked_cross_check(torch):
           "card masked run strays from the CPU run")
 
 
+# phase 3h: the memory-lean engine.  The LM arms train one client at a time
+# (client_microbatch 1) for LEAN_ROUNDS rounds: 3b's 3 do not show the
+# QSGD(16) arm's loss falling under bf16 compute (an H100 80GB HBM3 at 700 W
+# read 12.4355, 12.4186, 12.4412, then 12.4034, 12.4197, 12.3727); the
+# Appendix-A arms at 3e's scale keep 2 and 10 client replicas live.  A
+# card-vs-CPU gap under bf16 compute is bounded by CROSS_ULPS times the CPU
+# run's own gap from weights 1 bf16 ulp apart.
+LEAN_MB, LEAN_ROUNDS = 1, 6
+MB_ARMS = (("Hier-Local-QSGD QSGD(16)", 2), ("FedAvg", 10))
+CROSS_ULPS = 2.0
+BF16_ULP = 2.0**-7
+
+
+def lean_lm_path(torch, build, f32_peak_gb, f32_round_s):
+    """Phase 3h-LM: qwen3-0.6b at full width and depth (f32 master) under
+    `Precision()`, `client_microbatch=1` and `LMFedModel(remat=True,
+    flash=True)`, with the bf16 dense wire and with QSGD(16) uplinks,
+    LEAN_ROUNDS rounds each; then
+    one warm round, unprofiled and profiled; then the peak memory of one
+    round with remat off and on at client_microbatch 2 and 1, in bf16 and
+    in f32."""
+    from repro_torch.comm.channels import QSGDChannel, channel_wire_bits
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    from repro_torch.core.precision import Precision, resolve_channel
+    from repro_torch.utils import tree_leaves
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    source_kw = dict(num_clients=LM_CLIENTS, batch_size=LM_BATCH, seq_len=LM_SEQ)
+    task = lm_task(cfg, remat=True, **source_kw)
+    policy = Precision()
+    J, n = LM_K // LM_E, len(LM_CLUSTERS[0])
+    groups = math.ceil(n / LEAN_MB)
+    n_eval_batches = len(task.source.eval_data()["tokens"])
+    for name, channel in (("bf16 dense wire", None), ("QSGD(16)", QSGDChannel(16))):
+        config = FedCHSConfig(rounds=LEAN_ROUNDS, local_steps=LM_K, local_epochs=LM_E,
+                              eval_every=1, channel=channel, seed=0,
+                              schedule=lambda k: LM_LR, client_microbatch=LEAN_MB,
+                              precision=policy)
+        arm = comparison_arm(torch, build, name, lambda: run_fed_chs(task, config), LEAN_ROUNDS)
+        res, launches, led = arm["res"], arm["launches"], arm["res"].ledger
+        leaf_sizes = [t.numel() for t in tree_leaves(res.final_params)]
+        L, d = len(leaf_sizes), sum(leaf_sizes)
+        evals = len(res.rounds)
+        packed = LEAN_ROUNDS * J * groups * L if channel is not None else 0
+        want = {"flash_attention": cfg.num_layers * (LEAN_ROUNDS * LM_K * groups * 2
+                                                     + evals * n_eval_batches),
+                "qsgd_quantize_pack": packed, "qsgd_unpack_dequantize": packed,
+                "qsgd_quantize": 0, "qsgd_dequantize": 0}
+        print(f"phase 3h: {LM_ARCH} Fed-CHS, {name}, Precision() (bf16 compute, f32 master, "
+              f"bf16 broadcasts), client_microbatch={LEAN_MB}, remat, flash: {d} params in "
+              f"{L} leaves; {LEAN_ROUNDS} rounds, {arm['s_per_round']:.3f} s/round ({evals} "
+              f"evals of {n_eval_batches} batches included; phase 3b f32: "
+              f"{f32_round_s:.3f} s for a warm round); peak memory {arm['peak_gb']:.2f} GB "
+              f"(phase 3b f32: {f32_peak_gb:.2f} GB)")
+        print(f"  launches {launches}, expected {want} (flash: layers x (rounds x K x "
+              f"{groups} groups x 2, forward and recompute, + evals x eval batches))")
+        check(L == LM_LEAVES and d == LM_PARAMS, f"{L} leaves / {d} params")
+        for k, v in want.items():
+            check(launches[k] == v, f"{name}: {k} launched {launches[k]} times, expected {v}")
+        up = channel_wire_bits(resolve_channel(policy, channel), d, leaf_sizes)
+        down = 16 * d
+        visited = [int(e.sender.split(":")[1]) for e in led.events if e.hop == "es_to_es"]
+        n_up = sum(J * len(LM_CLUSTERS[m]) for m in visited)
+        want_led = {"client_to_es": (n_up, up), "es_to_client": (n_up, down),
+                    "es_to_es": (LEAN_ROUNDS, down)}
+        got = {h: (led.messages[h], led.bits[h]) for h in led.messages if led.messages[h]}
+        check(got == {h: (m, m * b) for h, (m, b) in want_led.items()},
+              f"{name}: ledger {got} differs from the closed form {want_led}")
+        if channel is None:
+            check(2 * up == 32 * d, "the bf16 dense uplink is not half the f32 message")
+        else:
+            check(up == channel_wire_bits(QSGDChannel(16), d, leaf_sizes), "QSGD uplink bits")
+        print(f"  ledger at the closed form {want_led} (uplink {up} bits/message, "
+              f"{32 * d / up:.2f}x under f32; broadcasts at 16 bits/param)")
+        print(f"  perplexity {res.test_acc} at rounds {res.rounds}; train loss {res.train_loss}")
+        check(all(math.isfinite(x) for x in res.test_acc + res.train_loss),
+              f"{name}: non-finite LM trace")
+        check(res.train_loss[-1] < res.train_loss[0], f"{name}: the train loss did not fall")
+        check(res.test_acc[-1] < res.test_acc[0], f"{name}: the perplexity did not fall")
+        check(all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+                  for t in tree_leaves(res.final_params)), f"{name}: params not finite f32")
+        del arm, res
+
+    one = FedCHSConfig(rounds=1, local_steps=LM_K, local_epochs=LM_E, eval_every=1, seed=0,
+                       schedule=lambda k: LM_LR, client_microbatch=LEAN_MB, precision=policy)
+    _, plain_ms = timed(torch, lambda: run_fed_chs(task, one))
+    _, wall_ms, events = profiled(torch, lambda: run_fed_chs(task, one))
+    print(f"  one warm round, bf16 dense wire (K={LM_K} steps of {groups} client groups, an "
+          f"eval of {n_eval_batches} batches), unprofiled then profiled:")
+    print_profile(wall_ms, plain_ms, events, 12)
+    print_gemm_share(events, plain_ms)
+    del task
+
+    print("  peak memory of one round by knob (GB; 2 clients per cluster, so "
+          "client_microbatch 2 trains the cluster in one vmap):")
+    for label, prec, channel in (("bf16 compute, bf16 wire", policy, None),
+                                 ("f32, QSGD(16) as 3b", None, QSGDChannel(16))):
+        row = []
+        for remat, mb in ((False, 2), (True, 2), (False, 1), (True, 1)):
+            knob_task = lm_task(cfg, remat=remat, **source_kw)
+            knob = FedCHSConfig(rounds=1, local_steps=LM_K, local_epochs=LM_E, eval_every=1,
+                                channel=channel, seed=0, schedule=lambda k: LM_LR,
+                                client_microbatch=mb, precision=prec)
+            arm = comparison_arm(torch, build, label, lambda: run_fed_chs(knob_task, knob), 1)
+            row.append(f"remat {'on' if remat else 'off'}, mb {mb}: {arm['peak_gb']:.2f} "
+                       f"({arm['s_per_round']:.3f} s)")
+            del arm, knob_task
+        print(f"    {label}: " + "; ".join(row))
+
+
+def lean_cross_check(torch):
+    """Phase 3h-cross: the lean knobs, card against CPU.  The 2-layer
+    smoke-config LM of phase 3d (bf16 dense wire, client_microbatch 1,
+    remat, flash) and phase 3a's MLP QSGD(16) task (client_microbatch 2)
+    under `Precision()`.  Each gap over the update p_T - p_0 is bounded by
+    CROSS_ULPS times the CPU run's own gap from initial weights scaled by
+    1 + 2^-7 (one bf16 ulp), printed beside it; each bound must reject a
+    run that never updates (which reads 1) and a CPU control: a 16-key
+    window in place of causal attention for the LM, a doubled step size for
+    the MLP."""
+    from repro_torch.comm.channels import QSGDChannel
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    from repro_torch.core.precision import Precision
+    from repro_torch.core.simulation import FLTask
+    from repro_torch.data.partition import assign_clusters, dirichlet_partition
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.models.classifier import make_classifier
+    from repro_torch.optim.schedules import paper_sqrt_schedule
+    from repro_torch.utils import tree_map
+
+    def bounded(name, on_card, on_cpu, ulp_run, ctrl, ctrl_name, p0):
+        _, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
+        _, ulp_rel, _, _ = card_vs_cpu(torch, ulp_run, on_cpu, p0)
+        _, ctrl_rel, _, _ = card_vs_cpu(torch, ctrl, on_cpu, p0)
+        bound = CROSS_ULPS * ulp_rel
+        print(f"phase 3h: {name}, card vs CPU plain path: params gap {upd_rel:.3g} of the update "
+              f"p_T - p_0 (which is {upd:.3g} of p_T), largest metric gap {gap:.3g} (accuracy or "
+              f"perplexity, absolute); the CPU run against "
+              f"itself from weights 1 + 2^-7 apart: {ulp_rel:.3g}, so the bound is {bound:.3g}; "
+              f"controls: no update reads 1, {ctrl_name} reads {ctrl_rel:.3g}")
+        check(upd_rel <= bound, f"{name}: the card run strays from the CPU run")
+        check(bound < 1.0, f"{name}: the bound would pass a run that never updates")
+        check(ctrl_rel > bound, f"{name}: the bound would pass the {ctrl_name} control")
+
+    policy = Precision()
+    cfg = smoke_config(LM_ARCH)
+    kw = dict(num_clients=4, batch_size=2, seq_len=64)
+    config = FedCHSConfig(rounds=2, local_steps=4, local_epochs=2, eval_every=1, seed=0,
+                          schedule=lambda k: 0.3, client_microbatch=LEAN_MB, precision=policy)
+    cpu = dict(device="cpu", init_on_cpu=True, remat=True)
+    on_card = run_fed_chs(lm_task(cfg, init_on_cpu=True, remat=True, **kw), config)
+    cpu_task = lm_task(cfg, **cpu, **kw)
+    p0 = cpu_task.init_params()
+    on_cpu = run_fed_chs(cpu_task, config)
+    ulp_run = run_fed_chs(lm_task(cfg, scale=1 + BF16_ULP, **cpu, **kw), config)
+    wrong = dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16)
+    ctrl = run_fed_chs(lm_task(wrong, **cpu, **kw), config)
+    bounded(f"{LM_ARCH} smoke-config LM (2 layers), bf16 dense wire, client_microbatch "
+            f"{LEAN_MB}, remat, flash, 2 rounds", on_card, on_cpu, ulp_run, ctrl,
+            "the window-16 mask", p0)
+
+    ds = make_dataset("mnist", train_size=4000, test_size=1000, seed=0)
+    clients = dirichlet_partition(ds.train_y, 20, 0.6, seed=0)
+    clusters = assign_clusters(20, 4, seed=0)
+    mlp = make_classifier("mlp", "mnist", ds.spec.image_shape, 10)
+    nudged = dataclasses.replace(mlp, init=lambda seed=0, device=None: tree_map(
+        lambda t: t * (1 + BF16_ULP), mlp.init(seed, device)))
+    mlp_cfg = FedCHSConfig(rounds=4, local_steps=10, local_epochs=5, eval_every=2,
+                           channel=QSGDChannel(16), precision=policy, client_microbatch=2)
+    eta = paper_sqrt_schedule(10, half=False)
+
+    def task(model, device=None):
+        return FLTask(model, ds, clients, clusters, batch_size=32, seed=0, device=device)
+
+    on_card = run_fed_chs(task(mlp), mlp_cfg)
+    cpu_task = task(mlp, "cpu")
+    p0 = cpu_task.init_params()
+    on_cpu = run_fed_chs(cpu_task, mlp_cfg)
+    ulp_run = run_fed_chs(task(nudged, "cpu"), mlp_cfg)
+    ctrl = run_fed_chs(cpu_task, dataclasses.replace(mlp_cfg, schedule=lambda k: 2 * eta(k)))
+    bounded("MLP QSGD(16) (phase 3a's task), client_microbatch 2, 4 rounds", on_card, on_cpu,
+            ulp_run, ctrl, "the doubled step size", p0)
+
+
+def microbatched_appendix_arms(torch, build, task, arms):
+    """Phase 3h-mem: Hier-Local-QSGD QSGD(16) at client_microbatch 2 and
+    FedAvg at 10, at phase 3e's scale and config: ledgers bit for bit equal
+    to 3e's, B1 and B2 once per leaf per group of every cluster (and once
+    per leaf at the ES hop), peak memory and s/round beside 3e's."""
+    from repro_torch.core.baselines import (
+        FedAvgConfig,
+        HierLocalQSGDConfig,
+        run_fedavg,
+        run_hier_local_qsgd,
+    )
+
+    R, K, E = COMPARE_ROUNDS, MAIN_K, MAIN_E
+    J, L = K // E, len(task.param_leaf_sizes())
+    n_max = max(len(m) for m in task.cluster_members)
+    runs = {"Hier-Local-QSGD QSGD(16)": lambda mb: run_hier_local_qsgd(task, HierLocalQSGDConfig(
+                rounds=R, local_steps=K, local_epochs=E, eval_every=1, qsgd_levels=16,
+                client_microbatch=mb)),
+            "FedAvg": lambda mb: run_fedavg(task, FedAvgConfig(
+                rounds=R, local_steps=K, eval_every=1, client_microbatch=mb))}
+    packed = ("qsgd_quantize_pack", "qsgd_unpack_dequantize")
+    for name, mb in MB_ARMS:
+        hier = name.startswith("Hier")
+        width = n_max if hier else task.num_clients  # the client axis the groups split
+        base = next(a for a in arms if a["name"] == name)
+        arm = comparison_arm(torch, build, name, lambda: runs[name](mb), R)
+        res, led, bled = arm["res"], arm["res"].ledger, base["res"].ledger
+        nonzero = lambda counts: {h: v for h, v in counts.items() if v}  # noqa: E731
+        check(led.events == bled.events and led.history == bled.history
+              and nonzero(led.bits) == nonzero(bled.bits)
+              and nonzero(led.messages) == nonzero(bled.messages),
+              f"{name}, client_microbatch {mb}: the ledger differs from phase 3e's")
+        kernels = R * (J * math.ceil(width / mb) * L + L) if hier else 0
+        for k, v in arm["launches"].items():
+            want = kernels if k in packed else 0
+            check(v == want, f"{name}, client_microbatch {mb}: {k} launched {v}, expected {want}")
+        a, b = flat_params(torch, res.final_params), flat_params(torch, base["res"].final_params)
+        print(f"phase 3h: {name}, client_microbatch={mb} ({math.ceil(width / mb)} groups of "
+              f"{width} client slots): {R} rounds, {arm['s_per_round']:.3f} s/round, peak memory "
+              f"{arm['peak_gb']:.2f} GB (phase 3e, all clients at once: "
+              f"{base['s_per_round']:.3f} s/round, {base['peak_gb']:.2f} GB); ledger equal to "
+              f"3e's; launches { {k: v for k, v in arm['launches'].items() if v} }, expected "
+              f"{kernels} of each packed kernel; params {float((a - b).norm() / b.norm()):.3g} "
+              f"from 3e's in relative L2")
+
+
 def time_launches(torch, fn, reps, flush):
     """Median of per-launch CUDA-event times (ms), L2 flushed before each.
     A spin of about a millisecond on the card comes first, so the host has
@@ -1527,7 +1786,7 @@ def main() -> None:
 
     lenet_task, chs_arm = lenet_path(torch, build)
     quickstart_and_cross_check(torch)
-    launches, round_s, lm_params = lm_path(torch, build)
+    launches, round_s, lm_params, lm_peak_gb = lm_path(torch, build)
     launches.update({k: v for k, v in dense_code_path(torch, build, lm_params).items()
                      if k in ("qsgd_quantize", "qsgd_dequantize")})
     del lm_params
@@ -1535,8 +1794,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     arms = comparison_path(torch, build, lenet_task, chs_arm)
     participation_path(torch, build, lenet_task, arms)
-    del lenet_task, chs_arm, arms
     baselines_cross_check(torch)
+    microbatched_appendix_arms(torch, build, lenet_task, arms)
+    del lenet_task, chs_arm, arms
+    torch.cuda.empty_cache()
+    lean_lm_path(torch, build, lm_peak_gb, round_s)
+    lean_cross_check(torch)
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2

@@ -29,7 +29,7 @@ import torch
 from repro_torch.comm.channels import Channel, DenseChannel, channel_wire_bits
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.ledger import CommLedger
-from repro_torch.core.precision import downlink_bits_per_param, resolve_channel
+from repro_torch.core.precision import Precision, downlink_bits_per_param, resolve_channel
 from repro_torch.core.prng import PRNGKey, split_chain
 from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
@@ -37,7 +37,7 @@ from repro_torch.part import is_full_participation, participation_mask
 from repro_torch.utils import tree_leaves
 
 # reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("client_microbatch", "precision", "obs", "mesh")
+_NOT_PORTED = ("obs", "mesh")
 
 
 @dataclasses.dataclass
@@ -56,9 +56,11 @@ class FedAvgConfig:
     chunk_rounds: int = 32          # accepted; unused by the looped driver
     seed: int = 0
     schedule: Schedule | None = None
+    client_microbatch: int | None = None  # at most this many client replicas
+                                          # train at once (None: all)
+    precision: Precision | None = None    # mixed-precision policy
+                                          # (core/precision.py)
     # not ported (see _NOT_PORTED): must stay unset
-    client_microbatch: int | None = None
-    precision: Any = None
     obs: Any = None
     mesh: Any = None
 
@@ -81,7 +83,9 @@ def run_fedavg(task: FLTask, config: FedAvgConfig) -> RunResult:
     ledger = CommLedger(track_events=config.track_events)
     channel = resolve_channel(config.precision, config.channel, config.qsgd_levels,
                               config.bits_per_param)
-    engine = RoundEngine(task.model, channel, local_opt=config.local_opt)
+    engine = RoundEngine(task.model, channel, local_opt=config.local_opt,
+                         client_microbatch=config.client_microbatch,
+                         precision=config.precision)
     gammas = torch.from_numpy(task.global_weights()).to(task.device)
     key = PRNGKey(config.seed + 1)
 

@@ -35,7 +35,7 @@ from repro_torch.part import is_full_participation
 from repro_torch.utils import tree_leaves, tree_map
 
 # reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("client_microbatch", "obs", "mesh")
+_NOT_PORTED = ("obs", "mesh")
 
 
 @dataclasses.dataclass
@@ -55,8 +55,10 @@ class WRWGDConfig:
     seed: int = 0
     schedule: Schedule | None = None  # walk round t -> eta_t, constant over the
                                       # K local steps of that visit
+    client_microbatch: int | None = None  # passed to the round engine; a walk
+                                          # visits one client per round, so any
+                                          # value trains that one client
     # not ported (see _NOT_PORTED): must stay unset
-    client_microbatch: int | None = None
     obs: Any = None
     mesh: Any = None
 
@@ -112,7 +114,7 @@ def run_wrwgd(task: FLTask, config: WRWGDConfig) -> RunResult:
     leaf_sizes = tuple(leaf.numel() for leaf in tree_leaves(params))
     ledger = CommLedger(track_events=config.track_events)
     channel = DenseChannel(config.bits_per_param)
-    engine = RoundEngine(task.model, channel)
+    engine = RoundEngine(task.model, channel, client_microbatch=config.client_microbatch)
     hop_bits = channel_wire_bits(channel, sum(leaf_sizes), leaf_sizes)
     gamma_one = torch.ones((1,), dtype=torch.float32, device=task.device)
 

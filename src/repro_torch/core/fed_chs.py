@@ -27,6 +27,11 @@ unreachable neighbours, `link_delay` breaks its ties by ES-pair delay, and
 `dynamic` ("leo", "iov") swaps in each round's graph before the hop
 (`core/dynamics.py`).  With no sampler the path is the full-participation
 round, unmasked.
+
+`client_microbatch` and `precision` are the round engine's memory knobs
+(`core/engine.py`); a precision policy forces delta mode, prices the dense
+uplink at its wire width (unless a channel or `qsgd_levels` is given) and
+every model broadcast too.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from repro_torch.comm.channels import Channel, DenseChannel, channel_wire_bits
 from repro_torch.core.dynamics import make_dynamic
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.ledger import CommLedger
-from repro_torch.core.precision import downlink_bits_per_param, resolve_channel
+from repro_torch.core.precision import Precision, downlink_bits_per_param, resolve_channel
 from repro_torch.core.prng import PRNGKey, split_chain
 from repro_torch.core.scheduler import (
     AvailabilityAwareScheduler,
@@ -56,8 +61,8 @@ from repro_torch.utils import tree_leaves
 
 # reference config fields this port does not implement yet, with their
 # defaults: setting one away from its default raises
-_NOT_PORTED = {"client_microbatch": None, "precision": None, "obs": None, "mesh": None,
-               "checkpoint": None, "checkpoint_every": 1, "resume": False}
+_NOT_PORTED = {"obs": None, "mesh": None, "checkpoint": None, "checkpoint_every": 1,
+               "resume": False}
 
 
 @dataclasses.dataclass
@@ -89,9 +94,12 @@ class FedCHSConfig:
     chunk_rounds: int = 32                 # accepted; unused by the looped driver
     seed: int = 0
     schedule: Schedule | None = None       # default: paper eta_k = 1/(K sqrt(k+1))
+    client_microbatch: int | None = None   # at most this many client replicas
+                                           # train at once (None: all)
+    precision: Precision | None = None     # mixed-precision policy
+                                           # (core/precision.py): bf16 client
+                                           # compute, f32 master, bf16 wire
     # not ported (see _NOT_PORTED): must keep their defaults
-    client_microbatch: int | None = None
-    precision: Any = None
     obs: Any = None
     mesh: Any = None
     checkpoint: str | None = None
@@ -150,21 +158,26 @@ def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
     ledger = CommLedger(track_events=config.track_events)
     channel = resolve_channel(config.precision, config.channel, config.qsgd_levels,
                               config.bits_per_param)
-    engine = RoundEngine(task.model, channel, local_opt=config.local_opt)
+    engine = RoundEngine(task.model, channel, local_opt=config.local_opt,
+                         client_microbatch=config.client_microbatch,
+                         precision=config.precision)
     key = PRNGKey(config.seed + 1)
 
+    # a model broadcast travels at the wire width under a policy
     down_bits = DenseChannel(
         downlink_bits_per_param(config.precision, config.bits_per_param)).message_bits(d)
     up_bits = channel_wire_bits(channel, d, leaf_sizes)
 
     # literal Eq. (5): E=1 dense plain-SGD interactions are gradient uplinks;
-    # a lossy dense wire, a stateful optimizer or a sampler (dropouts need
-    # the masked round) takes delta mode
+    # a lossy dense wire, a stateful optimizer, a sampler (dropouts need the
+    # masked round) or a precision policy (grad mode is the f32 arm) takes
+    # delta mode
     grad_mode = (
         full_part
         and E == 1
         and isinstance(channel, DenseChannel)
         and channel.wire_dtype is None
+        and config.precision is None
         and (config.local_opt is None or isinstance(config.local_opt, PlainSGD))
     )
     opt_states: dict[int, Any] = {}  # cluster -> stacked client-held opt state

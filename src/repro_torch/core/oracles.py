@@ -3,8 +3,9 @@
   * `local_opt_steps(model, opt)` — E local optimizer steps for a stack of
     clients (leading client axis on params and batch leaves), each client
     from its own params, through `torch.func.vmap` over the client axis.
-  * `grad_phase(model)` — the Eq. (5) literal: K joint steps of
-    ``w <- w - eta_k * sum_n gamma_n grad_n(w, xi_{n,k})``.
+  * `grad_phase(model, microbatch)` — the Eq. (5) literal: K joint steps
+    of ``w <- w - eta_k * sum_n gamma_n grad_n(w, xi_{n,k})``, with at most
+    `microbatch` clients' forward and backward passes live at once.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Any
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_leaves, tree_map
 
 Tree = Any
 
@@ -37,10 +38,34 @@ def local_opt_steps(model, opt):
     return run
 
 
-def grad_phase(model):
+def grad_phase(model, microbatch: int | None = None):
     """Eq. (5) literal: batch leaves (K, n, B, ...); gammas (n,); lrs (K,).
-    Returns (params, per-step gamma-weighted losses (K,))."""
-    per_client = vmap(grad_and_value(model.loss), in_dims=(None, 0))
+    Returns (params, per-step gamma-weighted losses (K,)).
+
+    `microbatch` bounds how many clients' forward and backward passes are
+    live at once: each step runs ceil(n / microbatch) groups of the vmap,
+    the tail group padded with client-0 replicas that are sliced off.  The
+    full per-step gradient stack (n, ...) still feeds the same tensordot,
+    so only the activations drop from n clients' to `microbatch` clients'."""
+    grad_fn = vmap(grad_and_value(model.loss), in_dims=(None, 0))
+
+    if microbatch is None:
+        per_client = grad_fn
+    else:
+        mb = int(microbatch)
+        if mb < 1:
+            raise ValueError(f"microbatch must be >= 1, got {mb}")
+
+        def per_client(p, b_k):
+            n = tree_leaves(b_k)[0].shape[0]
+            pad = (-n) % mb
+            if pad:
+                b_k = tree_map(lambda a: torch.cat([a, a[:1].expand((pad,) + a.shape[1:])]),
+                               b_k)
+            outs = [grad_fn(p, tree_map(lambda a, g=g: a[g:g + mb], b_k))
+                    for g in range(0, n + pad, mb)]
+            grads = tree_map(lambda *gs: torch.cat(gs)[:n], *[g for g, _ in outs])
+            return grads, torch.cat([loss for _, loss in outs])[:n]
 
     def phase(params, batch, gammas, lrs):
         losses = []

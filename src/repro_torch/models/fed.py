@@ -67,8 +67,11 @@ class LMFedModel:
     next-token cross entropy of `models.transformer.loss_fn`, the metric the
     perplexity over a fixed held-out batch set.  `flash` routes
     self-attention through the flash-attention kernel (sets
-    `cfg.use_flash`).  Not ported: `remat=True` and the blocks
-    `transformer.check_ported` names; both raise NotImplementedError."""
+    `cfg.use_flash`); `remat` recomputes each superblock in the backward
+    pass instead of keeping its activations (`transformer.RematBlock`).
+    With both on, and the engine's `client_microbatch` and `precision`, this
+    is the memory-lean LM training configuration.  Not ported: the blocks
+    `transformer.check_ported` names, which raise NotImplementedError."""
 
     cfg: ArchConfig
     remat: bool = False
@@ -78,8 +81,6 @@ class LMFedModel:
     metric_mode: str = dataclasses.field(default="min", init=False)
 
     def __post_init__(self):
-        if self.remat:
-            raise NotImplementedError("LMFedModel(remat=True) is not ported to repro_torch yet")
         tf.check_ported(self.cfg)
 
     @property
@@ -95,7 +96,7 @@ class LMFedModel:
         return tf.init_params(self.cfg, seed, resolve_device(device))
 
     def loss(self, params: Tree, batch: Batch) -> torch.Tensor:
-        return tf.loss_fn(self._run_cfg(), params, batch)
+        return tf.loss_fn(self._run_cfg(), params, batch, remat=self.remat)
 
     def eval_metric(self, params: Tree, eval_data) -> float:
         """exp(mean next-token CE) over `eval_data`: a batch dict with a

@@ -9,6 +9,14 @@ order and their shapes are the reference's, so a message's per-leaf QSGD
 keys and its ledger price are too.  `forward` loops over the layer axis
 where the reference scans it.
 
+`forward(..., remat=True)` recomputes each superblock in the backward pass
+instead of keeping its activations, as the reference's `jax.checkpoint`
+of the scanned superblock does: `RematBlock` keeps only the block's input
+and layer tensors, and its backward runs the block again under
+`torch.func.vjp`.  (`torch.utils.checkpoint` cannot run under the
+engine's `vmap(grad_and_value(...))`: torch.func refuses its saved-tensor
+hooks, and its reentrant form has no `setup_context`.)
+
 Block kinds ported: "attn" and "local" (sliding window), with a dense FFN.
 Not ported (`check_ported` raises NotImplementedError): MLA, MoE, SSD and
 RG-LRU blocks, the encoder, patch embeddings, multi-token prediction;
@@ -18,6 +26,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from torch.func import vjp
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention_forward, init_attention
@@ -83,8 +93,45 @@ def init_params(cfg: ArchConfig, seed: int, device) -> dict:
     return p
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
-    """-> logits (B, T, V)."""
+def super_block(cfg: ArchConfig, treedefs: tuple, h: torch.Tensor, *leaves) -> torch.Tensor:
+    """One superblock: the layers of `cfg.block_pattern` in turn.  `leaves`
+    are the layers' tensors in pattern order, `treedefs` their structures."""
+    i = 0
+    for kind, (treedef, n) in zip(cfg.block_pattern, treedefs):
+        h = block_forward(cfg, kind, tree_unflatten(treedef, list(leaves[i:i + n])), h)
+        i += n
+    return h
+
+
+class RematBlock(torch.autograd.Function):
+    """A superblock that keeps no activations: the forward saves its input
+    and layer tensors only, and the backward recomputes the block under
+    `torch.func.vjp` and pulls the cotangent back through it.  The vmap rule
+    is generated, so it runs under the engine's vmap over clients; a flash
+    attention call inside it runs its kernel again in the recompute."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(cfg, treedefs, h, *leaves):
+        return super_block(cfg, treedefs, h, *leaves)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        cfg, treedefs, h, *leaves = inputs
+        ctx.cfg, ctx.treedefs = cfg, treedefs
+        ctx.save_for_backward(h, *leaves)
+
+    @staticmethod
+    def backward(ctx, ct):
+        _, pullback = vjp(lambda *xs: super_block(ctx.cfg, ctx.treedefs, *xs),
+                          *ctx.saved_tensors)
+        return (None, None, *pullback(ct))
+
+
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False) -> torch.Tensor:
+    """-> logits (B, T, V).  `remat` recomputes each superblock in the
+    backward pass (`RematBlock`)."""
     x = F.embedding(batch["tokens"].long(), params["embed"])
     plen = len(cfg.block_pattern)
     n_super, n_tail = _layout(cfg)
@@ -95,9 +142,13 @@ def forward(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     for pos in range(plen if n_super else 0):
         leaves, treedef = tree_flatten(params["super"][pos])
         stacks.append((treedef, [leaf.unbind(0) for leaf in leaves]))
+    treedefs = tuple((treedef, len(layers)) for treedef, layers in stacks)
     for r in range(n_super):
-        for (treedef, layers), kind in zip(stacks, cfg.block_pattern):
-            x = block_forward(cfg, kind, tree_unflatten(treedef, [u[r] for u in layers]), x)
+        leaves = [u[r] for _, layers in stacks for u in layers]
+        if remat:
+            x = RematBlock.apply(cfg, treedefs, x, *leaves)
+        else:
+            x = super_block(cfg, treedefs, x, *leaves)
     for i in range(n_tail):
         x = block_forward(cfg, cfg.block_kind(n_super * plen + i), params["tail"][i], x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -105,5 +156,5 @@ def forward(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     return x @ head
 
 
-def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
-    return cross_entropy_loss(forward(cfg, params, batch), batch["labels"])
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False) -> torch.Tensor:
+    return cross_entropy_loss(forward(cfg, params, batch, remat=remat), batch["labels"])

@@ -28,15 +28,21 @@ def sgd_init(params: Tree, config: SGDConfig = SGDConfig()) -> Tree:
     return tree_map(torch.zeros_like, params)
 
 
+def _held(x: float, like: torch.Tensor) -> float:
+    """`x` rounded to `like`'s dtype, as the reference's constants are when
+    they meet an array of that dtype (f32 arithmetic rounds it alike)."""
+    return float(torch.tensor(x, dtype=like.dtype))
+
+
 def sgd_step(params: Tree, grads: Tree, opt_state: Tree, lr,
              config: SGDConfig = SGDConfig()) -> tuple[Tree, Tree]:
     if config.weight_decay:
-        grads = tree_map(lambda g, p: g + config.weight_decay * p, grads, params)
+        grads = tree_map(lambda g, p: g + _held(config.weight_decay, p) * p, grads, params)
     if config.momentum == 0.0:
         return tree_map(lambda p, g: p - lr * g, params, grads), opt_state
-    new_state = tree_map(lambda m, g: config.momentum * m + g, opt_state, grads)
+    new_state = tree_map(lambda m, g: _held(config.momentum, m) * m + g, opt_state, grads)
     if config.nesterov:
-        update = tree_map(lambda m, g: config.momentum * m + g, new_state, grads)
+        update = tree_map(lambda m, g: _held(config.momentum, m) * m + g, new_state, grads)
     else:
         update = new_state
     return tree_map(lambda p, u: p - lr * u, params, update), new_state

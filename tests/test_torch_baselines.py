@@ -325,12 +325,11 @@ def test_fed_chs_channels_and_optimizers_match_reference(tasks, kw, tol):
 
 @pytest.mark.parametrize("cls,field", [
     (cls, field) for cls in (tb.FedAvgConfig, tb.WRWGDConfig, tb.HierLocalQSGDConfig)
-    for field in ("client_microbatch", "precision", "obs", "mesh")
-    if field in {f.name for f in dataclasses.fields(cls)}
+    for field in ("obs", "mesh")
 ], ids=lambda x: getattr(x, "__name__", x))
 def test_unported_baseline_fields_raise(cls, field):
     with pytest.raises(NotImplementedError, match=field):
-        cls(**{field: 2 if field == "client_microbatch" else object()})
+        cls(**{field: object()})
 
 
 def test_baseline_configs_keep_the_reference_fields_and_defaults():

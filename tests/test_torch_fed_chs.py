@@ -150,10 +150,9 @@ def test_qsgd_delta_run_matches_reference(tasks):
 
 # ids as the cases had them when the list also held the fields ported since
 @pytest.mark.parametrize("field,value", [
-    ("client_microbatch", 2), ("precision", object()), ("obs", object()),
-    ("mesh", object()), ("checkpoint", "ck"), ("checkpoint_every", 5), ("resume", True),
-], ids=["client_microbatch-2", "precision-value2", "obs-value5", "mesh-value6", "checkpoint-ck",
-        "checkpoint_every-5", "resume-True"])
+    ("obs", object()), ("mesh", object()), ("checkpoint", "ck"), ("checkpoint_every", 5),
+    ("resume", True),
+], ids=["obs-value5", "mesh-value6", "checkpoint-ck", "checkpoint_every-5", "resume-True"])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         FedCHSConfig(**{field: value})
