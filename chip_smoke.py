@@ -884,14 +884,16 @@ def comparison_path(torch, build, task, chs_arm):
     down = DenseChannel().message_bits(d)
     qsgd16 = QSGDChannel(16)
     arms = [chs_arm]
-    arms.append(comparison_arm(
-        torch, build, "Hier-Local-QSGD QSGD(16)", lambda: run_hier_local_qsgd(
-            task, HierLocalQSGDConfig(rounds=R, local_steps=K, local_epochs=E, eval_every=1,
-                                      qsgd_levels=16)), R))
-    arms.append(comparison_arm(torch, build, "FedAvg", lambda: run_fedavg(
-        task, FedAvgConfig(rounds=R, local_steps=K, eval_every=1)), R))
-    arms.append(comparison_arm(torch, build, "WRWGD", lambda: run_wrwgd(
-        task, WRWGDConfig(rounds=WALK_ROUNDS, local_steps=K, eval_every=10)), WALK_ROUNDS))
+    for name, run, config, rounds in (
+            ("Hier-Local-QSGD QSGD(16)", run_hier_local_qsgd,
+             HierLocalQSGDConfig(rounds=R, local_steps=K, local_epochs=E, eval_every=1,
+                                 qsgd_levels=16), R),
+            ("FedAvg", run_fedavg, FedAvgConfig(rounds=R, local_steps=K, eval_every=1), R),
+            ("WRWGD", run_wrwgd, WRWGDConfig(rounds=WALK_ROUNDS, local_steps=K, eval_every=10),
+             WALK_ROUNDS)):
+        arms.append(comparison_arm(torch, build, name, lambda run=run, c=config: run(task, c),
+                                   rounds))
+        arms[-1]["config"] = config  # phase 3i runs it looped
     chs_channels = {"Fed-CHS Top-5%": TopKChannel(0.05), "Fed-CHS Sign-SGD": low_bit_channel(1),
                     "Fed-CHS QSGD(7), 4-bit": low_bit_channel(4)}
     for name, channel in chs_channels.items():
@@ -1560,6 +1562,222 @@ def microbatched_appendix_arms(torch, build, task, arms):
               f"from 3e's in relative L2")
 
 
+# phase 3i: the whole-run executor.  Every driver call above runs scanned
+# (the default); 3i holds the scanned runs against the looped driver.
+SWEEP_SEEDS, SWEEP_ROUNDS = (0, 1, 2), 3
+PACKED_KERNELS = {"qsgd_quantize_pack": "quantize_pack", "qsgd_unpack_dequantize":
+                  "unpack_dequantize"}  # wrapper -> a substring of its kernels' names
+
+
+def params_gap(torch, a, b) -> float:
+    """The largest entry-wise gap between two runs' final params."""
+    from repro_torch.utils import tree_leaves
+
+    return max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a.final_params),
+                                                           tree_leaves(b.final_params)))
+
+
+def same_run(torch, name, scanned, looped) -> None:
+    """A scanned run against the looped run of the same config: params bit
+    for bit, eval metric, ledger (bits, events, history) and visit order."""
+    gap = params_gap(torch, scanned, looped)
+    check(gap == 0.0, f"{name}: scanned params differ from the looped run's by up to {gap:.3g}")
+    check(scanned.rounds == looped.rounds and scanned.test_acc == looped.test_acc,
+          f"{name}: eval trace {scanned.test_acc} differs from the looped {looped.test_acc}")
+    a, b = scanned.ledger, looped.ledger
+    nonzero = lambda d: {h: v for h, v in d.items() if v}  # noqa: E731 (lookups add zeros)
+    check(nonzero(a.bits) == nonzero(b.bits) and nonzero(a.messages) == nonzero(b.messages)
+          and a.events == b.events and a.history == b.history,
+          f"{name}: the scanned ledger differs from the looped one")
+
+
+def executor_stats() -> str:
+    """The last scanned run's warm-up round, capture and replays."""
+    from repro_torch.core.engine import LAST_STATS as st
+
+    return (f"warm-up round {st['warmup_s']:.3f} s, capture {st['capture_s']:.3f} s (host), "
+            f"{st['replays']} replays")
+
+
+def kernel_share(torch, run, label):
+    """Profile `run()` and print its kernel time against the unprofiled wall
+    of a second call.  Returns (result, kernel ms, profiled events)."""
+    first, wall_ms, events = profiled(torch, run)
+    _, plain_ms = timed(torch, run)
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    print(f"  {label}: wall {plain_ms:.1f} ms unprofiled ({wall_ms:.1f} profiled), kernel time "
+          f"{busy_ms:.1f} ms = {100 * busy_ms / plain_ms:.1f}% of the unprofiled wall")
+    return first, busy_ms, events, plain_ms
+
+
+def scanned_appendix_path(torch, build, task, arms):
+    """Phase 3i-a, c, d at the Appendix-A scale of 3a: Fed-CHS QSGD(16)
+    scanned (one captured round replayed) against looped; the counter of
+    the packed kernels against the profiler's count; the baselines' looped
+    arms against 3e's scanned ones; a chunk under the sync debug mode
+    "error"; `run_sweep` of 3 seeds against their solo runs."""
+    from repro_torch.comm.channels import QSGDChannel
+    from repro_torch.core import engine
+    from repro_torch.core.baselines import run_fedavg, run_hier_local_qsgd, run_wrwgd
+    from repro_torch.core.fed_chs import FedCHSConfig, _fed_chs_scan_plan, run_fed_chs
+    from repro_torch.core.sweep import run_sweep
+
+    import numpy as np
+
+    leaf_sizes = task.param_leaf_sizes()
+    L, J = len(leaf_sizes), MAIN_K // MAIN_E
+    cfg = FedCHSConfig(rounds=MAIN_ROUNDS, local_steps=MAIN_K, local_epochs=MAIN_E,
+                       eval_every=2, channel=QSGDChannel(16), seed=0)
+    looped_cfg = dataclasses.replace(cfg, scan_rounds=False)
+    scanned = comparison_arm(torch, build, "scanned", lambda: run_fed_chs(task, cfg), MAIN_ROUNDS)
+    looped = comparison_arm(torch, build, "looped", lambda: run_fed_chs(task, looped_cfg),
+                            MAIN_ROUNDS)
+    same_run(torch, "3i-a Fed-CHS QSGD(16)", scanned["res"], looped["res"])
+    want = MAIN_ROUNDS * J * L
+    for arm in (scanned, looped):
+        for k, v in arm["launches"].items():
+            check(v == (want if k in PACKED_KERNELS else 0),
+                  f"3i-a {arm['name']}: {k} launched {v} times, expected {want}")
+    stats = executor_stats()
+    print(f"phase 3i-a: LeNet-MNIST Fed-CHS QSGD(16), {MAIN_ROUNDS} rounds (evals at rounds "
+          f"{scanned['res'].rounds}; {stats}): scanned {scanned['s_per_round']:.3f} s/round, "
+          f"looped {looped['s_per_round']:.3f} s/round; params bit-equal, eval trace, ledger and visit "
+          f"order equal; B1 = B2 = {want} = rounds x J x leaves from the executor's counter; "
+          f"peak {scanned['peak_gb']:.2f} GB scanned, {looped['peak_gb']:.2f} looped")
+
+    # the executor's counter against the profiler's count of kernels by name
+    short = dataclasses.replace(cfg, rounds=3, eval_every=10**6)
+    build.reset_launches()
+    _, busy_s, events, wall_s = kernel_share(torch, lambda: run_fed_chs(task, short),
+                                             "scanned, 3 rounds, evals at rounds 0 and 2")
+    print(f"    the unprofiled run's executor: {executor_stats()}")
+    counted = dict(build.LAUNCHES)  # two runs: profiled, then timed
+    for name, key in PACKED_KERNELS.items():
+        seen = sum(e.count for e in events if key in e.key)
+        check(seen == counted[name] // 2 == 3 * J * L,
+              f"{name}: the profiler saw {seen} kernels, the counter {counted[name] // 2}")
+        print(f"  {name}: the profiler counts {seen} kernels named *{key}* in the scanned run, "
+              f"the executor's counter {counted[name] // 2}")
+    _, busy_l, _, wall_l = kernel_share(
+        torch, lambda: run_fed_chs(task, dataclasses.replace(short, scan_rounds=False)),
+        "looped, 3 rounds, evals at rounds 0 and 2")
+    print(f"  warm 3-round runs: scanned {wall_s / 3e3:.3f} s/round, kernel share "
+          f"{100 * busy_s / wall_s:.1f}%; looped {wall_l / 3e3:.3f} s/round, kernel share "
+          f"{100 * busy_l / wall_l:.1f}%")
+
+    # the baselines: looped runs against 3e's scanned arms
+    by_name = {arm["name"]: arm for arm in arms}
+    for name, run, rounds in (("Hier-Local-QSGD QSGD(16)", run_hier_local_qsgd, COMPARE_ROUNDS),
+                              ("FedAvg", run_fedavg, COMPARE_ROUNDS),
+                              ("WRWGD", run_wrwgd, WALK_ROUNDS)):
+        arm = by_name[name]
+        cfg_b = dataclasses.replace(arm["config"], scan_rounds=False)
+        loop = comparison_arm(torch, build, name, lambda run=run, c=cfg_b: run(task, c), rounds)
+        same_run(torch, f"3i-a {name}", arm["res"], loop["res"])
+        check(loop["launches"] == arm["launches"], f"3i-a {name}: launches differ")
+        print(f"phase 3i-a: {name}: scanned (3e) {arm['s_per_round']:.3f} s/round, looped "
+              f"{loop['s_per_round']:.3f} s/round; params, eval trace and ledger equal")
+
+    # 3i-c: a chunk of replays under the sync debug mode "error"
+    plan, _, _ = _fed_chs_scan_plan(task, task.source, dataclasses.replace(cfg, rounds=8))
+    rounds = engine._GraphRounds(plan.body, plan.carry, plan.consts, torch.device("cuda"))
+    try:
+        rounds.run(plan.stage(np.arange(0, 4)))  # the warm-up round, the capture, 3 replays
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = rounds.run(plan.stage(np.arange(4, 8)))  # stage, copy, 4 replays
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        check(bool(torch.isfinite(losses).all()), "3i-c: non-finite losses")
+    finally:
+        rounds.close()
+    check(engine.LIVE_GRAPHS == [], "3i-c: a graph outlived its run")
+    print("phase 3i-c: a chunk of 4 rounds (staging, one host-to-device copy, 4 replays) ran "
+          "under torch.cuda.set_sync_debug_mode('error') without a host sync")
+
+    # 3i-d: a sweep of 3 seeds against their solo scanned runs
+    sweep_cfg = dataclasses.replace(cfg, rounds=SWEEP_ROUNDS, eval_every=1)
+    solo = [timed(torch, lambda s=s: run_fed_chs(task, dataclasses.replace(sweep_cfg, seed=s)))
+            for s in SWEEP_SEEDS]
+    lanes, sweep_ms = timed(torch, lambda: run_sweep(task, sweep_cfg, SWEEP_SEEDS))
+    for s, (res, _), lane in zip(SWEEP_SEEDS, solo, lanes):
+        same_run(torch, f"3i-d seed {s}", lane, res)
+    solo_ms = sum(ms for _, ms in solo)
+    print(f"phase 3i-d: run_sweep of seeds {SWEEP_SEEDS}, {SWEEP_ROUNDS} rounds: each lane "
+          f"equals its solo scanned run (params bit for bit, eval trace, ledger); "
+          f"{sweep_ms / 1e3 / SWEEP_ROUNDS / len(SWEEP_SEEDS):.3f} s/round per seed swept, "
+          f"{solo_ms / 1e3 / SWEEP_ROUNDS / len(SWEEP_SEEDS):.3f} s/round per seed solo")
+
+
+def eval_clock(torch, task) -> list:
+    """Host timestamps (after a synchronize) at the start of each of the
+    task's evals: with an eval every round, their differences are rounds
+    with their evals.  `del task.evaluate` restores the task."""
+    stamps, evaluate = [], task.evaluate
+
+    def clocked(params):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return evaluate(params)
+
+    task.evaluate = clocked
+    return stamps
+
+
+def scanned_lm_path(torch, build):
+    """Phase 3i-b: qwen3-0.6b at full width and depth under 3h's lean
+    configuration with QSGD(16), scanned against looped for 3h's rounds;
+    warm s/round from the eval timestamps, the kernel share of a warm
+    round, and the peak with the graph's pool."""
+    from repro_torch.comm.channels import QSGDChannel
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    from repro_torch.core.precision import Precision
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    task = lm_task(cfg, remat=True, num_clients=LM_CLIENTS, batch_size=LM_BATCH, seq_len=LM_SEQ)
+    config = FedCHSConfig(rounds=LEAN_ROUNDS, local_steps=LM_K, local_epochs=LM_E,
+                          eval_every=1, channel=QSGDChannel(16), seed=0,
+                          schedule=lambda k: LM_LR, client_microbatch=LEAN_MB,
+                          precision=Precision())
+    looped_cfg = dataclasses.replace(config, scan_rounds=False)
+    warm = {}
+    for label, c in (("scanned", config), ("looped", looped_cfg)):
+        stamps = eval_clock(torch, task)
+        warm[label] = arm = comparison_arm(torch, build, label, lambda c=c: run_fed_chs(task, c),
+                                           LEAN_ROUNDS)
+        del task.evaluate
+        # rounds 2..: round 1 of a scanned run also holds the capture
+        arm["warm_s"] = statistics.median(b - a for a, b in zip(stamps[1:], stamps[2:]))
+        arm["reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+        if c.scan_rounds:
+            arm["stats"] = executor_stats()
+    scanned, looped = warm["scanned"], warm["looped"]
+    same_run(torch, "3i-b", scanned["res"], looped["res"])
+    check(scanned["launches"] == looped["launches"], "3i-b: launch counts differ: "
+          f"{scanned['launches']} scanned, {looped['launches']} looped")
+    res = scanned["res"]
+    check(res.train_loss[-1] < res.train_loss[0] and res.test_acc[-1] < res.test_acc[0],
+          "3i-b: loss or perplexity did not fall")
+    # the kernel time of one round and its eval: a one-round run is one
+    # eager round, and runs the kernels a replayed round runs
+    one = dataclasses.replace(config, rounds=1)
+    _, busy_ms, _, one_ms = kernel_share(torch, lambda: run_fed_chs(task, one),
+                                         "one round with its eval (eager)")
+    print(f"phase 3i-b: {LM_ARCH} lean Fed-CHS QSGD(16), {LEAN_ROUNDS} rounds: params bit-equal "
+          f"scanned vs looped, eval trace and ledger equal, launches {scanned['launches']} both; "
+          f"perplexity {res.test_acc}, train loss {res.train_loss}; the executor: "
+          f"{scanned['stats']}")
+    for arm in (scanned, looped):
+        print(f"  {arm['name']}: {LEAN_ROUNDS} rounds with evals {arm['s_per_round']:.3f} s/round; "
+              f"warm round with its eval {arm['warm_s']:.3f} s (median of rounds 2-"
+              f"{LEAN_ROUNDS - 1}), kernel share {100 * busy_ms / 1e3 / arm['warm_s']:.1f}%; "
+              f"peak allocated {arm['peak_gb']:.2f} GB, reserved {arm['reserved_gb']:.2f} GB "
+              f"(3h looped, PR 17: 1.876 s, 28.68 GB)")
+
+
 def time_launches(torch, fn, reps, flush):
     """Median of per-launch CUDA-event times (ms), L2 flushed before each.
     A spin of about a millisecond on the card comes first, so the host has
@@ -1784,27 +2002,44 @@ def main() -> None:
     err.update(dense_codes_vs_plain(torch, qsgd, lm_sizes))
     err["flash_attention"] = flash_vs_plain(torch, fa)
 
+    t_paths = time.perf_counter()
+
+    def elapsed(done: str) -> None:
+        print(f"[{time.perf_counter() - t_paths:.0f} s into the paths: {done} done]")
+
     lenet_task, chs_arm = lenet_path(torch, build)
     quickstart_and_cross_check(torch)
+    elapsed("3a")
     launches, round_s, lm_params, lm_peak_gb = lm_path(torch, build)
+    elapsed("3b")
     launches.update({k: v for k, v in dense_code_path(torch, build, lm_params).items()
                      if k in ("qsgd_quantize", "qsgd_dequantize")})
     del lm_params
     lm_cross_check(torch)
     torch.cuda.empty_cache()
+    elapsed("3c, 3d")
     arms = comparison_path(torch, build, lenet_task, chs_arm)
+    elapsed("3e")
     participation_path(torch, build, lenet_task, arms)
     baselines_cross_check(torch)
+    elapsed("3f, 3g")
     microbatched_appendix_arms(torch, build, lenet_task, arms)
+    scanned_appendix_path(torch, build, lenet_task, arms)
+    elapsed("3h's 100-client arms, 3i-a, 3i-c, 3i-d")
     del lenet_task, chs_arm, arms
     torch.cuda.empty_cache()
     lean_lm_path(torch, build, lm_peak_gb, round_s)
     lean_cross_check(torch)
+    elapsed("3h")
+    torch.cuda.empty_cache()
+    scanned_lm_path(torch, build)
+    elapsed("3i-b")
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     rows = qsgd_timings(torch, qsgd, ref, flush, lm_sizes)
     rows["flash_attention"] = flash_timings(torch, fa, flush)
+    elapsed("4")
 
     kernels = []
     for name, (source, replaces) in REPLACES.items():

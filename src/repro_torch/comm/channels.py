@@ -11,7 +11,10 @@ the exact multi-leaf payload size; `compress` is `decode ∘ encode`.
 its key chain only for those); `per_message` says each sender's message of
 a stacked uplink is transformed independently (the engine keys sender i
 with `fold_in(sub, i)`).  A per-message channel reads the leading message
-axes of its input from ``keys`` (..., 2); no keys means one message.
+axes of its input from ``keys`` (..., 2); QSGD also takes the keys already
+split per leaf, as an int32 device tensor (..., leaves, 2), and the
+key-free Sign-SGD and Top-K take the axes as ``lead``.  No keys and no
+``lead`` means one message.
 """
 from __future__ import annotations
 
@@ -47,8 +50,11 @@ from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 Tree = Any
 
 
-def _lead(keys: np.ndarray | None) -> tuple:
-    """The leading message axes a key array (..., 2) gives a message tree."""
+def _lead(keys: np.ndarray | None, lead: tuple | None) -> tuple:
+    """The leading message axes: `lead` where given, else those a key array
+    (..., 2) gives a message tree."""
+    if lead is not None:
+        return tuple(lead)
     return () if keys is None else tuple(np.shape(keys)[:-1])
 
 
@@ -112,13 +118,13 @@ class QSGDChannel:
         if self.block % 32 or not 32 <= self.block <= MAX_BLOCK:
             raise ValueError(f"QSGD block must be a multiple of 32 up to {MAX_BLOCK}")
 
-    def encode(self, tree: Tree, keys: np.ndarray) -> list:
+    def encode(self, tree: Tree, keys) -> list:
         return qsgd_encode_tree(tree, keys, s=self.levels, block=self.block)
 
     def decode(self, wires: list, like: Tree) -> Tree:
         return qsgd_decode_tree(wires, like, s=self.levels, block=self.block)
 
-    def compress(self, tree: Tree, keys: np.ndarray) -> Tree:
+    def compress(self, tree: Tree, keys) -> Tree:
         return qsgd_compress_tree(tree, keys, s=self.levels, block=self.block)
 
     def message_bits(self, num_params: int) -> int:
@@ -139,8 +145,9 @@ class SignSGDChannel:
     stochastic: bool = dataclasses.field(default=False, init=False)
     per_message: bool = dataclasses.field(default=True, init=False)
 
-    def encode(self, tree: Tree, keys: np.ndarray | None = None) -> list:
-        return [signsgd_encode(leaf, block=self.block, lead=_lead(keys))
+    def encode(self, tree: Tree, keys: np.ndarray | None = None, *,
+               lead: tuple | None = None) -> list:
+        return [signsgd_encode(leaf, block=self.block, lead=_lead(keys, lead))
                 for leaf in tree_flatten(tree)[0]]
 
     def decode(self, wires: list, like: Tree) -> Tree:
@@ -149,8 +156,9 @@ class SignSGDChannel:
             signsgd_decode(w, shape=tuple(leaf.shape), block=self.block).to(leaf.dtype)
             for w, leaf in zip(wires, leaves)])
 
-    def compress(self, tree: Tree, keys: np.ndarray | None = None) -> Tree:
-        return signsgd_compress_tree(tree, block=self.block, lead=_lead(keys))
+    def compress(self, tree: Tree, keys: np.ndarray | None = None, *,
+                 lead: tuple | None = None) -> Tree:
+        return signsgd_compress_tree(tree, block=self.block, lead=_lead(keys, lead))
 
     def message_bits(self, num_params: int) -> int:
         return signsgd_message_bits(num_params, self.block)
@@ -172,8 +180,9 @@ class TopKChannel:
     stochastic: bool = dataclasses.field(default=False, init=False)
     per_message: bool = dataclasses.field(default=True, init=False)
 
-    def compress(self, tree: Tree, keys: np.ndarray | None = None) -> Tree:
-        return topk_sparsify_tree(tree, fraction=self.fraction, lead=_lead(keys))
+    def compress(self, tree: Tree, keys: np.ndarray | None = None, *,
+                 lead: tuple | None = None) -> Tree:
+        return topk_sparsify_tree(tree, fraction=self.fraction, lead=_lead(keys, lead))
 
     def message_bits(self, num_params: int) -> int:
         return topk_message_bits(num_params, self.fraction, self.bits_per_param)

@@ -13,9 +13,11 @@ of the walk.  A visited client that is down this round forwards the model
 without training (and draws no data); the next hop is drawn from the
 neighbours that are up next round, or from all of them when none is.
 
-The reference runs a whole-run scan by default and pins it bit-identical
-to this looped driver; `scan_rounds` and `chunk_rounds` are accepted and
-the looped driver runs either way.
+`scan_rounds=True` (the default, as in the reference) runs the whole-run
+executor (`_wrwgd_scan_plan`: the walk replayed on the host, each visit's
+step sizes staged with its batches, a captured CUDA graph per round on the
+card); `scan_rounds=False` the looped driver.  Both give the same params
+bit for bit and the same ledger.
 """
 from __future__ import annotations
 
@@ -26,10 +28,11 @@ import numpy as np
 import torch
 
 from repro_torch.comm.channels import DenseChannel, channel_wire_bits
-from repro_torch.core.engine import RoundEngine
+from repro_torch.core.engine import RoundEngine, ScanPlan, run_scan, scan_grad_body
 from repro_torch.core.ledger import CommLedger
 from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
 from repro_torch.core.topology import make_topology
+from repro_torch.data.sources import scatter_put, stage_chunk
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
 from repro_torch.part import is_full_participation
 from repro_torch.utils import tree_leaves, tree_map
@@ -48,8 +51,8 @@ class WRWGDConfig:
     sampler: Any = None               # per-round participation (repro_torch.part);
                                       # None / FullParticipation = every visit trains
     track_events: bool = True         # False: bits only, no CommEvent stream
-    scan_rounds: bool = True          # accepted; the looped driver runs
-    chunk_rounds: int = 32            # accepted; unused by the looped driver
+    scan_rounds: bool = True          # whole-run executor (False: looped)
+    chunk_rounds: int = 32            # rounds staged per chunk (scanned)
     eval_every: int = 10
     bits_per_param: int = 32
     seed: int = 0
@@ -107,6 +110,8 @@ def _walk_round_lrs(config: WRWGDConfig) -> np.ndarray:
 
 
 def run_wrwgd(task: FLTask, config: WRWGDConfig) -> RunResult:
+    if config.scan_rounds:
+        return _run_wrwgd_scanned(task, config)
     task.reset_loaders(config.seed)
     lrs_r = _walk_round_lrs(config)
 
@@ -136,3 +141,60 @@ def run_wrwgd(task: FLTask, config: WRWGDConfig) -> RunResult:
         recorder.record(t, params, losses)
 
     return recorder.result("wrwgd", ledger, params)
+
+
+# --------------------------------------------------------------------------
+# the whole-run executor's plan
+# --------------------------------------------------------------------------
+
+
+def _wrwgd_scan_plan(task: FLTask, source, config: WRWGDConfig):
+    """Whole-run `ScanPlan` + deferred glue (see `fed_chs._fed_chs_scan_plan`)."""
+    source.reset(config.seed)
+    K = config.local_steps
+    lrs_r = _walk_round_lrs(config)
+
+    params = task.init_params()
+    leaf_sizes = tuple(leaf.numel() for leaf in tree_leaves(params))
+    channel = DenseChannel(config.bits_per_param)
+    engine = RoundEngine(task.model, channel, client_microbatch=config.client_microbatch)
+    visits, trains, hops = _precompute_walk(task, config)
+    ones = np.ones((config.rounds, 1), np.float32)
+
+    def stage(idxs):
+        C = len(idxs)
+        occ: dict[int, list[int]] = {}
+        for c, t in enumerate(idxs):
+            occ.setdefault(int(visits[t]), []).append(c)
+        batch = stage_chunk(
+            source,
+            [(client, K * len(cs),
+              scatter_put((cs, slice(None), 0),
+                          lambda dl, n=len(cs): dl.reshape(n, K, *dl.shape[1:])))
+             for client, cs in occ.items()],
+            lambda a: (C, K, 1) + a.shape[1:],
+        )
+        return {"batch": batch, "gammas": ones[idxs], "lrs": lrs_r[idxs]}
+
+    plan = ScanPlan(
+        body=scan_grad_body(engine.model, config.client_microbatch),
+        carry=params, consts={}, stage=stage, trained=trains, rounds=config.rounds,
+        eval_every=config.eval_every, chunk_rounds=config.chunk_rounds,
+    )
+    hop_bits = channel_wire_bits(channel, sum(leaf_sizes), leaf_sizes)
+
+    def traffic(track_events: bool):
+        del track_events  # one metered hop per round either way
+        for t, (prev, nxt) in enumerate(hops):
+            yield t, [("client_to_client", hop_bits, 1, 0, f"client:{prev}", f"client:{nxt}")]
+
+    return plan, (lambda c: c), traffic
+
+
+def _run_wrwgd_scanned(task: FLTask, config: WRWGDConfig) -> RunResult:
+    plan, params_of, traffic = _wrwgd_scan_plan(task, task.source, config)
+    recorder = RunRecorder(task, config.rounds, config.eval_every)
+    carry = run_scan(plan, lambda t, c, losses, _lt: recorder.record(t, params_of(c), losses))
+    ledger = CommLedger(track_events=config.track_events)
+    ledger.materialize(traffic(config.track_events))
+    return recorder.result("wrwgd", ledger, params_of(carry))

@@ -38,12 +38,31 @@ clients on one card:
   `precision.master` before the aggregate, and the params the ES holds,
   the ES->PS hop included, stay in the master dtype.  Grad mode ignores it.
 
-Both default to None, which is the computation without them.  Not ported
-yet: telemetry taps and the whole-run scan executor.
+Both default to None, which is the computation without them.
+
+A round takes its per-round inputs as device tensors: gammas, the
+participation mask, the step sizes and, for a stochastic per-message
+channel, every sender's per-leaf key words as one int32 tensor (derived on
+the host by `prng.message_leaf_keys`, see `uplink_keys`).  Numpy inputs
+(the key words of the reference's `split_chain`, a numpy mask or step
+sizes) are still taken and moved to the device once per round.  A round
+then reads no host value, so the whole-run executor below can capture it
+in a CUDA graph.
+
+The whole-run executor (`ScanPlan`, `run_scan`, `run_scan_sweep`) is the
+counterpart of the reference's `lax.scan` over rounds: the driver
+precomputes the run's schedule on the host, stages its per-round inputs a
+chunk of rounds at a time, and a scan body advances the carry one round.
+On the CPU a chunk runs its rounds eagerly; on the card the first trained
+round runs eagerly on a side stream, one round of the body is captured in a
+`torch.cuda.CUDAGraph`, and every later round is a replay (see
+`_GraphRounds`).  Telemetry taps (`obs/`) are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 from typing import Any
 
 import numpy as np
@@ -53,16 +72,26 @@ from repro_torch.comm.channels import Channel, DenseChannel
 from repro_torch.core.ledger import CommLedger
 from repro_torch.core.oracles import grad_phase, local_opt_steps
 from repro_torch.core.precision import Precision, cast_floats, compute_cast, master_cast
-from repro_torch.core.prng import fold_in
+from repro_torch.core.prng import message_leaf_keys, split_each
+from repro_torch.kernels.build import LAUNCHES
+from repro_torch.kernels.ops import key_words
 from repro_torch.models.fed import as_fed_model
 from repro_torch.optim.local import AdamWOpt, PlainSGD
-from repro_torch.utils import tree_add, tree_leaves, tree_map
+from repro_torch.utils import tree_add, tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 Tree = Any
 
 
-def compress_uplinks(channel: Channel, deltas: Tree, sub: np.ndarray | None,
-                     slots: np.ndarray | None = None) -> Tree:
+def uplink_keys(subs: np.ndarray, width: int, n_leaves: int) -> np.ndarray:
+    """Every sender's per-leaf keys of per-message uplinks keyed by `subs`
+    (..., 2): slot i of `width` is keyed `fold_in(sub, i)` and split per
+    leaf.  Returns (..., width, n_leaves, 2) uint32."""
+    subs = np.asarray(subs, np.uint32)
+    slots = np.broadcast_to(np.arange(width, dtype=np.uint32), subs.shape[:-1] + (width,))
+    return message_leaf_keys(subs, slots, n_leaves)
+
+
+def compress_uplinks(channel: Channel, deltas: Tree, sub, slots: np.ndarray | None = None) -> Tree:
     """Compress a stacked uplink (leading sender axis on every leaf).
 
     Per-message channels key each sender with `fold_in(sub, slot)`, as the
@@ -72,21 +101,33 @@ def compress_uplinks(channel: Channel, deltas: Tree, sub: np.ndarray | None,
     grid.  `slots` gives each sender's slot id, (G, senders per group) or
     (senders,) with one key; by default sender i of a group is slot i.  The
     microbatched rounds pass the global slots of a client group, so client
-    i's message is keyed alike whatever the group width.  A key-free
-    channel (Sign-SGD, Top-K) gets one blank key per sender, which gives it
-    the sender axis.  Dense transforms the stack directly."""
-    if channel.per_message:
-        n = tree_leaves(deltas)[0].shape[0]
-        if channel.stochastic:
-            groups = np.reshape(sub, (-1, 2))
-            if slots is None:
-                slots = np.tile(np.arange(n // len(groups)), (len(groups), 1))
-            slots = np.reshape(slots, (len(groups), -1))
-            keys = np.stack([fold_in(g, int(i)) for g, row in zip(groups, slots) for i in row])
-        else:
-            keys = np.zeros((n, 2), np.uint32)
-        return channel.compress(deltas, keys)
+    i's message is keyed alike whatever the group width.  `sub` may instead
+    be the senders' per-leaf keys already derived, an int32 tensor
+    (senders, leaves, 2) on the deltas' device (`uplink_keys`); then
+    `slots` is not read.  A key-free channel (Sign-SGD, Top-K) gets the
+    sender axis as its `lead`.  Dense transforms the stack directly."""
+    if not channel.per_message:
+        return channel.compress(deltas, sub)
+    leaves = tree_leaves(deltas)
+    n = leaves[0].shape[0]
+    if not channel.stochastic:
+        return channel.compress(deltas, lead=(n,))
+    if not isinstance(sub, torch.Tensor):
+        groups = np.reshape(np.asarray(sub, np.uint32), (-1, 2))
+        if slots is None:
+            slots = np.tile(np.arange(n // len(groups)), (len(groups), 1))
+        slots = np.reshape(slots, (len(groups), -1))
+        keys = message_leaf_keys(groups, slots, len(leaves)).reshape(n, len(leaves), 2)
+        sub = key_words(keys, leaves[0].device)
     return channel.compress(deltas, sub)
+
+
+def _as_device(x, device, dtype=torch.float32) -> torch.Tensor:
+    """A round input as a tensor on `device`: a tensor passes unchanged, a
+    host array is moved once."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def _freeze_masked(mask: torch.Tensor, new_state: Tree, old_state: Tree) -> Tree:
@@ -160,16 +201,44 @@ class RoundEngine:
             state = tree_map(lambda leaf, n=n: leaf.expand((n,) + leaf.shape).clone(), state)
         return state
 
-    def grad_round(self, params, batch, gammas, lrs):
-        """batch leaves (K, n, B, ...), gammas (n,) tensor, lrs (K,).
-        Returns (params, per-step gamma-weighted losses (K,))."""
-        return grad_phase(self.model, self.client_microbatch)(params, batch, gammas, lrs)
+    def key_width(self, n: int) -> int:
+        """The slots a round of n senders per group keys: n padded to whole
+        client groups of `client_microbatch`."""
+        mb = self.client_microbatch or n
+        return n + (-n) % mb
 
-    def _train_group(self, local, base, state, batch, lrs, mask, sub, slots=None):
+    def step_sizes(self, lrs, device) -> torch.Tensor:
+        """A round's step sizes as a tensor on `device` in the compute dtype
+        (a tensor is taken as it is).  A step with the rounded value equals
+        one with the Python float of it, as the reference's cast of its lr
+        array does."""
+        if isinstance(lrs, torch.Tensor):
+            return lrs
+        lrs = torch.as_tensor(np.asarray(lrs, np.float32), device=device)
+        return compute_cast(lrs, self.precision)
+
+    def _uplink_keys(self, subs, width: int, n_leaves: int, device):
+        """The round's uplink keys as a device tensor (..., width, leaves,
+        2): derived from key words (..., 2) on the host, or already so."""
+        if subs is None or isinstance(subs, torch.Tensor):
+            return subs
+        if not (self.channel.stochastic and self.channel.per_message):
+            return None
+        return key_words(uplink_keys(subs, width, n_leaves), device)
+
+    def grad_round(self, params, batch, gammas, lrs):
+        """batch leaves (K, n, B, ...), gammas (n,), lrs (K,).
+        Returns (params, per-step gamma-weighted losses (K,))."""
+        device = tree_leaves(batch)[0].device
+        return grad_phase(self.model, self.client_microbatch)(
+            params, batch, _as_device(gammas, device), _as_device(lrs, device))
+
+    def _train_group(self, local, base, state, batch, lrs, mask, keys):
         """One group of senders: E local steps from `base` (compute dtype,
         leading sender axis), raw deltas zeroed where `mask` is 0 (None: no
-        mask), compressed and cast up to master.  Masked slots keep their
-        optimizer state.  Returns (deltas, state, losses (senders,))."""
+        mask), compressed under the senders' per-leaf `keys` and cast up to
+        master.  Masked slots keep their optimizer state.  Returns (deltas,
+        state, losses (senders,))."""
         new_p, new_state, losses = local(base, state, batch, lrs)
         if mask is None:
             raw = tree_map(torch.sub, new_p, base)
@@ -178,13 +247,15 @@ class RoundEngine:
             raw = tree_map(
                 lambda a, b: (a - b) * mask.to(a.dtype).reshape((-1,) + (1,) * (a.ndim - 1)),
                 new_p, base)
-        deltas = compress_uplinks(self.channel, raw, sub, slots)
+        deltas = compress_uplinks(self.channel, raw, keys)
         return master_cast(deltas, self.precision), new_state, losses
 
     def cluster_round(self, params, batch, gammas, lrs, subs=None, opt_state=None,
                       mask=None):
-        """One delta-mode round.  batch leaves (J, n, E, B, ...), gammas (n,)
-        tensor, lrs (J, E), subs (J, 2) key words (stochastic channels).
+        """One delta-mode round.  batch leaves (J, n, E, B, ...), gammas (n,),
+        lrs (J, E); subs, for a stochastic channel, the (J, 2) key words of
+        the interactions or their senders' per-leaf keys as an int32 device
+        tensor (J, key_width(n), leaves, 2) (`uplink_keys`).
         `mask` (n,) is the optional per-client participation mask: masked-out
         clients upload a zero delta (zeroed before compression, keyed by
         their slot all the same), keep their optimizer state frozen and
@@ -194,30 +265,34 @@ class RoundEngine:
         losses (J,))."""
         first = tree_leaves(batch)[0]
         J, n = first.shape[:2]
+        device = first.device
         if opt_state is None:
             opt_state = self.init_opt_state(params, n)
+        gammas = _as_device(gammas, device)
         if mask is not None:
-            mask = torch.as_tensor(mask, dtype=torch.float32, device=first.device)
-        lrs = compute_cast(np.asarray(lrs), self.precision)
+            mask = _as_device(mask, device)
+        lrs = self.step_sizes(lrs, device)
+        keys = self._uplink_keys(subs, self.key_width(n), len(tree_leaves(params)), device)
         local = local_opt_steps(self.model, self.local_opt)
         losses = []
         for j in range(J):
             params, opt_state, client_losses = self._cluster_step(
                 local, params, opt_state, tree_map(lambda a: a[j], batch), gammas, mask,
-                lrs[j], None if subs is None else subs[j])
+                lrs[j], None if keys is None else keys[j])
             if mask is None:
                 losses.append(client_losses.mean())
             else:
                 losses.append((client_losses * mask).sum() / torch.clamp(mask.sum(), min=1.0))
         return params, opt_state, torch.stack(losses)
 
-    def _cluster_step(self, local, params, state, batch, gammas, mask, lrs, sub):
+    def _cluster_step(self, local, params, state, batch, gammas, mask, lrs, keys):
         """One interaction of one cluster: params and batch cast to the
         compute dtype, then the clients in groups of `client_microbatch`
         (all n in one group without it), each group's gamma-weighted deltas
         summed into the update, which is added to the master-dtype params.
         The tail group is padded with slot-0 replicas that carry zero gamma
-        and a zero mask.  Returns (params, state, per-client losses (n,))."""
+        and a zero mask.  `keys` (key_width(n), leaves, 2): slot i's keys.
+        Returns (params, state, per-client losses (n,))."""
         n = gammas.shape[0]
         mb = self.client_microbatch or n
         pad = (-n) % mb
@@ -233,7 +308,7 @@ class RoundEngine:
             group = lambda a, g=g: a[g:g + mb]  # noqa: E731
             deltas, s_g, l_g = self._train_group(
                 local, base, tree_map(group, state), tree_map(group, batch), lrs,
-                None if mask is None else group(mask), sub, np.arange(g, g + mb))
+                None if mask is None else group(mask), None if keys is None else group(keys))
             agg = tree_map(lambda d: torch.tensordot(group(gammas).to(d.dtype), d, dims=1), deltas)
             acc = agg if acc is None else tree_add(acc, agg)
             states.append(s_g)
@@ -246,24 +321,31 @@ class RoundEngine:
         """One 3-tier HFL global round for all M clusters.
 
         batch leaves (J, M, n_max, E, B, ...); gammas, mask (M, n_max) and
-        es_weights (M,) tensors; lrs (J, E); subs (J, M, 2) and es_subs
-        (M, 2) key words (stochastic channels); opt_state leaves (M, n_max,
-        ...).  Client slot i of cluster m is keyed `fold_in(subs[j, m], i)`;
-        ES m is keyed `es_subs[m]` itself.  With `client_microbatch = mb`
-        the interaction trains slots [g*mb, (g+1)*mb) of every cluster at
-        once, M * mb senders per group.  Returns (params, opt_state,
-        per-(interaction, cluster) losses (J, M))."""
+        es_weights (M,); lrs (J, E); for stochastic channels subs (J, M, 2)
+        and es_subs (M, 2) key words, or as device tensors the derived
+        per-leaf keys: subs (J, M, key_width(n_max), leaves, 2) and es_subs
+        (M, leaves, 2); opt_state leaves (M, n_max, ...).  Client slot i of
+        cluster m is keyed `fold_in(subs[j, m], i)`; ES m is keyed
+        `es_subs[m]` itself.  With `client_microbatch = mb` the interaction
+        trains slots [g*mb, (g+1)*mb) of every cluster at once, M * mb
+        senders per group.  Returns (params, opt_state, per-(interaction,
+        cluster) losses (J, M))."""
         first = tree_leaves(batch)[0]
         J, M, n_max = first.shape[:3]
+        device = first.device
+        n_leaves = len(tree_leaves(params))
         if opt_state is None:
             opt_state = self.init_opt_state(params, M, n_max)
+        gammas, mask = _as_device(gammas, device), _as_device(mask, device)
+        es_weights = _as_device(es_weights, device)
         mb = self.client_microbatch or n_max
         pad = (-n_max) % mb
         width = n_max + pad
+        keys = self._uplink_keys(subs, width, n_leaves, device)
         gammas_p, mask_p = _zero_pad(gammas, pad), _zero_pad(mask, pad)
         batch = _pad_slots(batch, 2, pad)
         state = _pad_slots(opt_state, 1, pad)
-        lrs = compute_cast(np.asarray(lrs), self.precision)
+        lrs = self.step_sizes(lrs, device)
         local = local_opt_steps(self.model, self.local_opt)
         cparams = tree_map(lambda a: a.expand((M,) + a.shape), params)
         losses = []
@@ -280,8 +362,7 @@ class RoundEngine:
                 deltas, s_g, l_g = self._train_group(
                     local, base, tree_map(lambda a: grid(cols(a)), state),
                     tree_map(lambda a: grid(cols(a)), b_j), lrs[j], grid(cols(mask_p)),
-                    None if subs is None else subs[j],
-                    np.tile(np.arange(g, g + mb), (M, 1)))
+                    None if keys is None else grid(cols(keys[j])))
                 gam = cols(gammas_p)
                 agg = tree_map(lambda d: torch.einsum(
                     "mn,mn...->m...", gam.to(d.dtype), d.reshape((M, mb) + d.shape[1:])), deltas)
@@ -298,8 +379,11 @@ class RoundEngine:
         # itself, in the master dtype
         es_channel = self.es_channel or self.channel
         raw_es = tree_map(lambda c, p: c - p[None], cparams, params)
-        keys = es_subs if es_channel.stochastic else np.zeros((M, 2), np.uint32)
-        es_deltas = es_channel.compress(raw_es, keys)
+        es_keys = None
+        if es_channel.stochastic:
+            es_keys = (es_subs if isinstance(es_subs, torch.Tensor)
+                       else key_words(split_each(es_subs, n_leaves), device))
+        es_deltas = compress_uplinks(es_channel, raw_es, es_keys)
         agg = tree_map(lambda d: torch.tensordot(es_weights, d, dims=1), es_deltas)
         params = tree_add(params, agg)
         state = tree_map(lambda a: a[:, :n_max], state)
@@ -308,3 +392,410 @@ class RoundEngine:
     def end_round(self, ledger: CommLedger, round_idx: int) -> None:
         """Uniform end-of-round bookkeeping: snapshot the ledger."""
         ledger.snapshot(round_idx)
+
+
+# --------------------------------------------------------------------------
+# whole-run execution: chunks of staged rounds, a captured round on the card
+# --------------------------------------------------------------------------
+#
+# The looped drivers pay per-round host costs: staging a round's batches,
+# deriving its keys, copying them to the card, and dispatching every
+# operation of the round from Python.  A scanned run moves the schedule to
+# the host before the run (visit order, participation masks, key words) and
+# stages a chunk of rounds at once; the chunk goes to the card in one copy.
+# On the card one round of the body is captured in a CUDA graph and every
+# later round replays it: the round's inputs are copied device to device
+# into the graph's static inputs, and the replay updates the carry (params,
+# optimizer states) in place.  Between eval points the host enqueues copies
+# and replays only, and reads nothing back.  Communication accounting is
+# deferred to `CommLedger.materialize` after the run.
+#
+# Rounds in which nothing trains (an all-dark cluster, a zero-reporter
+# FedAvg round, a pass-through walk visit) are skipped: the run goes over
+# the trained rounds only, so they consume neither data draws nor keys,
+# exactly as in the looped drivers.  The bodies call the same `RoundEngine`
+# rounds the looped drivers call, so a scanned run's params equal the
+# looped run's bit for bit.
+
+
+@functools.cache
+def scan_grad_body(model, microbatch: int | None = None):
+    """Whole-run body, Eq. (5) grad mode.  carry: params.  x: {"batch":
+    (K, n_max, B, ...), "gammas": (n_max,), "lrs": (K,)} (padded client
+    slots carry zero gamma; the step sizes are staged per round so a
+    decaying schedule can follow the global round, e.g. WRWGD's walk).
+    Returns the per-step gamma-weighted losses (K,)."""
+    engine = RoundEngine(model, client_microbatch=microbatch)
+
+    def body(params, x, consts):
+        del consts
+        return engine.grad_round(params, x["batch"], x["gammas"], x["lrs"])
+
+    return body
+
+
+@functools.cache
+def scan_delta_body(model, channel: Channel, opt, microbatch: int | None = None,
+                    precision: Precision | None = None):
+    """Whole-run body, delta mode over one fixed client set (FedAvg).
+    carry: (params, opt_state (n, ...)).  x: {"batch": (J, n, E, B, ...),
+    "gammas"/"mask": (n,), "keys": (J, key_width(n), leaves, 2) int32 (a
+    stochastic channel)}.  consts: {"lrs": (J, E)}.  Returns per-interaction
+    masked mean losses (J,)."""
+    engine = RoundEngine(model, channel, local_opt=opt, client_microbatch=microbatch,
+                         precision=precision)
+
+    def body(carry, x, consts):
+        params, opt_state = carry
+        params, opt_state, losses = engine.cluster_round(
+            params, x["batch"], x["gammas"], consts["lrs"], x.get("keys"), opt_state,
+            mask=x["mask"])
+        return (params, opt_state), losses
+
+    return body
+
+
+@functools.cache
+def scan_cluster_delta_body(model, channel: Channel, opt, microbatch: int | None = None,
+                            precision: Precision | None = None):
+    """Whole-run body, delta mode with a per-round active cluster (Fed-CHS).
+    carry: (params, opt_states (M, n_max, ...)): the active cluster's rows
+    are gathered with `index_select` and written back with `index_copy_` at
+    the staged device index x["m"], so the round never reads the cluster id
+    on the host.  x adds "m": () int32 to the `scan_delta_body` inputs (all
+    padded to n_max)."""
+    engine = RoundEngine(model, channel, local_opt=opt, client_microbatch=microbatch,
+                         precision=precision)
+
+    def body(carry, x, consts):
+        params, opt_all = carry
+        m = x["m"].reshape(1).long()
+        s_m = tree_map(lambda leaf: leaf.index_select(0, m)[0], opt_all)
+        params, new_s, losses = engine.cluster_round(
+            params, x["batch"], x["gammas"], consts["lrs"], x.get("keys"), s_m,
+            mask=x["mask"])
+        for leaf, ns in zip(tree_leaves(opt_all), tree_leaves(new_s)):
+            leaf.index_copy_(0, m, ns[None])
+        return (params, opt_all), losses
+
+    return body
+
+
+@functools.cache
+def scan_multi_body(model, channel: Channel, es_channel: Channel, opt,
+                    microbatch: int | None = None, precision: Precision | None = None):
+    """Whole-run body, 3-tier HFL global rounds (Hier-Local-QSGD).
+    carry: (params, opt_state (M, n_max, ...)).  x: {"batch": (J, M, n_max,
+    E, B, ...), "gammas"/"mask": (M, n_max), "es_weights": (M,), "keys":
+    (J, M, key_width(n_max), leaves, 2), "es_keys": (M, leaves, 2)}.
+    Returns losses (J, M)."""
+    engine = RoundEngine(model, channel, es_channel, local_opt=opt,
+                         client_microbatch=microbatch, precision=precision)
+
+    def body(carry, x, consts):
+        params, opt_state = carry
+        params, opt_state, losses = engine.multi_cluster_round(
+            params, x["batch"], x["gammas"], x["mask"], x["es_weights"], consts["lrs"],
+            x.get("keys"), x.get("es_keys"), opt_state)
+        return (params, opt_state), losses
+
+    return body
+
+
+@functools.cache
+def _lanes_body(body):
+    """A sweep's round: `body` on every seed's lane in turn (carry: a tuple
+    of lane carries; x leaves (lanes, ...)).  Losses stacked (lanes, ...)."""
+
+    def run(carry, x, consts):
+        outs = [body(c, tree_map(lambda a, i=i: a[i], x), consts) for i, c in enumerate(carry)]
+        return tuple(o[0] for o in outs), torch.stack([o[1] for o in outs])
+
+    return run
+
+
+def eval_rounds(rounds: int, eval_every: int) -> list[int]:
+    """The rounds every driver logs at: t % eval_every == 0, plus the final
+    round — the exact looped-driver cadence."""
+    ev = [t for t in range(rounds) if t % eval_every == 0]
+    if rounds - 1 not in ev:
+        ev.append(rounds - 1)
+    return ev
+
+
+@dataclasses.dataclass
+class ScanPlan:
+    """A precomputed whole-run schedule for `run_scan`.
+
+    `trained` marks the rounds that actually train (all of them under full
+    participation); the run goes over those only.  `stage(idxs)` returns the
+    per-round inputs stacked (numpy leaves, leading axis len(idxs)) for the
+    given ascending *global* round indices: the only host work left in the
+    loop.  `carry` (tensors on the run's device) is advanced in place.
+
+    The reference's `obs`, `chunk_fn` and `xs_put` fields serve its
+    telemetry and device-mesh packages, which are not ported."""
+
+    body: Any                 # a scan_*_body: (carry, x, consts) -> (carry, losses)
+    carry: Any
+    consts: Any
+    stage: Any                # (np.ndarray of round idxs) -> xs tree
+    trained: Any              # (rounds,) bool numpy array
+    rounds: int
+    eval_every: int
+    chunk_rounds: int = 32
+
+
+def run_scan(plan: ScanPlan, record) -> Any:
+    """Execute a whole run as chunks of its trained rounds.
+
+    Chunks are cut at eval rounds (and at `chunk_rounds` to bound the
+    staged inputs), so between eval points the only host<->device traffic
+    is each chunk's one copy of its staged inputs.  `record(t, carry,
+    losses, t_l)` fires at every eval round t with the carry after round t,
+    the last trained round's on-device losses (None if nothing trained yet),
+    and that round's global index t_l.  Returns the final carry.
+
+    On the card one capture serves every chunk length, and the graph and
+    its memory pool are freed when the run returns or raises."""
+    assert plan.chunk_rounds >= 1
+    return _run_chunks(plan.body, plan.carry, plan.stage, plan, record)
+
+
+def run_scan_sweep(plans: list[ScanPlan], record, *, mesh=None) -> Any:
+    """Run several same-config, different-seed `ScanPlan`s as one run whose
+    round advances every seed's lane in turn (one captured graph, one
+    replay per round for all seeds).  All plans must share body, consts and
+    trained schedule; each lane computes exactly its solo run, bit for bit.
+    `record(t, carry, losses, t_l)` sees the tuple of lane carries and
+    losses stacked (lanes, ...).  Returns the final tuple of lane carries.
+
+    The reference's `mesh` (the seed axis over a device mesh) is not
+    ported: passing one raises."""
+    if mesh is not None:
+        raise NotImplementedError("run_scan_sweep(mesh=...) is not ported to repro_torch yet")
+    p0 = plans[0]
+    assert all(p.body is p0.body for p in plans), "sweep plans must share a body"
+    assert all(np.array_equal(np.asarray(p.trained), np.asarray(p0.trained)) for p in plans), \
+        "sweep plans must share the trained-round schedule (full participation)"
+    carry = tuple(p.carry for p in plans)
+
+    def stage(idxs):
+        return tree_map(lambda *ls: np.stack(ls, axis=1), *[p.stage(idxs) for p in plans])
+
+    return _run_chunks(_lanes_body(p0.body), carry, stage, p0, record)
+
+
+def _run_chunks(body, carry, stage, plan: ScanPlan, record) -> Any:
+    """The chunked loop behind `run_scan`/`run_scan_sweep`: segment the
+    trained rounds at eval boundaries (capped at `chunk_rounds`), stage and
+    run each chunk, keep the last trained round's losses, and fire `record`
+    at every eval round."""
+    device = tree_leaves(carry)[0].device
+    rounds = (_GraphRounds if device.type == "cuda" else _EagerRounds)(
+        body, carry, plan.consts, device)
+    trained_idx = np.flatnonzero(np.asarray(plan.trained))
+    last_losses, last_t, pos = None, None, 0
+    try:
+        for t_e in eval_rounds(plan.rounds, plan.eval_every):
+            n_t = int(np.searchsorted(trained_idx, t_e, side="right"))
+            while pos < n_t:
+                take = min(plan.chunk_rounds, n_t - pos)
+                idxs = trained_idx[pos:pos + take]
+                last_losses = rounds.run(stage(idxs))
+                last_t = int(idxs[-1])
+                pos += take
+            record(t_e, rounds.carry, last_losses, last_t)
+        return rounds.carry
+    finally:
+        rounds.close()
+
+
+_ALIGN = 256  # byte alignment of every input inside a staged round
+
+
+class _Layout:
+    """How one round's staged inputs lie in one byte row: every leaf at an
+    offset aligned to `_ALIGN`.  A chunk is a (rounds, row bytes) array, so
+    it moves to the card in one copy and each round's inputs in another."""
+
+    def __init__(self, xs):
+        leaves, self.treedef = tree_flatten(xs)
+        self.specs, off = [], 0
+        for a in leaves:
+            a = _device_view(a)
+            nbytes = a[0].nbytes
+            self.specs.append((off, nbytes, a.shape[1:], a.dtype,
+                               torch.from_numpy(a[:0]).dtype))
+            off += -(-nbytes // _ALIGN) * _ALIGN
+        self.row_bytes = max(off, _ALIGN)
+
+    def pack(self, xs) -> np.ndarray:
+        leaves, _ = tree_flatten(xs)
+        rows = len(leaves[0])
+        packed = np.empty((rows, self.row_bytes), np.uint8)
+        for a, (off, nbytes, shape, dtype, _) in zip(leaves, self.specs):
+            a = _device_view(a)
+            if a.shape[1:] != shape or a.dtype != dtype:
+                raise ValueError(f"staged input {a.dtype}{a.shape[1:]} differs from the "
+                                 f"first chunk's {dtype}{shape}")
+            packed[:, off:off + nbytes] = np.ascontiguousarray(a).reshape(rows, -1).view(np.uint8)
+        return packed
+
+    def views(self, row: torch.Tensor):
+        """One round's inputs as views into its byte row."""
+        out = [row[off:off + nbytes].view(tdtype).reshape(shape)
+               for off, nbytes, shape, _, tdtype in self.specs]
+        return tree_unflatten(self.treedef, out)
+
+
+def _device_view(a: np.ndarray) -> np.ndarray:
+    """uint32 key words travel as int32 of the same bits (torch has no
+    general uint32)."""
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def _assign(carry, new) -> None:
+    """Write a round's new carry into the carry's tensors in place."""
+    old, fresh = tree_leaves(carry), tree_leaves(new)
+    if len(old) != len(fresh):
+        raise ValueError("a scan body changed the structure of its carry")
+    for o, f in zip(old, fresh):
+        if f is not o:
+            o.copy_(f)
+
+
+class _EagerRounds:
+    """The CPU's executor: every round of a chunk runs eagerly on views of
+    the chunk's staged rows."""
+
+    def __init__(self, body, carry, consts, device):
+        self.body, self.carry, self.consts, self.device = body, carry, consts, device
+        self.layout = None
+
+    def run(self, xs):
+        if self.layout is None:
+            self.layout = _Layout(xs)
+        rows = torch.from_numpy(self.layout.pack(xs)).to(self.device)
+        for c in range(len(rows)):
+            new, losses = self.body(self.carry, self.layout.views(rows[c]), self.consts)
+            _assign(self.carry, new)
+        return losses
+
+    def close(self) -> None:
+        pass
+
+
+# graphs held by scans that are running (a finished scan leaves none), and
+# the stats of the last scan that ran on the card (`_GraphRounds.stats`)
+LIVE_GRAPHS: list = []
+LAST_STATS: dict = {}
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    """One warm-up and capture stream per card for every run: cuBLAS keeps a
+    workspace per stream it has seen, so a new stream per run would add
+    one per run."""
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
+class _GraphRounds:
+    """The card's executor: one captured round, replayed.
+
+    The run's first trained round runs eagerly, as the warm-up capture
+    needs (cuBLAS handles, kernel libraries, the allocator's blocks), and is
+    a real round of the run; it runs on the current stream, so it reuses the
+    blocks the allocator caches there.  The capture stream, a side stream,
+    gets its per-stream library state (the cuBLAS workspace) from a small
+    product run on it first.  Then one round of the body is captured in a
+    `torch.cuda.CUDAGraph` on that stream: its inputs are views into one
+    static byte row, and it ends by copying the new carry into the carry's
+    own tensors.  Each chunk's staged rows go to the card in one
+    non-blocking copy from pinned memory (the caching host allocator hands
+    a pinned block out again only after the copy that read it has
+    finished), and each round is one device-to-device copy into the static
+    row and a replay, under `set_sync_debug_mode("error")`: no host sync
+    between eval points.  A replay does not call the kernel wrappers, so
+    the counts of the launches the capture holds are added to
+    `build.LAUNCHES` per replay.  Capture or replay errors raise; nothing
+    falls back to eager rounds.  `stats` holds the host seconds of the
+    warm-up round and of the capture, and the number of replays."""
+
+    def __init__(self, body, carry, consts, device):
+        self.body, self.carry, self.consts, self.device = body, carry, consts, device
+        self.layout = None
+        self.graph = self.static = self.static_losses = None
+        self.warm = False
+        self.launches: dict[str, int] = {}
+        self.stream = _side_stream(device)
+        self.stats = {"warmup_s": 0.0, "capture_s": 0.0, "replays": 0}
+
+    def run(self, xs):
+        if self.layout is None:
+            self.layout = _Layout(xs)
+        host = torch.from_numpy(self.layout.pack(xs)).pin_memory()
+        rows = host.to(self.device, non_blocking=True)
+        start, losses = 0, None
+        if not self.warm:
+            t0 = time.perf_counter()
+            new, losses = self.body(self.carry, self.layout.views(rows[0]), self.consts)
+            _assign(self.carry, new)
+            torch.cuda.synchronize(self.device)  # once a run, before the capture
+            self.stats["warmup_s"] = time.perf_counter() - t0
+            self.warm, start = True, 1
+        if start < len(rows) and self.graph is None:
+            self._capture()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for c in range(start, len(rows)):
+                self.static.copy_(rows[c])
+                self.graph.replay()
+                for name, n in self.launches.items():
+                    LAUNCHES[name] += n
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        self.stats["replays"] += len(rows) - start
+        return losses if start == len(rows) else self.static_losses.clone()
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        side = self.stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):  # the side stream's cuBLAS workspace
+            for dtype in (torch.float32, torch.bfloat16):
+                a = torch.ones((8, 8), dtype=dtype, device=self.device)
+                torch.mm(a, a)
+        torch.cuda.synchronize(self.device)
+        self.static = torch.zeros((self.layout.row_bytes,), dtype=torch.uint8,
+                                  device=self.device)
+        x = self.layout.views(self.static)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(LAUNCHES)
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                new, losses = self.body(self.carry, x, self.consts)
+                _assign(self.carry, new)
+        finally:
+            captured = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            LAUNCHES.update(before)  # nothing launched while capturing
+        self.launches = {k: n for k, n in captured.items() if n}
+        self.graph, self.static_losses = graph, losses
+        LIVE_GRAPHS.append(graph)
+        self.stats["capture_s"] = time.perf_counter() - t0
+
+    def close(self) -> None:
+        """Free the graph, its memory pool and the static inputs.  A run
+        that captured nothing (one trained round) leaves the allocator's
+        cache as eager rounds do."""
+        LAST_STATS.clear()
+        LAST_STATS.update(self.stats)
+        if self.graph is not None:
+            LIVE_GRAPHS.remove(self.graph)
+            self.graph.reset()
+            self.graph = self.static = self.static_losses = None
+            torch.cuda.empty_cache()  # the pool's blocks go back to the card

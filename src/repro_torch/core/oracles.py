@@ -6,6 +6,10 @@
   * `grad_phase(model, microbatch)` — the Eq. (5) literal: K joint steps
     of ``w <- w - eta_k * sum_n gamma_n grad_n(w, xi_{n,k})``, with at most
     `microbatch` clients' forward and backward passes live at once.
+
+Step sizes may be a device tensor: a step multiplies by its 0-dim entry,
+which rounds as the Python float of the same value does, and reads nothing
+back to the host (a captured CUDA graph replays it).
 """
 from __future__ import annotations
 
@@ -19,9 +23,17 @@ from repro_torch.utils import tree_leaves, tree_map
 Tree = Any
 
 
+def _steps(lrs) -> list:
+    """The step sizes one by one: 0-dim entries of a tensor, or floats."""
+    if isinstance(lrs, torch.Tensor):
+        return list(lrs.unbind(0))
+    return [float(lr) for lr in lrs]
+
+
 def local_opt_steps(model, opt):
     """E local steps per client: params leaves (n, ...), batch leaves
-    (n, E, B, ...), lrs (E,) floats.
+    (n, E, B, ...), lrs (E,): a tensor (each step reads its 0-dim entry, so
+    no host value enters the step) or host floats.
 
     Returns ``run(params, opt_state, batch, lrs) -> (params, opt_state,
     per-client mean losses (n,))``."""
@@ -29,9 +41,9 @@ def local_opt_steps(model, opt):
 
     def run(params, opt_state, batch, lrs):
         losses = []
-        for e, lr in enumerate(lrs):
+        for e, lr in enumerate(_steps(lrs)):
             grads, loss = per_client(params, tree_map(lambda a: a[:, e], batch))
-            params, opt_state = opt.step(params, opt_state, grads, float(lr))
+            params, opt_state = opt.step(params, opt_state, grads, lr)
             losses.append(loss)
         return params, opt_state, torch.stack(losses, dim=1).mean(dim=1)
 
@@ -69,10 +81,10 @@ def grad_phase(model, microbatch: int | None = None):
 
     def phase(params, batch, gammas, lrs):
         losses = []
-        for k, lr in enumerate(lrs):
+        for k, lr in enumerate(_steps(lrs)):
             grads, loss = per_client(params, tree_map(lambda a: a[k], batch))
             agg = tree_map(lambda g: torch.tensordot(gammas, g, dims=1), grads)
-            params = tree_map(lambda w, g: w - float(lr) * g, params, agg)
+            params = tree_map(lambda w, g: w - lr * g, params, agg)
             losses.append(torch.dot(gammas, loss))
         return params, torch.stack(losses)
 

@@ -8,7 +8,14 @@ Keys are a few words per message, so this stays host-side numpy.
 
 Partitionable threefry: `split(key, n)[i]` and `fold_in(key, i)` are both
 the threefry2x32 hash of the 64-bit counter ``i`` (high word, low word)
-under `key`.
+under `key`.  `threefry2x32` broadcasts arrays of keys against arrays of
+counters, so `message_leaf_keys` derives every sender's per-leaf keys of a
+whole round, or of a whole staged chunk of rounds, in one vectorized pass.
+The reference derives those keys inside its jitted round (`fold_in` per
+sender, `split` per leaf); the port derives them on the host when a round
+is staged, and the round reads them as one int32 device tensor, so a
+captured CUDA graph replays it without a host-derived value.  Only the
+sequential key chain (`split_chain`) is walked once per run.
 """
 from __future__ import annotations
 
@@ -23,8 +30,10 @@ def _rotl(x: np.ndarray, r: int) -> np.ndarray:
 
 
 def threefry2x32(key: np.ndarray, x0: np.ndarray, x1: np.ndarray):
-    """The 20-round threefry2x32 block cipher of (x0, x1) under `key`."""
-    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    """The 20-round threefry2x32 block cipher of (x0, x1) under `key`: key
+    words (..., 2), broadcast against the counters' shape."""
+    key = np.asarray(key, np.uint32)
+    k0, k1 = key[..., 0], key[..., 1]
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = np.asarray(x0, np.uint32) + ks[0]
     x1 = np.asarray(x1, np.uint32) + ks[1]
@@ -54,6 +63,36 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     with np.errstate(over="ignore"):
         b0, b1 = threefry2x32(key, np.zeros(1, np.uint32), np.array([data], np.uint32))
     return np.array([b0[0], b1[0]], np.uint32)
+
+
+def fold_in_each(keys: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """`fold_in(keys[...], data[..., s])` for every s: keys (..., 2), data
+    (..., S) non-negative 32-bit ints -> (..., S, 2) uint32."""
+    data = np.asarray(data, np.uint32)
+    with np.errstate(over="ignore"):
+        b0, b1 = threefry2x32(np.asarray(keys, np.uint32)[..., None, :],
+                              np.zeros(data.shape, np.uint32), data)
+    return np.stack([b0, b1], axis=-1)
+
+
+def split_each(keys: np.ndarray, n: int) -> np.ndarray:
+    """`split(key, n)` of every key: (..., 2) -> (..., n, 2) uint32."""
+    counters = np.arange(n, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        b0, b1 = threefry2x32(np.asarray(keys, np.uint32)[..., None, :],
+                              np.zeros_like(counters), counters)
+    return np.stack([b0, b1], axis=-1)
+
+
+def message_leaf_keys(keys: np.ndarray, slots: np.ndarray, n_leaves: int) -> np.ndarray:
+    """The per-leaf keys of every sender of a per-message channel.
+
+    keys (..., 2) are per-group key words; slots (..., S) the senders' slot
+    ids, with the same leading axes.  Sender s of a group is keyed
+    `fold_in(key, slots[s])` and its leaf l `split(that, n_leaves)[l]`, as
+    the reference's round and its QSGD channel do.  Returns (..., S,
+    n_leaves, 2) uint32."""
+    return split_each(fold_in_each(keys, slots), n_leaves)
 
 
 def split_chain(key: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:

@@ -1,4 +1,4 @@
-"""Per-client batch sources (port of `ArraySource` and `TokenSource` of
+"""Per-client batch sources and bulk staging (port of
 `repro/data/sources.py`).
 
 `next_batch(client)` yields one mini-batch dict of numpy arrays (``{"x",
@@ -6,8 +6,17 @@
 `eval_data()` what the task's `FedModel.eval_metric` consumes.  The
 per-client rng seeding and draw order are the reference's exactly, so a
 run of the port sees the reference's batches draw for draw.
+
+The scanned drivers stage a chunk of rounds at once: `stage_chunk` reads
+each client's draws of the chunk with one `bulk_batches` call (one dataset
+gather on an `ArraySource`) and scatters them into the chunk's arrays.  A
+bulk read equals the same number of `next_batch` calls, draw for draw, and
+leaves the stream where they would.  The reference's `put_sharded` (the
+device-mesh put) is not ported.
 """
 from __future__ import annotations
+
+from typing import Any, Protocol, runtime_checkable
 
 import numpy as np
 
@@ -15,6 +24,78 @@ from repro_torch.data.loader import ClientLoader
 from repro_torch.data.partition import ClientData
 from repro_torch.data.synthetic import Dataset
 from repro_torch.data.tokens import MarkovTokens
+
+
+Batch = Any  # tree of numpy arrays with matching leading (B, ...) axes
+
+
+@runtime_checkable
+class DataSource(Protocol):
+    """Per-client batch supply + held-out eval data for one FL experiment."""
+
+    num_clients: int
+    batch_size: int
+    client_sizes: np.ndarray  # per-client dataset sizes (gamma weights)
+
+    def reset(self, seed: int) -> None:
+        """Rewind every client's stream (same-seed runs must be identical)."""
+        ...
+
+    def next_batch(self, client: int) -> Batch:
+        """The client's next mini-batch tree (numpy leaves)."""
+        ...
+
+    def eval_data(self) -> Any:
+        """Held-out data in whatever form the task's FedModel evaluates."""
+        ...
+
+
+def _leafwise(fn, tree, *rest):
+    """`fn` over the leaves of equal-structure dicts of arrays (a batch)."""
+    if isinstance(tree, dict):
+        return {k: _leafwise(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def scatter_put(index, reshape):
+    """A `stage_chunk` scatter: writes one client's reshaped draw stack into
+    the chunk buffer at a fixed fancy index, leaf-wise."""
+
+    def put(batch: Batch, draws: Batch) -> None:
+        _leafwise(lambda bl, dl: bl.__setitem__(index, reshape(dl)), batch, draws)
+
+    return put
+
+
+def stage_chunk(source, plan, alloc) -> Batch:
+    """Bulk-stage one chunk of per-client batches.
+
+    `plan` is an iterable of ``(client, count, put)``: each client's `count`
+    draws are fetched with one `bulk_batches` read and scattered into the
+    chunk buffer by ``put(batch, draws)`` (see `scatter_put`).  The buffer is
+    allocated from the first draws: ``alloc(leaf) -> shape`` gives each
+    zero-filled leaf's full chunk shape.  Returns None for an empty plan."""
+    batch = None
+    for client, count, put in plan:
+        draws = bulk_batches(source, client, count)
+        if batch is None:
+            batch = _leafwise(lambda a: np.zeros(alloc(a), a.dtype), draws)
+        put(batch, draws)
+    return batch
+
+
+def bulk_batches(source, client: int, count: int) -> Batch:
+    """`count` sequential draws for one client, stacked (count, B, ...).
+
+    Uses the source's vectorized `next_batches` where it has one
+    (`ArraySource`: one dataset gather for the whole chunk), else stacks
+    `next_batch` calls; either way the draws and the stream position after
+    them are those of `count` `next_batch` calls."""
+    fast = getattr(source, "next_batches", None)
+    if fast is not None:
+        return fast(client, count)
+    batches = [source.next_batch(client) for _ in range(count)]
+    return _leafwise(lambda *leaves: np.stack(leaves), *batches)
 
 
 class ArraySource:
@@ -35,10 +116,31 @@ class ArraySource:
         ]
         self.draw_counts = [0] * self.num_clients
 
+    def fast_forward(self, draw_counts: list[int]) -> None:
+        """Resume mid-run: advance each client's rng stream to an absolute
+        batch-draw position by drawing and discarding indices, so the state
+        equals that after as many live draws."""
+        assert len(draw_counts) == self.num_clients
+        for c, n in enumerate(draw_counts):
+            delta = int(n) - self.draw_counts[c]
+            assert delta >= 0, (f"client {c}: cannot rewind an rng stream "
+                                f"({self.draw_counts[c]} -> {n}); reset() first")
+            if delta:
+                self.loaders[c].next_indices(delta)
+                self.draw_counts[c] = int(n)
+
     def next_batch(self, client: int) -> dict:
         self.draw_counts[client] += 1
         x, y = self.loaders[client].next_batch()
         return {"x": x, "y": y}
+
+    def next_batches(self, client: int, count: int) -> dict:
+        """`count` sequential draws as stacked (count, B, ...) leaves: the
+        rng state moves as under `count` `next_batch` calls, and the
+        dataset is gathered once."""
+        self.draw_counts[client] += count
+        idx = self.loaders[client].next_indices(count).reshape(count, self.batch_size)
+        return {"x": self.dataset.train_x[idx], "y": self.dataset.train_y[idx]}
 
     def eval_data(self) -> Dataset:
         return self.dataset

@@ -39,3 +39,12 @@ class MarkovTokens:
         for t in range(1, seq_len):
             out[:, t] = self.succ[topic, out[:, t - 1], choices[:, t]]
         return out
+
+
+def synthetic_lm_batch(vocab_size: int, batch: int, seq_len: int, *, seed: int = 0
+                       ) -> dict[str, np.ndarray]:
+    """One (tokens, labels) LM batch; labels are next-token shifted."""
+    gen = MarkovTokens(min(vocab_size, 32_768), seed=seed)
+    rng = np.random.default_rng(seed)
+    toks = gen.sample(rng, batch, seq_len + 1) % vocab_size
+    return {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32)}

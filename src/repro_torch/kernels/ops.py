@@ -18,8 +18,12 @@ Keys are raw uint32 key words (numpy, see `core/prng.py`).  Where the
 reference vmaps a message function over a stacked uplink, these functions
 take the sender axis directly: a key array of shape (..., 2) gives every
 leaf the leading axes ``...``, one message per key, and all senders of a
-leaf are encoded by one kernel launch.  The key-free Sign-SGD and Top-K
-ops take the leading message axes as ``lead`` instead.
+leaf are encoded by one kernel launch.  The tree functions also take the
+keys already split per leaf, as an int32 tensor (..., leaves, 2) of the
+same bits on the message's device (`prng.message_leaf_keys`): then nothing
+is derived or copied from the host, which is what a captured CUDA graph
+needs.  The key-free Sign-SGD and Top-K ops take the leading message axes
+as ``lead`` instead.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.prng import split
+from repro_torch.core.prng import split_each
 from repro_torch.kernels.qsgd import (
     _pack_words,
     _unpack_words,
@@ -58,10 +62,22 @@ def _cheap_uniform(key: np.ndarray, shape: tuple) -> torch.Tensor:
     return cheap_uniform_ref(_key_tensor(key[None], "cpu"), n).reshape(shape)
 
 
-def _key_tensor(keys: np.ndarray, device) -> torch.Tensor:
-    """(S, 2) uint32 key words -> int32 tensor of the same bits on `device`."""
-    words = np.array(keys, dtype=np.uint32).view(np.int32)
+def key_words(keys: np.ndarray, device) -> torch.Tensor:
+    """uint32 key words -> an int32 tensor of the same bits on `device`."""
+    words = np.array(keys, dtype=np.uint32).view(np.int32)  # a writable copy
     return torch.from_numpy(words).to(device)
+
+
+def _key_tensor(keys, device) -> torch.Tensor:
+    """(S, 2) key words as an int32 tensor on `device`: uint32 numpy words
+    are moved there, an int32 tensor already there is passed on
+    (contiguous)."""
+    if not isinstance(keys, torch.Tensor):
+        return key_words(keys, device)
+    if keys.dtype != torch.int32 or keys.device != torch.device(device):
+        raise ValueError(f"device keys must be int32 on {device}, got {keys.dtype} on "
+                         f"{keys.device}")
+    return keys.contiguous()
 
 
 def _pad_to_blocks(v: torch.Tensor, block: int, rows_per_tile: int):
@@ -120,14 +136,15 @@ def _message_blocks(v: torch.Tensor, lead: tuple, block: int) -> torch.Tensor:
     return flat.reshape(senders, nb, block).contiguous()
 
 
-def qsgd_encode(v: torch.Tensor, keys: np.ndarray, *, s: int = 16,
+def qsgd_encode(v: torch.Tensor, keys, *, s: int = 16,
                 block: int = DEFAULT_BLOCK) -> dict:
     """Encode one leaf of every message to its wire form.
 
-    keys (..., 2): one key per message; v has the leading axes ``...``.
-    Returns {'payload': int32 (..., nb, bits*block/32), 'norms': f32 (..., nb)}
-    with nb = ceil(entries per message / block) blocks per leaf."""
-    lead = keys.shape[:-1]
+    keys (..., 2): one key per message (uint32 numpy, or an int32 tensor on
+    v's device); v has the leading axes ``...``.  Returns {'payload': int32
+    (..., nb, bits*block/32), 'norms': f32 (..., nb)} with nb = ceil(entries
+    per message / block) blocks per leaf."""
+    lead = tuple(keys.shape[:-1])
     blocks = _message_blocks(v, lead, block)
     nb = blocks.shape[1]
     payload, norms = qsgd_quantize_pack(blocks, _key_tensor(keys.reshape(-1, 2), v.device), s)
@@ -147,20 +164,19 @@ def qsgd_decode(wire: dict, *, s: int = 16, shape: tuple = (),
     return rows.reshape(senders, -1)[:, :n].reshape(shape)
 
 
-def _leaf_keys(keys: np.ndarray, n_leaves: int) -> np.ndarray:
-    """Per-leaf keys `split(key, n_leaves)` of every message key:
-    (..., 2) -> (n_leaves, ..., 2)."""
-    flat = keys.reshape(-1, 2)
-    per = np.stack([split(k, n_leaves) for k in flat], axis=1)  # (L, S, 2)
-    return per.reshape((n_leaves,) + keys.shape)
-
-
-def qsgd_encode_tree(tree: Tree, keys: np.ndarray, *, s: int = 16,
+def qsgd_encode_tree(tree: Tree, keys, *, s: int = 16,
                      block: int = DEFAULT_BLOCK) -> list:
-    """Encode every leaf of the messages; wire dicts in leaf order."""
+    """Encode every leaf of the messages; wire dicts in leaf order.  `keys`
+    are the message keys (..., 2) as uint32 numpy, split per leaf here, or
+    the per-leaf keys (..., leaves, 2) as an int32 tensor on the leaves'
+    device."""
     leaves, _ = tree_flatten(tree)
-    leaf_keys = _leaf_keys(np.asarray(keys, np.uint32), len(leaves))
-    return [qsgd_encode(leaf, k, s=s, block=block) for leaf, k in zip(leaves, leaf_keys)]
+    if not isinstance(keys, torch.Tensor):
+        keys = split_each(keys, len(leaves))
+    elif keys.shape[-2] != len(leaves):
+        raise ValueError(f"device keys carry {keys.shape[-2]} leaves, the tree {len(leaves)}")
+    return [qsgd_encode(leaf, keys[..., i, :], s=s, block=block)
+            for i, leaf in enumerate(leaves)]
 
 
 def qsgd_decode_tree(wires: list, like: Tree, *, s: int = 16,
@@ -172,7 +188,7 @@ def qsgd_decode_tree(wires: list, like: Tree, *, s: int = 16,
     return tree_unflatten(treedef, out)
 
 
-def qsgd_compress_tree(tree: Tree, keys: np.ndarray, *, s: int = 16,
+def qsgd_compress_tree(tree: Tree, keys, *, s: int = 16,
                        block: int = DEFAULT_BLOCK) -> Tree:
     """The QSGD channel roundtrip: encode to the packed wire, decode at the
     receiver; leaf-wise with per-leaf keys."""

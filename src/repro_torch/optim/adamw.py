@@ -38,7 +38,8 @@ def adamw_init(params: Tree) -> dict:
 
 def _correction(b: float, count: torch.Tensor) -> torch.Tensor:
     """1 - b ** count in f32, b taken at its f32 value."""
-    base = torch.tensor(float(np.float32(b)), dtype=torch.float64, device=count.device)
+    # a fill, not a copy from the host: a captured CUDA graph records it
+    base = torch.full((), float(np.float32(b)), dtype=torch.float64, device=count.device)
     return 1 - torch.pow(base, count.to(torch.float64)).to(torch.float32)
 
 

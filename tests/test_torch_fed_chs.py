@@ -162,8 +162,11 @@ def test_unported_config_fields_raise(field, value):
                          ids=["looped", "chunked"])
 def test_scan_fields_are_accepted_and_run_the_looped_driver(tasks, kw):
     """`FedCHSConfig(scan_rounds=False)`, as `benchmarks/engine_speedup.py`
-    passes it, constructs; either setting runs the looped driver, which
-    equals the reference's looped driver."""
+    passes it, constructs and runs the looped driver; `scan_rounds=True`
+    with `chunk_rounds=1` runs the whole-run executor one round a chunk.
+    Either equals the reference's run of the same setting (the port's two
+    executors are held to each other bit for bit in
+    tests/test_torch_scan.py)."""
     jres, res = run_both(tasks, rounds=2, local_steps=4, eval_every=1, **kw)
     assert_ledgers_equal(jres, res)
     np.testing.assert_allclose(flat(tree_leaves(res.final_params)),

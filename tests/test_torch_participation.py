@@ -6,7 +6,9 @@ sampler's participant sets, the masks, and whole runs' ledgers (totals,
 snapshots, every `CommEvent`), visit orders and per-client data draws.
 Float results follow `tests/test_torch_fed_chs.py`: dense runs at atol
 1e-6, runs through QSGD at 3% relative L2.  The reference runs its looped
-drivers (`scan_rounds=False`), which the port ports.
+drivers (`scan_rounds=False`); the port runs its default, the whole-run
+executor, which tests/test_torch_scan.py holds to the port's looped drivers
+bit for bit.
 
 The behaviour tests of the reference's `tests/test_participation.py` are
 ported below against the port alone: pass-through rounds, skipped rounds,
@@ -494,7 +496,9 @@ def test_availability_scheduler_probes_next_round():
 
 def test_fed_chs_pass_through_round_forwards_model_and_spends_nothing(tasks, monkeypatch):
     """A dark round: only the ES->ES hop, no data draw, no key, params
-    bit-equal to the round before."""
+    bit-equal to the round before.  The looped driver splits J keys per
+    trained round; the scanned one (the default) draws the same keys in one
+    chain over the trained rounds, J x 3, none for the dark round."""
     task = tasks[1]
     calls = []
     real = tfed_chs.split_chain
@@ -502,11 +506,15 @@ def test_fed_chs_pass_through_round_forwards_model_and_spends_nothing(tasks, mon
                         lambda key, n: calls.append(n) or real(key, n))
     cfg = FedCHSConfig(rounds=4, local_steps=4, local_epochs=2, eval_every=1, seed=0,
                        qsgd_levels=16, sampler=Blackout({1}))
+    looped = run_fed_chs(task, dataclasses.replace(cfg, scan_rounds=False))
+    assert calls == [2, 2, 2]  # one split of J = 2 keys per trained round
+    calls.clear()
     res = run_fed_chs(task, cfg)
+    assert calls == [2 * 3]  # one chain over the 3 trained rounds
+    assert res.ledger.events == looped.ledger.events
     evs = res.ledger.round_events()
     assert {e.hop for e in evs[1]} == {"es_to_es"}
     assert res.ledger.round_bits("client_to_es").get(1, 0) == 0
-    assert len(calls) == 3  # one split per trained round
     visited = [int(e.sender.split(":")[1]) for e in res.ledger.events if e.hop == "es_to_es"]
     trained = [m for t, m in enumerate(visited) if t != 1]
     want = {i: 0 for i in range(task.num_clients)}
