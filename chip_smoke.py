@@ -78,6 +78,28 @@ Phases, each of which fails the script (non-zero exit, no result line):
         smoke LM and 3a's MLP task under the same knobs on the card against
         the CPU, each bounded by twice the CPU run's own gap from weights
         one bf16 ulp apart, beside controls the bounds must reject;
+     i. the whole-run executor (every driver call above runs scanned: one
+        captured CUDA graph, replayed per round): scanned runs against
+        looped runs bit for bit, the launch counter against the profiler's
+        count, a chunk of replays under the sync debug mode "error", and
+        `run_sweep` lanes against solo runs;
+     j. the host services at the scale of 3a, QSGD(16) uplinks: Fed-CHS and
+        the three baselines with `RunTelemetry()` against the same runs
+        without it (params, eval trace, ledger and launch counts equal),
+        the tele's invariants, scanned against looped tele, a chunk of
+        tapped replays under the sync debug mode "error", a Chrome trace
+        with a netsim replay, the span names in a `torch.profiler` trace,
+        and qwen3-0.6b at 3b's size tapped against untapped (3j-a); looped
+        Fed-CHS checkpointed after 2 of 4 rounds and resumed, bit-equal to
+        the uninterrupted scanned run, also under `Precision()`,
+        `MomentumSGD()` and client_microbatch 2 (3j-b); the async drivers
+        under benchmarks/fig_async.py's straggler and churn scenarios, each
+        arm's B1 and B2 counts at leaves x cohort computations, every
+        message at its closed-form bits, the sync anchor bit-equal to
+        `run_fed_chs(local_epochs=K)`, a kill after an activation's save
+        and the resume bit-equal, and time to accuracy 0.70 in simulated
+        seconds beside sync Fed-CHS replayed through the same networks
+        (3j-c);
   4. time each kernel at its path's shapes with CUDA events (L2 flushed
      before every launch, the card kept busy while the host enqueues it),
      beside its plain version, its bound and, for flash attention, torch's
@@ -97,6 +119,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1778,6 +1801,489 @@ def scanned_lm_path(torch, build):
               f"(3h looped, PR 17: 1.876 s, 28.68 GB)")
 
 
+# phase 3j: the host services.  Telemetry taps and spans (obs/), run
+# checkpoints (checkpoint/) and the event-driven async drivers (async_fl/),
+# at the Appendix-A scale of 3a with QSGD(16) uplinks, plus one tapped
+# qwen3-0.6b run.
+ASYNC_ACTIVATIONS, ASYNC_FOLDS, ANCHOR_ACTIVATIONS, ASYNC_KILL_AT = 20, 10, 4, 10
+ASYNC_GAMMA = 0.70  # benchmarks/fig_async.py's GAMMA
+# the steps of each async arm that are profiled for its kernel share
+ASYNC_PROFILED = {"Fed-CHS": 5, "FedAvg (FedBuff)": 2, "Hier (FedAsync)": 3}
+TELE_KEYS = ("update_norm", "drift", "comp_err", "mass")
+
+
+def async_scenarios():
+    """benchmarks/fig_async.py's two scenarios: network, availability trace,
+    quorum and deadline."""
+    from repro_torch.netsim.links import edge_cloud_network
+    from repro_torch.part import AlwaysOn, BernoulliTrace
+
+    return {
+        "straggler": dict(network=lambda: edge_cloud_network(
+            seed=0, heterogeneity=0.4, straggler_frac=0.3, straggler_slowdown=16.0),
+            trace=AlwaysOn, quorum_frac=0.7, deadline_s=None),
+        "churn": dict(network=lambda: edge_cloud_network(
+            seed=0, heterogeneity=0.3, straggler_frac=0.15, straggler_slowdown=8.0),
+            trace=lambda: BernoulliTrace(p=0.8, seed=7), quorum_frac=0.8, deadline_s=5.0),
+    }
+
+
+def tele_close(name, a, b, rtol=1e-6) -> None:
+    """Two runs' recorded tele: the same rounds, every value within `rtol`
+    (comp_err of a dense channel, a float residual, within 1e-7 absolute)."""
+    import numpy as np
+
+    check(a.rounds == b.rounds, f"{name}: tele rounds {a.rounds} != {b.rounds}")
+    for k, vs in b.metrics.items():
+        got, want = np.asarray(a.metrics[k]), np.asarray(vs)
+        check(np.allclose(got, want, rtol=rtol, atol=1e-7 if k.endswith("comp_err") else 0),
+              f"{name}: tele {k} {got} differs from {want}")
+
+
+def telemetry_path(torch, build, task, arms):
+    """Phase 3j-a at the scale of 3a: Fed-CHS QSGD(16) scanned with
+    `RunTelemetry()` and without (params, eval trace and ledger bit-equal,
+    B1 and B2 counts unchanged), the tele's invariants (mass = the cluster's
+    10 clients every round, comp_err > 0, all finite), the looped tapped
+    run's tele within 1e-6, a chunk of tapped replays under the sync debug
+    mode "error", a Chrome trace of the run and its netsim replay, span
+    names in a `torch.profiler` trace, and 3e's baselines tapped against
+    their untapped arms."""
+    from repro_torch.comm.channels import QSGDChannel
+    from repro_torch.core import engine
+    from repro_torch.core.baselines import run_fedavg, run_hier_local_qsgd, run_wrwgd
+    from repro_torch.core.fed_chs import FedCHSConfig, _fed_chs_scan_plan, run_fed_chs
+    from repro_torch.netsim import edge_cloud_network, replay_run
+    from repro_torch.obs import RunTelemetry, build_chrome_trace, validate_chrome_trace
+
+    import numpy as np
+
+    leaf_sizes = task.param_leaf_sizes()
+    L, J = len(leaf_sizes), MAIN_K // MAIN_E
+    cfg = FedCHSConfig(rounds=MAIN_ROUNDS, local_steps=MAIN_K, local_epochs=MAIN_E,
+                       eval_every=2, channel=QSGDChannel(16), seed=0)
+    obs = RunTelemetry()
+    # untapped, tapped, tapped, untapped: each version's s/round the mean of
+    # its two runs
+    plain = comparison_arm(torch, build, "untapped", lambda: run_fed_chs(task, cfg), MAIN_ROUNDS)
+    tapped = comparison_arm(torch, build, "tapped",
+                            lambda: run_fed_chs(task, dataclasses.replace(cfg, obs=obs)),
+                            MAIN_ROUNDS)
+    tapped2 = comparison_arm(
+        torch, build, "tapped",
+        lambda: run_fed_chs(task, dataclasses.replace(cfg, obs=RunTelemetry())), MAIN_ROUNDS)
+    plain2 = comparison_arm(torch, build, "untapped", lambda: run_fed_chs(task, cfg),
+                            MAIN_ROUNDS)
+    for a, b in ((tapped, plain), (tapped2, plain), (plain2, plain)):
+        same_run(torch, f"3j-a Fed-CHS {a['name']}", a["res"], b["res"])
+    want = MAIN_ROUNDS * J * L
+    check(tapped["launches"] == plain["launches"] and all(
+        plain["launches"][k] == want for k in PACKED_KERNELS),
+        f"3j-a: launches tapped {tapped['launches']}, untapped {plain['launches']}, "
+        f"expected {want} of each packed kernel")
+    check(obs.rounds == list(range(MAIN_ROUNDS)), f"3j-a: tele rounds {obs.rounds}")
+    check(all(m == 10.0 for m in obs.metrics["mass"]), f"3j-a: mass {obs.metrics['mass']}")
+    check(all(e > 0 for e in obs.metrics["comp_err"]), "3j-a: comp_err not > 0")
+    check(all(math.isfinite(v) for k in TELE_KEYS for v in obs.metrics[k]),
+          "3j-a: non-finite tele")
+    looped_obs = RunTelemetry()
+    run_fed_chs(task, dataclasses.replace(cfg, obs=looped_obs, scan_rounds=False))
+    tele_close("3j-a scanned vs looped", obs, looped_obs)
+    print(f"phase 3j-a: LeNet-MNIST Fed-CHS QSGD(16), {MAIN_ROUNDS} rounds scanned, run "
+          f"untapped, tapped, tapped, untapped: tapped {tapped['s_per_round']:.3f} and "
+          f"{tapped2['s_per_round']:.3f} s/round, peak {tapped['peak_gb']:.2f} GB; untapped "
+          f"{plain['s_per_round']:.3f} and {plain2['s_per_round']:.3f} s/round, peak "
+          f"{plain['peak_gb']:.2f} GB (evals included); tapped/untapped "
+          f"{(tapped['s_per_round'] + tapped2['s_per_round']) / (plain['s_per_round'] + plain2['s_per_round']):.3f}; "
+          f"params, eval trace and ledger bit-equal, B1 = B2 = {want} both; the "
+          f"looped tapped run's tele within 1e-6; spans (s): "
+          f"{ {k: round(v, 4) for k, v in obs.summary()['spans'].items()} }")
+    for row in obs.metrics_rows():
+        print(f"  tele {row}")
+
+    # a chunk of tapped replays under the sync debug mode "error", its tele
+    # recorded lazily (sync_chunks=False) inside the mode
+    chunk_obs = RunTelemetry()
+    plan, _, _ = _fed_chs_scan_plan(task, task.source,
+                                    dataclasses.replace(cfg, rounds=8, obs=chunk_obs))
+    rounds = engine._GraphRounds(plan.body, plan.carry, plan.consts, torch.device("cuda"),
+                                 tapped=True)
+    try:
+        rounds.run(plan.stage(np.arange(0, 4)))  # the warm-up round, the capture, 3 replays
+        chunk_obs.record_stacked(range(0, 4), rounds.tele)
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rounds.run(plan.stage(np.arange(4, 8)))  # stage, copy, 4 replays, 4 tele copies
+            chunk_obs.record_stacked(range(4, 8), rounds.tele)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    finally:
+        rounds.close()
+    norms = chunk_obs.metrics["update_norm"]
+    check(chunk_obs.rounds == list(range(8)) and len(set(norms)) == 8
+          and all(math.isfinite(v) for v in norms),
+          f"3j-a: the replayed rounds' tele {norms}: not one row per round")
+    print("phase 3j-a: a chunk of 4 tapped replays (sync_chunks=False) ran under "
+          "torch.cuda.set_sync_debug_mode('error'); each replay's tele in its own row "
+          f"(update_norm {[round(v, 5) for v in norms]})")
+
+    # the run's Chrome trace with a netsim replay
+    res = tapped["res"]
+    jobs, tl = replay_run(res, edge_cloud_network(seed=0), local_steps=MAIN_K,
+                          batch_size=task.batch_size, num_params=sum(leaf_sizes))
+    trace = build_chrome_trace(obs, res.ledger, jobs, tl)
+    problems = validate_chrome_trace(trace, expected_comm_events=len(res.ledger.events))
+    check(problems == [], f"3j-a: Chrome trace problems {problems[:5]}")
+    n_comm = sum(e.get("cat") == "comm" for e in trace["traceEvents"])
+    print(f"phase 3j-a: Chrome trace: {len(trace['traceEvents'])} events valid, {n_comm} comm "
+          f"instants = {len(res.ledger.events)} ledger events, {len(jobs)} netsim jobs, "
+          f"makespan {tl.makespan:.2f} s under edge_cloud_network(seed=0)")
+
+    # the span names inside a torch.profiler trace (profiler=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_obs = RunTelemetry(profiler=True)
+    short = dataclasses.replace(cfg, rounds=2, eval_every=1, obs=prof_obs)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_fed_chs(task, short)
+        run_fed_chs(task, dataclasses.replace(short, rounds=1, scan_rounds=False))
+        torch.cuda.synchronize()
+    seen = {e.name for e in prof.events()}
+    spans = {"precompute", "stage", "scan_chunk", "eval", "materialize", "round"}
+    check(spans <= seen, f"3j-a: span names missing from the profile: {spans - seen}")
+    print(f"phase 3j-a: torch.profiler holds the spans {sorted(spans)} (profiler=True)")
+
+    # the baselines, tapped, against 3e's untapped scanned arms
+    by_name = {arm["name"]: arm for arm in arms}
+    for name, run in (("Hier-Local-QSGD QSGD(16)", run_hier_local_qsgd), ("FedAvg", run_fedavg),
+                      ("WRWGD", run_wrwgd)):
+        arm = by_name[name]
+        b_obs = RunTelemetry()
+        c = dataclasses.replace(arm["config"], obs=b_obs)
+        b = comparison_arm(torch, build, name, lambda run=run, c=c: run(task, c), arm["rounds"])
+        same_run(torch, f"3j-a {name} tapped", b["res"], arm["res"])
+        check(b["launches"] == arm["launches"], f"3j-a {name}: launches differ")
+        check(all(np.all(np.isfinite(v)) for vs in b_obs.metrics.values() for v in vs),
+              f"3j-a {name}: non-finite tele")
+        last = b_obs.metrics_rows()[-1]
+        print(f"phase 3j-a: {name}: tapped {b['s_per_round']:.3f} s/round against 3e's "
+              f"{arm['s_per_round']:.3f}, peak {b['peak_gb']:.2f} GB against "
+              f"{arm['peak_gb']:.2f}; params, eval trace, ledger and launches equal; last "
+              f"round's tele { {k: np.round(v, 5).tolist() for k, v in last.items()} }")
+
+
+def telemetry_lm_path(torch, build):
+    """Phase 3j-a's LM arm: qwen3-0.6b at full width and depth as in 3b (f32,
+    flash, QSGD(16)), 2 rounds tapped against 2 untapped: params bit-equal,
+    launches equal, and both peaks."""
+    from repro_torch.comm.channels import QSGDChannel
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    from repro_torch.obs import RunTelemetry
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    task = lm_task(cfg, num_clients=LM_CLIENTS, batch_size=LM_BATCH, seq_len=LM_SEQ)
+    config = FedCHSConfig(rounds=2, local_steps=LM_K, local_epochs=LM_E, eval_every=1,
+                          channel=QSGDChannel(16), seed=0, schedule=lambda k: LM_LR)
+    obs = RunTelemetry()
+    plain = comparison_arm(torch, build, "untapped", lambda: run_fed_chs(task, config), 2)
+    tapped = comparison_arm(torch, build, "tapped",
+                            lambda: run_fed_chs(task, dataclasses.replace(config, obs=obs)), 2)
+    same_run(torch, "3j-a LM tapped", tapped["res"], plain["res"])
+    check(tapped["launches"] == plain["launches"], "3j-a LM: launches differ")
+    check(all(m == 2.0 for m in obs.metrics["mass"]) and all(
+        math.isfinite(v) for k in TELE_KEYS for v in obs.metrics[k]), "3j-a LM: tele")
+    print(f"phase 3j-a: {LM_ARCH} Fed-CHS QSGD(16), 2 rounds (f32, flash): tapped "
+          f"{tapped['s_per_round']:.3f} s/round, peak {tapped['peak_gb']:.2f} GB; untapped "
+          f"{plain['s_per_round']:.3f} s/round, peak {plain['peak_gb']:.2f} GB; params bit-equal, "
+          f"launches {plain['launches']} both; tele {obs.metrics_rows()}")
+
+
+def checkpoint_path(torch, build, task):
+    """Phase 3j-b: the looped Fed-CHS driver checkpointed after 2 of 4
+    rounds and resumed, against the uninterrupted scanned run (params bit
+    for bit, ledger and accuracy equal), at 3a's scale; then 3a's MLP task
+    under `Precision()`, `MomentumSGD()` and client_microbatch 2, whose run
+    state holds bf16 momentum beside f32 params.  The save and load seconds
+    and the file size of the LeNet run state."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.io import load_run_state, read_run_meta, save_run_state
+    from repro_torch.comm.channels import QSGDChannel
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    from repro_torch.core.precision import Precision
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.core.simulation import FLTask
+    from repro_torch.data.partition import assign_clusters, dirichlet_partition
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.models.classifier import make_classifier
+    from repro_torch.optim.local import MomentumSGD
+
+    ds = make_dataset("mnist", train_size=4000, test_size=1000, seed=0)
+    mlp_task = FLTask(make_classifier("mlp", "mnist", ds.spec.image_shape, 10), ds,
+                      dirichlet_partition(ds.train_y, 20, 0.6, seed=0),
+                      assign_clusters(20, 4, seed=0), batch_size=32, seed=0)
+    arms = (("LeNet QSGD(16)", task, FedCHSConfig(
+                rounds=4, local_steps=MAIN_K, local_epochs=MAIN_E, eval_every=1,
+                channel=QSGDChannel(16), seed=0)),
+            ("MLP QSGD(16), Precision(), MomentumSGD(), client_microbatch 2", mlp_task,
+             FedCHSConfig(rounds=4, local_steps=10, local_epochs=5, eval_every=1,
+                          channel=QSGDChannel(16), precision=Precision(),
+                          local_opt=MomentumSGD(), client_microbatch=2, seed=0)))
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, t, cfg) in enumerate(arms):
+            ck = f"{tmp}/run{i}"
+            base = run_fed_chs(t, cfg)  # scanned
+            run_fed_chs(t, dataclasses.replace(cfg, rounds=2, checkpoint=ck))
+            resumed = run_fed_chs(t, dataclasses.replace(cfg, checkpoint=ck, resume=True))
+            gap = params_gap(torch, resumed, base)
+            check(gap == 0.0, f"3j-b {name}: resumed params differ by up to {gap:.3g}")
+            check(resumed.test_acc == base.test_acc and resumed.rounds == base.rounds,
+                  f"3j-b {name}: eval trace {resumed.test_acc} != {base.test_acc}")
+            check(resumed.ledger.events == base.ledger.events
+                  and resumed.ledger.history == base.ledger.history,
+                  f"3j-b {name}: the resumed ledger differs")
+            with np.load(ck + ".arrays.npz") as data:
+                stored = {part: sorted({str(data[k].dtype) for k in data.files
+                                        if k.startswith(part + "/")})
+                          for part in ("params", "opt")}
+            size_mb = os.path.getsize(ck + ".arrays.npz") / 1e6
+            print(f"phase 3j-b: {name}: looped with a checkpoint after 2 of 4 rounds, then "
+                  f"resumed: params bit-equal to the uninterrupted scanned run, eval trace "
+                  f"{resumed.test_acc} and ledger equal; run state {size_mb:.2f} MB, stored "
+                  f"dtypes {stored}")
+            if cfg.precision is not None:
+                check(stored == {"params": ["float32"], "opt": ["uint16"]},
+                      f"3j-b {name}: expected bf16 momentum beside f32 params, got {stored}")
+                continue
+            # this run state's load (to the card) and save, timed alone
+            meta = read_run_meta(ck)
+            like = {"params": t.init_params(), "key": PRNGKey(0),
+                    "losses": torch.zeros(meta["losses_shape"], device="cuda"),
+                    "opt": {str(m): () for m in meta["opt_clusters"]}}
+            t0 = time.perf_counter()
+            arrays, meta = load_run_state(ck, like)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            save_run_state(f"{tmp}/again", arrays, meta)
+            save_s = time.perf_counter() - t0
+            print(f"  the LeNet run state ({size_mb:.2f} MB): save {save_s:.3f} s from the card, "
+                  f"load {load_s:.3f} s to the card")
+
+
+class _Killed(Exception):
+    """Raised from `on_checkpoint`: an in-process kill right after a save."""
+
+
+def kernel_time(torch, run):
+    """(result, kernel ms) of `run()` under a profiler that traces the card
+    only: no host-op events, so a run of many small operations costs little
+    more than unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = run()
+        torch.cuda.synchronize()
+    return result, sum(e.device_time_total for e in prof.key_averages()
+                       if e.device_time_total > 0 and str(e.device_type).endswith("CUDA")) / 1e3
+
+
+def async_checks(torch, name, res, L, up, down) -> int:
+    """One async arm's invariants; returns its cohort computations.
+
+    B1 and B2 launch once per leaf per cohort computation: a computation
+    trains its dispatched clients together and compresses their uplinks in
+    one call, which encodes and decodes each leaf for every sender at once.
+    The computations are read off the run's downlink events: Fed-CHS
+    broadcasts once per activation with a cohort (distinct rounds of
+    es_to_client), FedAvg once per version with a dispatch (distinct rounds
+    of ps_to_client), and each ES of Hier once per (PS version, ES) pair
+    (distinct (round, sender) of es_to_client)."""
+    from repro_torch.utils import tree_leaves
+
+    led = res.ledger
+    downs = [e for e in led.events if e.hop in ("es_to_client", "ps_to_client")]
+    key = (lambda e: (e.round, e.sender)) if name.startswith("Hier") else (lambda e: e.round)
+    cohorts = len({key(e) for e in downs})
+    bits = {"client_to_es": up, "client_to_ps": up, "es_to_ps": up,
+            "es_to_client": down, "ps_to_client": down, "es_to_es": down, "ps_to_es": down}
+    check(all(e.n_bits == bits[e.hop] for e in led.events),
+          f"3j-c {name}: an event off its closed-form bits")
+    check(all(led.bits[h] == led.messages[h] * bits[h] for h in led.messages),
+          f"3j-c {name}: ledger totals off the closed form")
+    hist = led.staleness_histogram()
+    check(sum(hist.values()) > 0, f"3j-c {name}: empty staleness histogram")
+    st = res.sim_times
+    check(len(st) == len(res.test_acc) and all(b >= a for a, b in zip(st, st[1:]))
+          and (not name.startswith("Fed-CHS") or all(b > a for a, b in zip(st, st[1:]))),
+          f"3j-c {name}: sim_times {st}")
+    check(all(math.isfinite(x) for x in res.test_acc + res.train_loss + st),
+          f"3j-c {name}: non-finite trace")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(res.final_params)),
+          f"3j-c {name}: non-finite params")
+    return cohorts
+
+
+def async_path(torch, build, task):
+    """Phase 3j-c at the scale of 3a, QSGD(16) uplinks: `run_async_fed_chs`
+    under benchmarks/fig_async.py's straggler and churn scenarios, and
+    `run_async_fedavg` / `run_async_hier` with quorum_k = N // 5; per arm
+    the launch counts, closed-form bits, staleness, simulated clock,
+    s/activation, peak and kernel share; the sync anchor; a kill at an
+    activation and the resume; time to Γ in simulated seconds."""
+    import tempfile
+
+    from repro_torch.async_fl import (
+        AsyncFedCHSConfig,
+        AsyncPSConfig,
+        run_async_fed_chs,
+        run_async_fedavg,
+        run_async_hier,
+    )
+    from repro_torch.comm.channels import DenseChannel, QSGDChannel, channel_wire_bits
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    from repro_torch.netsim import simulate_run, time_to_accuracy
+
+    K = MAIN_K
+    leaf_sizes = task.param_leaf_sizes()
+    L, d = len(leaf_sizes), sum(leaf_sizes)
+    up, down = channel_wire_bits(QSGDChannel(16), d, leaf_sizes), DenseChannel().message_bits(d)
+    packed = ("qsgd_quantize_pack", "qsgd_unpack_dequantize")
+    scenarios = async_scenarios()
+
+    def configs(spec):
+        chs = AsyncFedCHSConfig(
+            rounds=ASYNC_ACTIVATIONS, local_steps=K, eval_every=1, network=spec["network"](),
+            trace=spec["trace"](), quorum_frac=spec["quorum_frac"],
+            deadline_s=spec["deadline_s"], qsgd_levels=16, seed=0)
+        ps = AsyncPSConfig(rounds=ASYNC_FOLDS, local_steps=K, quorum_k=task.num_clients // 5,
+                           eval_every=1, network=spec["network"](), trace=spec["trace"](),
+                           qsgd_levels=16, seed=0)
+        return (("Fed-CHS", run_async_fed_chs, chs, ASYNC_ACTIVATIONS),
+                ("FedAvg (FedBuff)", run_async_fedavg, ps, ASYNC_FOLDS),
+                ("Hier (FedAsync)", run_async_hier, ps, ASYNC_FOLDS))
+
+    t_part = time.perf_counter()
+
+    def part(label):
+        nonlocal t_part
+        print(f"  [3j-c: {label} in {time.perf_counter() - t_part:.1f} s]")
+        t_part = time.perf_counter()
+
+    results = {}
+    for scen, spec in scenarios.items():
+        for name, run, cfg, steps in configs(spec):
+            arm = comparison_arm(torch, build, name, lambda run=run, cfg=cfg: run(task, cfg),
+                                 steps)
+            res = arm["res"]
+            cohorts = async_checks(torch, name, res, L, up, down)
+            for k, v in arm["launches"].items():
+                want = L * cohorts if k in packed else 0
+                check(v == want, f"3j-c {name}, {scen}: {k} launched {v} times, expected "
+                                 f"{want} = {L} leaves x {cohorts} cohort computations")
+            share = ""
+            if scen == "churn" or name == "Fed-CHS":
+                # the kernel share of the run's first ASYNC_PROFILED steps: the
+                # kernel time of a profiled run of them over the wall of an
+                # unprofiled one (CUPTI makes a whole profiled run slow)
+                head = dataclasses.replace(cfg, rounds=ASYNC_PROFILED[name])
+                _, head_ms = timed(torch, lambda run=run, head=head: run(task, head))
+                again, busy_ms = kernel_time(torch, lambda run=run, head=head: run(task, head))
+                check(again.sim_times == res.sim_times[:head.rounds],
+                      f"3j-c {name}: the first {head.rounds} steps differ from the run's")
+                share = (f", kernel share of the first {head.rounds}: {busy_ms:.0f} ms of "
+                         f"{head_ms:.0f} = {100 * busy_ms / head_ms:.1f}%")
+            results[scen, name] = arm
+            print(f"phase 3j-c: async {name}, {scen}: {steps} {'activations' if steps == ASYNC_ACTIVATIONS else 'folds'}, "
+                  f"{arm['s_per_round']:.3f} s each (evals included), peak "
+                  f"{arm['peak_gb']:.2f} GB{share}; B1 = B2 = {L * cohorts} = {L} leaves x "
+                  f"{cohorts} cohort computations; bits at the closed form "
+                  f"{ {h: n for h, n in res.ledger.messages.items() if n} } messages; "
+                  f"staleness {dict(sorted(res.ledger.staleness_histogram().items()))}; "
+                  f"sim {res.sim_times[0]:.2f} .. {res.sim_times[-1]:.2f} s; accuracy "
+                  f"{res.test_acc[-1]:.4f}")
+            part(f"{name}, {scen}")
+
+    # the sync anchor: AlwaysOn, quorum 1.0, no deadline = run_fed_chs(E = K)
+    anchor = AsyncFedCHSConfig(rounds=ANCHOR_ACTIVATIONS, local_steps=K, eval_every=1,
+                               quorum_frac=1.0, deadline_s=None, qsgd_levels=16, seed=0)
+    a = comparison_arm(torch, build, "anchor", lambda: run_async_fed_chs(task, anchor),
+                       ANCHOR_ACTIVATIONS)
+    s = comparison_arm(torch, build, "sync", lambda: run_fed_chs(task, FedCHSConfig(
+        rounds=ANCHOR_ACTIVATIONS, local_steps=K, local_epochs=K, eval_every=1,
+        qsgd_levels=16, seed=0)), ANCHOR_ACTIVATIONS)
+    gap = params_gap(torch, a["res"], s["res"])
+    check(gap == 0.0 and a["res"].test_acc == s["res"].test_acc,
+          f"3j-c: the sync anchor's params differ by up to {gap:.3g}")
+    check(a["launches"] == s["launches"], f"3j-c anchor: launches {a['launches']} async, "
+                                          f"{s['launches']} sync")
+    print(f"phase 3j-c: sync anchor, {ANCHOR_ACTIVATIONS} activations (AlwaysOn, quorum 1.0, "
+          f"no deadline) against run_fed_chs(local_epochs=K): params bit-equal, accuracy "
+          f"{a['res'].test_acc} equal, launches equal; {a['s_per_round']:.3f} s/activation "
+          f"async, {s['s_per_round']:.3f} s/round sync")
+    part("the sync anchor")
+
+    # an in-process kill right after the save of activation ASYNC_KILL_AT
+    name, run, cfg, _ = configs(scenarios["churn"])[0]
+    full = results["churn", name]["res"]
+
+    def kill(act):
+        if act == ASYNC_KILL_AT:
+            raise _Killed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = f"{tmp}/async"
+        t0 = time.perf_counter()
+        try:
+            run_async_fed_chs(task, dataclasses.replace(
+                cfg, checkpoint=ck, checkpoint_every=ASYNC_KILL_AT, on_checkpoint=kill))
+            fail("3j-c: the kill switch did not fire")
+        except _Killed:
+            pass
+        killed_s = time.perf_counter() - t0
+        with open(ck + ".meta.json") as f:
+            pending = len(json.load(f)["pending"])
+        size_mb = os.path.getsize(ck + ".arrays.npz") / 1e6
+        t0 = time.perf_counter()
+        resumed = run_async_fed_chs(task, dataclasses.replace(
+            cfg, checkpoint=ck, checkpoint_every=ASYNC_KILL_AT, resume=True))
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+    gap = params_gap(torch, resumed, full)
+    check(gap == 0.0 and resumed.sim_times == full.sim_times
+          and resumed.test_acc == full.test_acc and resumed.ledger.bits == full.ledger.bits
+          and resumed.ledger.staleness_histogram() == full.ledger.staleness_histogram(),
+          f"3j-c: the resumed churn run differs (params up to {gap:.3g})")
+    print(f"phase 3j-c: async Fed-CHS, churn, killed after the save of activation "
+          f"{ASYNC_KILL_AT} ({killed_s:.1f} s; the run state {size_mb:.1f} MB, {pending} "
+          f"buffered updates) and resumed ({resumed_s:.1f} s): params bit-equal to the "
+          f"uninterrupted run; sim_times, bits and staleness histogram equal")
+    part("the kill and the resume")
+
+    # time to Γ in simulated seconds; sync Fed-CHS (E = K) replayed through
+    # each scenario's network
+    sync = run_fed_chs(task, FedCHSConfig(rounds=ASYNC_ACTIVATIONS, local_steps=K,
+                                          local_epochs=K, eval_every=1, qsgd_levels=16,
+                                          seed=0))
+    names = ["Fed-CHS", "FedAvg (FedBuff)", "Hier (FedAsync)"]
+    fmt = lambda t: "-" if t is None else f"{t:.2f}"  # noqa: E731
+    print(f"phase 3j-c: simulated seconds to accuracy {ASYNC_GAMMA} ('-': not reached; sync "
+          f"Fed-CHS, E = K, {ASYNC_ACTIVATIONS} rounds, accuracy {sync.test_acc[-1]:.4f}):")
+    print(f"  {'scenario':10s} {'sync Fed-CHS':>13s} " + " ".join(f"{'async ' + n:>23s}"
+                                                               for n in names))
+    for scen, spec in scenarios.items():
+        tl = simulate_run(task, sync, spec["network"](), local_steps=K)
+        row = [time_to_accuracy(sync, tl, ASYNC_GAMMA)] + [
+            results[scen, n]["res"].sim_time_to_accuracy(ASYNC_GAMMA) for n in names]
+        print(f"  {scen:10s} {fmt(row[0]):>13s} " + " ".join(f"{fmt(t):>23s}" for t in row[1:]))
+    part("the sync run and its replays")
+
+
 def time_launches(torch, fn, reps, flush):
     """Median of per-launch CUDA-event times (ms), L2 flushed before each.
     A spin of about a millisecond on the card comes first, so the host has
@@ -2026,6 +2532,10 @@ def main() -> None:
     microbatched_appendix_arms(torch, build, lenet_task, arms)
     scanned_appendix_path(torch, build, lenet_task, arms)
     elapsed("3h's 100-client arms, 3i-a, 3i-c, 3i-d")
+    telemetry_path(torch, build, lenet_task, arms)
+    checkpoint_path(torch, build, lenet_task)
+    async_path(torch, build, lenet_task)
+    elapsed("3j-a's LeNet arms, 3j-b, 3j-c")
     del lenet_task, chs_arm, arms
     torch.cuda.empty_cache()
     lean_lm_path(torch, build, lm_peak_gb, round_s)
@@ -2034,6 +2544,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     scanned_lm_path(torch, build)
     elapsed("3i-b")
+    torch.cuda.empty_cache()
+    telemetry_lm_path(torch, build)
+    elapsed("3j-a's LM arm")
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2

@@ -18,6 +18,9 @@ reporters.  A round with no reporter is skipped outright.
 executor (`_fedavg_scan_plan`, `engine.run_scan`: a captured CUDA graph
 per round on the card); `scan_rounds=False` the looped driver.  Both give
 the same params bit for bit and the same ledger.
+
+`obs` (`repro_torch.obs.RunTelemetry`) traces the run's phases and, with
+its taps on, records each trained round's tele, in both executors.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.core.precision import Precision, downlink_bits_per_param, resol
 from repro_torch.core.prng import PRNGKey, split_chain
 from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
 from repro_torch.data.sources import scatter_put, stage_chunk
+from repro_torch.obs.trace import maybe_span
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
 from repro_torch.part import (
     is_full_participation,
@@ -44,7 +48,7 @@ from repro_torch.part import (
 from repro_torch.utils import tree_leaves
 
 # reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("obs", "mesh")
+_NOT_PORTED = ("mesh",)
 
 
 @dataclasses.dataclass
@@ -67,9 +71,8 @@ class FedAvgConfig:
                                           # train at once (None: all)
     precision: Precision | None = None    # mixed-precision policy
                                           # (core/precision.py)
-    # not ported (see _NOT_PORTED): must stay unset
-    obs: Any = None
-    mesh: Any = None
+    obs: Any = None                       # repro_torch.obs.RunTelemetry
+    mesh: Any = None                      # not ported (see _NOT_PORTED)
 
     def __post_init__(self):
         unset = [f for f in _NOT_PORTED if getattr(self, f) is not None]
@@ -103,7 +106,9 @@ def run_fedavg(task: FLTask, config: FedAvgConfig) -> RunResult:
         downlink_bits_per_param(config.precision, config.bits_per_param)).message_bits(d)
     up_bits = channel_wire_bits(channel, d, leaf_sizes)
 
-    recorder = RunRecorder(task, config.rounds, config.eval_every)
+    obs = config.obs
+    taps = obs is not None and obs.taps
+    recorder = RunRecorder(task, config.rounds, config.eval_every, obs=obs)
     n = task.num_clients
     full_part = is_full_participation(config.sampler)
     all_clients = list(range(n))
@@ -128,8 +133,12 @@ def run_fedavg(task: FLTask, config: FedAvgConfig) -> RunResult:
                 w = task.global_weights() * pmask
                 gammas_t = torch.from_numpy((w / w.sum()).astype(np.float32)).to(task.device)
                 pmask = torch.from_numpy(pmask).to(task.device)
-            params, opt_state, losses = engine.cluster_round(
-                params, batch, gammas_t, lrs_t, subs, opt_state, mask=pmask)
+            with maybe_span(obs, "round"):
+                out = engine.cluster_round(params, batch, gammas_t, lrs_t, subs, opt_state,
+                                           mask=pmask, taps=taps)
+                params, opt_state, losses = out[:3]
+            if taps:
+                obs.record_round(t, out[3])
 
             if ledger.track_events:
                 for i in participating:
@@ -210,13 +219,14 @@ def _fedavg_scan_plan(task: FLTask, source, config: FedAvgConfig):
             xs["keys"] = uplink_keys(subs_r[idxs], width, len(leaf_sizes))
         return xs
 
+    taps = config.obs is not None and config.obs.taps
     plan = ScanPlan(
         body=scan_delta_body(engine.model, channel, engine.local_opt,
-                             config.client_microbatch, config.precision),
+                             config.client_microbatch, config.precision, taps),
         carry=(params, engine.init_opt_state(params, n)),
         consts={"lrs": engine.step_sizes(lrs, task.device)},
         stage=stage, trained=trained, rounds=R, eval_every=config.eval_every,
-        chunk_rounds=config.chunk_rounds,
+        chunk_rounds=config.chunk_rounds, obs=config.obs,
     )
 
     down_bits = DenseChannel(
@@ -241,9 +251,12 @@ def _fedavg_scan_plan(task: FLTask, source, config: FedAvgConfig):
 
 
 def _run_fedavg_scanned(task: FLTask, config: FedAvgConfig) -> RunResult:
-    plan, params_of, traffic = _fedavg_scan_plan(task, task.source, config)
-    recorder = RunRecorder(task, config.rounds, config.eval_every)
+    obs = config.obs
+    with maybe_span(obs, "precompute"):
+        plan, params_of, traffic = _fedavg_scan_plan(task, task.source, config)
+    recorder = RunRecorder(task, config.rounds, config.eval_every, obs=obs)
     carry = run_scan(plan, lambda t, c, losses, _lt: recorder.record(t, params_of(c), losses))
     ledger = CommLedger(track_events=config.track_events)
-    ledger.materialize(traffic(config.track_events))
+    with maybe_span(obs, "materialize"):
+        ledger.materialize(traffic(config.track_events))
     return recorder.result("fedavg", ledger, params_of(carry))

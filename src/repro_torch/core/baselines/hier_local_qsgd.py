@@ -24,6 +24,10 @@ reference) runs the whole-run executor (`_hier_scan_plan`: per-round
 gammas, masks, ES weights and both hops' keys precomputed, a captured CUDA
 graph per round on the card); `scan_rounds=False` the looped driver.  Both
 give the same params bit for bit and the same ledger.
+
+`obs` (`repro_torch.obs.RunTelemetry`) traces the run's phases and, with
+its taps on, records each trained round's per-cluster (M,) tele, in both
+executors.
 """
 from __future__ import annotations
 
@@ -46,12 +50,13 @@ from repro_torch.core.precision import Precision, downlink_bits_per_param, resol
 from repro_torch.core.prng import PRNGKey, split_chain, split_each
 from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
 from repro_torch.data.sources import scatter_put, stage_chunk
+from repro_torch.obs.trace import maybe_span
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
 from repro_torch.part import is_full_participation, participation_mask
 from repro_torch.utils import tree_leaves
 
 # reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("obs", "mesh")
+_NOT_PORTED = ("mesh",)
 
 
 @dataclasses.dataclass
@@ -76,9 +81,8 @@ class HierLocalQSGDConfig:
                                           # train at once (None: all)
     precision: Precision | None = None    # mixed-precision policy
                                           # (core/precision.py)
-    # not ported (see _NOT_PORTED): must stay unset
-    obs: Any = None
-    mesh: Any = None
+    obs: Any = None                       # repro_torch.obs.RunTelemetry
+    mesh: Any = None                      # not ported (see _NOT_PORTED)
 
     def __post_init__(self):
         unset = [f for f in _NOT_PORTED if getattr(self, f) is not None]
@@ -141,7 +145,9 @@ def run_hier_local_qsgd(task: FLTask, config: HierLocalQSGDConfig) -> RunResult:
     full_part = is_full_participation(config.sampler)
     opt_state = engine.init_opt_state(params, M, n_max)  # client-held, cross-round
 
-    recorder = RunRecorder(task, config.rounds, config.eval_every)
+    obs = config.obs
+    taps = obs is not None and obs.taps
+    recorder = RunRecorder(task, config.rounds, config.eval_every, obs=obs)
     losses = torch.full((1, 1), float("nan"))  # stays nan until a first trained round
     for t in range(config.rounds):
         if full_part:
@@ -172,9 +178,13 @@ def run_hier_local_qsgd(task: FLTask, config: HierLocalQSGDConfig) -> RunResult:
             subs = flat.reshape(interactions, M, 2)
         if es_channel.stochastic:
             key, es_subs = split_chain(key, M)
-        params, opt_state, losses = engine.multi_cluster_round(
-            params, batch, gammas_t, mask_t, es_weights_t, lrs_t, subs, es_subs,
-            opt_state)
+        with maybe_span(obs, "round"):
+            out = engine.multi_cluster_round(
+                params, batch, gammas_t, mask_t, es_weights_t, lrs_t, subs, es_subs,
+                opt_state, taps=taps)
+            params, opt_state, losses = out[:3]
+        if taps:
+            obs.record_round(t, out[3])
         if not full_part:
             # the loss over the clusters that trained (a dark one reads 0)
             losses = losses[:, torch.from_numpy(sizes > 0).to(losses.device)]
@@ -312,11 +322,12 @@ def _hier_scan_plan(task: FLTask, source, config: HierLocalQSGDConfig):
 
     plan = ScanPlan(
         body=scan_multi_body(engine.model, channel, es_channel, engine.local_opt,
-                             config.client_microbatch, config.precision),
+                             config.client_microbatch, config.precision,
+                             config.obs is not None and config.obs.taps),
         carry=(params, engine.init_opt_state(params, M, n_max)),
         consts={"lrs": engine.step_sizes(lrs.reshape(interactions, E), task.device)},
         stage=stage, trained=trained, rounds=R, eval_every=config.eval_every,
-        chunk_rounds=config.chunk_rounds,
+        chunk_rounds=config.chunk_rounds, obs=config.obs,
     )
 
     down_bits = DenseChannel(
@@ -362,8 +373,10 @@ def _hier_scan_plan(task: FLTask, source, config: HierLocalQSGDConfig):
 
 
 def _run_hier_scanned(task: FLTask, config: HierLocalQSGDConfig) -> RunResult:
-    plan, params_of, traffic, sel_of = _hier_scan_plan(task, task.source, config)
-    recorder = RunRecorder(task, config.rounds, config.eval_every)
+    obs = config.obs
+    with maybe_span(obs, "precompute"):
+        plan, params_of, traffic, sel_of = _hier_scan_plan(task, task.source, config)
+    recorder = RunRecorder(task, config.rounds, config.eval_every, obs=obs)
 
     def record(t, carry, losses, last_t):
         if losses is not None:
@@ -376,5 +389,6 @@ def _run_hier_scanned(task: FLTask, config: HierLocalQSGDConfig) -> RunResult:
 
     carry = run_scan(plan, record)
     ledger = CommLedger(track_events=config.track_events)
-    ledger.materialize(traffic(config.track_events))
+    with maybe_span(obs, "materialize"):
+        ledger.materialize(traffic(config.track_events))
     return recorder.result("hier_local_qsgd", ledger, params_of(carry))

@@ -18,6 +18,9 @@ executor (`_wrwgd_scan_plan`: the walk replayed on the host, each visit's
 step sizes staged with its batches, a captured CUDA graph per round on the
 card); `scan_rounds=False` the looped driver.  Both give the same params
 bit for bit and the same ledger.
+
+`obs` (`repro_torch.obs.RunTelemetry`) traces the run's phases and, with
+its taps on, records each trained round's tele, in both executors.
 """
 from __future__ import annotations
 
@@ -33,12 +36,13 @@ from repro_torch.core.ledger import CommLedger
 from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
 from repro_torch.core.topology import make_topology
 from repro_torch.data.sources import scatter_put, stage_chunk
+from repro_torch.obs.trace import maybe_span
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
 from repro_torch.part import is_full_participation
 from repro_torch.utils import tree_leaves, tree_map
 
 # reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("obs", "mesh")
+_NOT_PORTED = ("mesh",)
 
 
 @dataclasses.dataclass
@@ -61,9 +65,8 @@ class WRWGDConfig:
     client_microbatch: int | None = None  # passed to the round engine; a walk
                                           # visits one client per round, so any
                                           # value trains that one client
-    # not ported (see _NOT_PORTED): must stay unset
-    obs: Any = None
-    mesh: Any = None
+    obs: Any = None                       # repro_torch.obs.RunTelemetry
+    mesh: Any = None                      # not ported (see _NOT_PORTED)
 
     def __post_init__(self):
         unset = [f for f in _NOT_PORTED if getattr(self, f) is not None]
@@ -124,14 +127,20 @@ def run_wrwgd(task: FLTask, config: WRWGDConfig) -> RunResult:
     gamma_one = torch.ones((1,), dtype=torch.float32, device=task.device)
 
     visits, trains_r, hops = _precompute_walk(task, config)
-    recorder = RunRecorder(task, config.rounds, config.eval_every)
+    obs = config.obs
+    taps = obs is not None and obs.taps
+    recorder = RunRecorder(task, config.rounds, config.eval_every, obs=obs)
     losses = torch.full((1,), float("nan"))  # stays nan until a first trained round
     for t in range(config.rounds):
         if trains_r[t]:
             # (K, 1, B, ...): a walk step is a 1-client cluster running Eq. (5)
             batch = tree_map(lambda a: a[:, None],
                              task.sample_client_batches(int(visits[t]), config.local_steps))
-            params, losses = engine.grad_round(params, batch, gamma_one, lrs_r[t])
+            with maybe_span(obs, "round"):
+                out = engine.grad_round(params, batch, gamma_one, lrs_r[t], taps=taps)
+                params, losses = out[:2]
+            if taps:
+                obs.record_round(t, out[2])
         # else: the visited client is down, a pass-through: the model is
         # forwarded untouched and the round draws no data
         prev, nxt = hops[t]
@@ -177,9 +186,10 @@ def _wrwgd_scan_plan(task: FLTask, source, config: WRWGDConfig):
         return {"batch": batch, "gammas": ones[idxs], "lrs": lrs_r[idxs]}
 
     plan = ScanPlan(
-        body=scan_grad_body(engine.model, config.client_microbatch),
+        body=scan_grad_body(engine.model, config.client_microbatch,
+                            config.obs is not None and config.obs.taps),
         carry=params, consts={}, stage=stage, trained=trains, rounds=config.rounds,
-        eval_every=config.eval_every, chunk_rounds=config.chunk_rounds,
+        eval_every=config.eval_every, chunk_rounds=config.chunk_rounds, obs=config.obs,
     )
     hop_bits = channel_wire_bits(channel, sum(leaf_sizes), leaf_sizes)
 
@@ -192,9 +202,12 @@ def _wrwgd_scan_plan(task: FLTask, source, config: WRWGDConfig):
 
 
 def _run_wrwgd_scanned(task: FLTask, config: WRWGDConfig) -> RunResult:
-    plan, params_of, traffic = _wrwgd_scan_plan(task, task.source, config)
-    recorder = RunRecorder(task, config.rounds, config.eval_every)
+    obs = config.obs
+    with maybe_span(obs, "precompute"):
+        plan, params_of, traffic = _wrwgd_scan_plan(task, task.source, config)
+    recorder = RunRecorder(task, config.rounds, config.eval_every, obs=obs)
     carry = run_scan(plan, lambda t, c, losses, _lt: recorder.record(t, params_of(c), losses))
     ledger = CommLedger(track_events=config.track_events)
-    ledger.materialize(traffic(config.track_events))
+    with maybe_span(obs, "materialize"):
+        ledger.materialize(traffic(config.track_events))
     return recorder.result("wrwgd", ledger, params_of(carry))

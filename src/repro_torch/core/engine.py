@@ -56,7 +56,17 @@ chunk of rounds at a time, and a scan body advances the carry one round.
 On the CPU a chunk runs its rounds eagerly; on the card the first trained
 round runs eagerly on a side stream, one round of the body is captured in a
 `torch.cuda.CUDAGraph`, and every later round is a replay (see
-`_GraphRounds`).  Telemetry taps (`obs/`) are not ported.
+`_GraphRounds`).
+
+Telemetry (`repro_torch.obs`): `taps=True` on a round returns its tele dict
+as one more output, a snapshot of the round's last interaction, as in the
+reference; the scan bodies take `taps` too, and a plan's `obs` makes the
+executor stack each chunk's tele and hand it to `obs.record_stacked`.
+Taps read the round's tensors and write none, so a tapped round's params
+equal the untapped round's bit for bit.  `taps=False` is the untapped
+computation, unchanged.  Taps under `client_microbatch` raise, as the
+reference's assert does: the tapped interaction reads every client's raw
+delta at once.
 """
 from __future__ import annotations
 
@@ -76,6 +86,8 @@ from repro_torch.core.prng import message_leaf_keys, split_each
 from repro_torch.kernels.build import LAUNCHES
 from repro_torch.kernels.ops import key_words
 from repro_torch.models.fed import as_fed_model
+from repro_torch.obs.taps import delta_taps, grad_taps, stack_taps, tree_client_norms
+from repro_torch.obs.trace import maybe_span
 from repro_torch.optim.local import AdamWOpt, PlainSGD
 from repro_torch.utils import tree_add, tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -226,19 +238,28 @@ class RoundEngine:
             return None
         return key_words(uplink_keys(subs, width, n_leaves), device)
 
-    def grad_round(self, params, batch, gammas, lrs):
-        """batch leaves (K, n, B, ...), gammas (n,), lrs (K,).
-        Returns (params, per-step gamma-weighted losses (K,))."""
-        device = tree_leaves(batch)[0].device
-        return grad_phase(self.model, self.client_microbatch)(
-            params, batch, _as_device(gammas, device), _as_device(lrs, device))
+    def _no_microbatch_taps(self) -> None:
+        if self.client_microbatch is not None:
+            raise ValueError("telemetry taps are unsupported with client_microbatch")
 
-    def _train_group(self, local, base, state, batch, lrs, mask, keys):
+    def grad_round(self, params, batch, gammas, lrs, *, taps=False):
+        """batch leaves (K, n, B, ...), gammas (n,), lrs (K,).
+        Returns (params, per-step gamma-weighted losses (K,)); with `taps`
+        also the grad-mode tele dict."""
+        device = tree_leaves(batch)[0].device
+        gammas = _as_device(gammas, device)
+        new_params, losses = grad_phase(self.model, self.client_microbatch)(
+            params, batch, gammas, _as_device(lrs, device))
+        if taps:
+            return new_params, losses, grad_taps(params, new_params, gammas)
+        return new_params, losses
+
+    def _train_group(self, local, base, state, batch, lrs, mask, keys, keep_raw=False):
         """One group of senders: E local steps from `base` (compute dtype,
         leading sender axis), raw deltas zeroed where `mask` is 0 (None: no
         mask), compressed under the senders' per-leaf `keys` and cast up to
         master.  Masked slots keep their optimizer state.  Returns (deltas,
-        state, losses (senders,))."""
+        state, losses (senders,), the raw deltas if `keep_raw` else None)."""
         new_p, new_state, losses = local(base, state, batch, lrs)
         if mask is None:
             raw = tree_map(torch.sub, new_p, base)
@@ -248,10 +269,10 @@ class RoundEngine:
                 lambda a, b: (a - b) * mask.to(a.dtype).reshape((-1,) + (1,) * (a.ndim - 1)),
                 new_p, base)
         deltas = compress_uplinks(self.channel, raw, keys)
-        return master_cast(deltas, self.precision), new_state, losses
+        return master_cast(deltas, self.precision), new_state, losses, raw if keep_raw else None
 
     def cluster_round(self, params, batch, gammas, lrs, subs=None, opt_state=None,
-                      mask=None):
+                      mask=None, *, taps=False):
         """One delta-mode round.  batch leaves (J, n, E, B, ...), gammas (n,),
         lrs (J, E); subs, for a stochastic channel, the (J, 2) key words of
         the interactions or their senders' per-leaf keys as an int32 device
@@ -262,7 +283,10 @@ class RoundEngine:
         leave the loss average; `gammas` must already be renormalized over
         the participants.  With `mask=None` the round is the unmasked
         computation.  Returns (params, opt_state, per-interaction mean
-        losses (J,))."""
+        losses (J,)); with `taps` also the tele dict of the last
+        interaction."""
+        if taps:
+            self._no_microbatch_taps()
         first = tree_leaves(batch)[0]
         J, n = first.shape[:2]
         device = first.device
@@ -276,23 +300,26 @@ class RoundEngine:
         local = local_opt_steps(self.model, self.local_opt)
         losses = []
         for j in range(J):
-            params, opt_state, client_losses = self._cluster_step(
+            params, opt_state, client_losses, tele = self._cluster_step(
                 local, params, opt_state, tree_map(lambda a: a[j], batch), gammas, mask,
-                lrs[j], None if keys is None else keys[j])
+                lrs[j], None if keys is None else keys[j], tap=taps and j == J - 1)
             if mask is None:
                 losses.append(client_losses.mean())
             else:
                 losses.append((client_losses * mask).sum() / torch.clamp(mask.sum(), min=1.0))
+        if taps:
+            return params, opt_state, torch.stack(losses), tele
         return params, opt_state, torch.stack(losses)
 
-    def _cluster_step(self, local, params, state, batch, gammas, mask, lrs, keys):
+    def _cluster_step(self, local, params, state, batch, gammas, mask, lrs, keys, tap=False):
         """One interaction of one cluster: params and batch cast to the
         compute dtype, then the clients in groups of `client_microbatch`
         (all n in one group without it), each group's gamma-weighted deltas
         summed into the update, which is added to the master-dtype params.
         The tail group is padded with slot-0 replicas that carry zero gamma
         and a zero mask.  `keys` (key_width(n), leaves, 2): slot i's keys.
-        Returns (params, state, per-client losses (n,))."""
+        Returns (params, state, per-client losses (n,), the interaction's
+        tele dict if `tap` (one group only) else None)."""
         n = gammas.shape[0]
         mb = self.client_microbatch or n
         pad = (-n) % mb
@@ -306,18 +333,23 @@ class RoundEngine:
         acc, states, losses = None, [], []
         for g in range(0, n + pad, mb):
             group = lambda a, g=g: a[g:g + mb]  # noqa: E731
-            deltas, s_g, l_g = self._train_group(
+            deltas, s_g, l_g, raw = self._train_group(
                 local, base, tree_map(group, state), tree_map(group, batch), lrs,
-                None if mask is None else group(mask), None if keys is None else group(keys))
+                None if mask is None else group(mask), None if keys is None else group(keys),
+                keep_raw=tap)
             agg = tree_map(lambda d: torch.tensordot(group(gammas).to(d.dtype), d, dims=1), deltas)
             acc = agg if acc is None else tree_add(acc, agg)
             states.append(s_g)
             losses.append(l_g)
         state = tree_map(lambda *parts: _cat(parts, 0)[:n], *states)
-        return tree_add(params, acc), state, _cat(losses, 0)[:n]
+        new_params = tree_add(params, acc)
+        tele = None
+        if tap:
+            tele = delta_taps(raw, tree_map(torch.sub, new_params, params), gammas, mask)
+        return new_params, state, _cat(losses, 0)[:n], tele
 
     def multi_cluster_round(self, params, batch, gammas, mask, es_weights, lrs,
-                            subs=None, es_subs=None, opt_state=None):
+                            subs=None, es_subs=None, opt_state=None, *, taps=False):
         """One 3-tier HFL global round for all M clusters.
 
         batch leaves (J, M, n_max, E, B, ...); gammas, mask (M, n_max) and
@@ -329,7 +361,10 @@ class RoundEngine:
         `es_subs[m]` itself.  With `client_microbatch = mb` the interaction
         trains slots [g*mb, (g+1)*mb) of every cluster at once, M * mb
         senders per group.  Returns (params, opt_state, per-(interaction,
-        cluster) losses (J, M))."""
+        cluster) losses (J, M)); with `taps` also the per-cluster (M,) tele
+        dict of the last interaction, plus "es_comp_err" of the ES->PS hop."""
+        if taps:
+            self._no_microbatch_taps()
         first = tree_leaves(batch)[0]
         J, M, n_max = first.shape[:3]
         device = first.device
@@ -348,8 +383,9 @@ class RoundEngine:
         lrs = self.step_sizes(lrs, device)
         local = local_opt_steps(self.model, self.local_opt)
         cparams = tree_map(lambda a: a.expand((M,) + a.shape), params)
-        losses = []
+        losses, tele = [], None
         for j in range(J):
+            tap = taps and j == J - 1
             cp_c = compute_cast(cparams, self.precision)
             b_j = compute_cast(tree_map(lambda a: a[j], batch), self.precision)
             base = tree_map(
@@ -359,17 +395,28 @@ class RoundEngine:
             for g in range(0, width, mb):
                 cols = lambda a, g=g: a[:, g:g + mb]  # noqa: E731
                 grid = lambda a: a.reshape((M * mb,) + a.shape[2:])  # noqa: E731
-                deltas, s_g, l_g = self._train_group(
+                deltas, s_g, l_g, raw = self._train_group(
                     local, base, tree_map(lambda a: grid(cols(a)), state),
                     tree_map(lambda a: grid(cols(a)), b_j), lrs[j], grid(cols(mask_p)),
-                    None if keys is None else grid(cols(keys[j])))
+                    None if keys is None else grid(cols(keys[j])), keep_raw=tap)
                 gam = cols(gammas_p)
                 agg = tree_map(lambda d: torch.einsum(
                     "mn,mn...->m...", gam.to(d.dtype), d.reshape((M, mb) + d.shape[1:])), deltas)
                 acc = agg if acc is None else tree_add(acc, agg)
                 states.append(tree_map(lambda a: a.reshape((M, mb) + a.shape[1:]), s_g))
                 client_losses.append(l_g.reshape(M, mb))
-            cparams = tree_add(cparams, acc)
+            if tap:  # one group: raw leaves (M * n_max, ...)
+                new_cp = tree_add(cparams, acc)
+                raw = tree_map(lambda a: a.reshape((M, n_max) + a.shape[1:]), raw)
+                applied = tree_map(torch.sub, new_cp, cparams)
+                tele = stack_taps([
+                    delta_taps(tree_map(lambda a, m=m: a[m], raw),
+                               tree_map(lambda a, m=m: a[m], applied), gammas[m], mask[m])
+                    for m in range(M)])
+                del raw, applied
+                cparams = new_cp
+            else:
+                cparams = tree_add(cparams, acc)
             state = tree_map(lambda *parts: _cat(parts, 1), *states)
             client_losses = _cat(client_losses, 1)[:, :n_max]
             losses.append((client_losses * mask).sum(dim=1)
@@ -387,6 +434,9 @@ class RoundEngine:
         agg = tree_map(lambda d: torch.tensordot(es_weights, d, dims=1), es_deltas)
         params = tree_add(params, agg)
         state = tree_map(lambda a: a[:, :n_max], state)
+        if taps:
+            tele["es_comp_err"] = tree_client_norms(tree_map(torch.sub, es_deltas, raw_es))
+            return params, state, torch.stack(losses), tele
         return params, state, torch.stack(losses)
 
     def end_round(self, ledger: CommLedger, round_idx: int) -> None:
@@ -419,85 +469,95 @@ class RoundEngine:
 
 
 @functools.cache
-def scan_grad_body(model, microbatch: int | None = None):
+def scan_grad_body(model, microbatch: int | None = None, taps: bool = False):
     """Whole-run body, Eq. (5) grad mode.  carry: params.  x: {"batch":
     (K, n_max, B, ...), "gammas": (n_max,), "lrs": (K,)} (padded client
     slots carry zero gamma; the step sizes are staged per round so a
     decaying schedule can follow the global round, e.g. WRWGD's walk).
-    Returns the per-step gamma-weighted losses (K,)."""
+    Returns the per-step gamma-weighted losses (K,); with `taps` the
+    outputs are (losses, tele)."""
     engine = RoundEngine(model, client_microbatch=microbatch)
 
     def body(params, x, consts):
         del consts
-        return engine.grad_round(params, x["batch"], x["gammas"], x["lrs"])
+        params, *ys = engine.grad_round(params, x["batch"], x["gammas"], x["lrs"], taps=taps)
+        return params, tuple(ys) if taps else ys[0]
 
     return body
 
 
 @functools.cache
 def scan_delta_body(model, channel: Channel, opt, microbatch: int | None = None,
-                    precision: Precision | None = None):
+                    precision: Precision | None = None, taps: bool = False):
     """Whole-run body, delta mode over one fixed client set (FedAvg).
     carry: (params, opt_state (n, ...)).  x: {"batch": (J, n, E, B, ...),
     "gammas"/"mask": (n,), "keys": (J, key_width(n), leaves, 2) int32 (a
     stochastic channel)}.  consts: {"lrs": (J, E)}.  Returns per-interaction
-    masked mean losses (J,)."""
+    masked mean losses (J,); with `taps` the outputs are (losses, tele)."""
     engine = RoundEngine(model, channel, local_opt=opt, client_microbatch=microbatch,
                          precision=precision)
+    if taps:
+        engine._no_microbatch_taps()
 
     def body(carry, x, consts):
         params, opt_state = carry
-        params, opt_state, losses = engine.cluster_round(
+        params, opt_state, *ys = engine.cluster_round(
             params, x["batch"], x["gammas"], consts["lrs"], x.get("keys"), opt_state,
-            mask=x["mask"])
-        return (params, opt_state), losses
+            mask=x["mask"], taps=taps)
+        return (params, opt_state), tuple(ys) if taps else ys[0]
 
     return body
 
 
 @functools.cache
 def scan_cluster_delta_body(model, channel: Channel, opt, microbatch: int | None = None,
-                            precision: Precision | None = None):
+                            precision: Precision | None = None, taps: bool = False):
     """Whole-run body, delta mode with a per-round active cluster (Fed-CHS).
     carry: (params, opt_states (M, n_max, ...)): the active cluster's rows
     are gathered with `index_select` and written back with `index_copy_` at
     the staged device index x["m"], so the round never reads the cluster id
     on the host.  x adds "m": () int32 to the `scan_delta_body` inputs (all
-    padded to n_max)."""
+    padded to n_max).  With `taps` the outputs are (losses, tele)."""
     engine = RoundEngine(model, channel, local_opt=opt, client_microbatch=microbatch,
                          precision=precision)
+    if taps:
+        engine._no_microbatch_taps()
 
     def body(carry, x, consts):
         params, opt_all = carry
         m = x["m"].reshape(1).long()
         s_m = tree_map(lambda leaf: leaf.index_select(0, m)[0], opt_all)
-        params, new_s, losses = engine.cluster_round(
+        params, new_s, *ys = engine.cluster_round(
             params, x["batch"], x["gammas"], consts["lrs"], x.get("keys"), s_m,
-            mask=x["mask"])
+            mask=x["mask"], taps=taps)
         for leaf, ns in zip(tree_leaves(opt_all), tree_leaves(new_s)):
             leaf.index_copy_(0, m, ns[None])
-        return (params, opt_all), losses
+        return (params, opt_all), tuple(ys) if taps else ys[0]
 
     return body
 
 
 @functools.cache
 def scan_multi_body(model, channel: Channel, es_channel: Channel, opt,
-                    microbatch: int | None = None, precision: Precision | None = None):
+                    microbatch: int | None = None, precision: Precision | None = None,
+                    taps: bool = False):
     """Whole-run body, 3-tier HFL global rounds (Hier-Local-QSGD).
     carry: (params, opt_state (M, n_max, ...)).  x: {"batch": (J, M, n_max,
     E, B, ...), "gammas"/"mask": (M, n_max), "es_weights": (M,), "keys":
     (J, M, key_width(n_max), leaves, 2), "es_keys": (M, leaves, 2)}.
-    Returns losses (J, M)."""
+    Returns losses (J, M); with `taps` the outputs are (losses, tele), tele
+    leaves (M,)."""
     engine = RoundEngine(model, channel, es_channel, local_opt=opt,
                          client_microbatch=microbatch, precision=precision)
+    if taps:
+        engine._no_microbatch_taps()
 
     def body(carry, x, consts):
         params, opt_state = carry
-        params, opt_state, losses = engine.multi_cluster_round(
+        params, opt_state, *ys = engine.multi_cluster_round(
             params, x["batch"], x["gammas"], x["mask"], x["es_weights"], consts["lrs"],
-            x.get("keys"), x.get("es_keys"), opt_state)
-        return (params, opt_state), losses
+            x.get("keys"), x.get("es_keys"), opt_state, taps=taps)
+        return (params, opt_state), tuple(ys) if taps else ys[0]
 
     return body
 
@@ -533,8 +593,11 @@ class ScanPlan:
     given ascending *global* round indices: the only host work left in the
     loop.  `carry` (tensors on the run's device) is advanced in place.
 
-    The reference's `obs`, `chunk_fn` and `xs_put` fields serve its
-    telemetry and device-mesh packages, which are not ported."""
+    `obs` is the run's `RunTelemetry` (or None): the executor opens its
+    "stage" and "scan_chunk" spans, and when its taps are on, `body` must be
+    the tapped variant (outputs (losses, tele)); the plan builders pair
+    them.  The reference's `chunk_fn` and `xs_put` fields serve its
+    device-mesh package, which is not ported."""
 
     body: Any                 # a scan_*_body: (carry, x, consts) -> (carry, losses)
     carry: Any
@@ -544,6 +607,7 @@ class ScanPlan:
     rounds: int
     eval_every: int
     chunk_rounds: int = 32
+    obs: Any = None           # repro_torch.obs.RunTelemetry | None
 
 
 def run_scan(plan: ScanPlan, record) -> Any:
@@ -575,6 +639,7 @@ def run_scan_sweep(plans: list[ScanPlan], record, *, mesh=None) -> Any:
     if mesh is not None:
         raise NotImplementedError("run_scan_sweep(mesh=...) is not ported to repro_torch yet")
     p0 = plans[0]
+    assert p0.obs is None, "telemetry is unsupported in sweeps"
     assert all(p.body is p0.body for p in plans), "sweep plans must share a body"
     assert all(np.array_equal(np.asarray(p.trained), np.asarray(p0.trained)) for p in plans), \
         "sweep plans must share the trained-round schedule (full participation)"
@@ -589,11 +654,14 @@ def run_scan_sweep(plans: list[ScanPlan], record, *, mesh=None) -> Any:
 def _run_chunks(body, carry, stage, plan: ScanPlan, record) -> Any:
     """The chunked loop behind `run_scan`/`run_scan_sweep`: segment the
     trained rounds at eval boundaries (capped at `chunk_rounds`), stage and
-    run each chunk, keep the last trained round's losses, and fire `record`
-    at every eval round."""
+    run each chunk, keep the last trained round's losses, hand a tapped
+    chunk's stacked tele to `plan.obs`, and fire `record` at every eval
+    round."""
+    obs = plan.obs
+    tapped = obs is not None and obs.taps
     device = tree_leaves(carry)[0].device
     rounds = (_GraphRounds if device.type == "cuda" else _EagerRounds)(
-        body, carry, plan.consts, device)
+        body, carry, plan.consts, device, tapped)
     trained_idx = np.flatnonzero(np.asarray(plan.trained))
     last_losses, last_t, pos = None, None, 0
     try:
@@ -602,7 +670,15 @@ def _run_chunks(body, carry, stage, plan: ScanPlan, record) -> Any:
             while pos < n_t:
                 take = min(plan.chunk_rounds, n_t - pos)
                 idxs = trained_idx[pos:pos + take]
-                last_losses = rounds.run(stage(idxs))
+                with maybe_span(obs, "stage"):
+                    xs = stage(idxs)
+                with maybe_span(obs, "scan_chunk"):
+                    last_losses = rounds.run(xs)
+                    if tapped:
+                        # by default the recorder keeps the device tensors
+                        # (no wait on the card here); obs.sync_chunks copies
+                        # them now, inside the span
+                        obs.record_stacked(idxs.tolist(), rounds.tele)
                 last_t = int(idxs[-1])
                 pos += take
             record(t_e, rounds.carry, last_losses, last_t)
@@ -666,21 +742,35 @@ def _assign(carry, new) -> None:
             o.copy_(f)
 
 
+def _stack_tele(teles: list[dict]) -> dict:
+    """Per-round tele dicts stacked along a leading round axis."""
+    return {k: torch.stack([t[k] for t in teles]) for k in teles[0]}
+
+
 class _EagerRounds:
     """The CPU's executor: every round of a chunk runs eagerly on views of
-    the chunk's staged rows."""
+    the chunk's staged rows.  `run(xs)` returns the last round's losses; a
+    `tapped` body's outputs are (losses, tele), and the chunk's tele,
+    stacked per round, is left in `tele`."""
 
-    def __init__(self, body, carry, consts, device):
+    def __init__(self, body, carry, consts, device, tapped=False):
         self.body, self.carry, self.consts, self.device = body, carry, consts, device
-        self.layout = None
+        self.tapped = tapped
+        self.layout = self.tele = None
 
     def run(self, xs):
         if self.layout is None:
             self.layout = _Layout(xs)
         rows = torch.from_numpy(self.layout.pack(xs)).to(self.device)
+        teles = []
         for c in range(len(rows)):
-            new, losses = self.body(self.carry, self.layout.views(rows[c]), self.consts)
+            new, ys = self.body(self.carry, self.layout.views(rows[c]), self.consts)
             _assign(self.carry, new)
+            losses = ys
+            if self.tapped:
+                losses, tele = ys
+                teles.append(tele)
+        self.tele = _stack_tele(teles) if self.tapped else None
         return losses
 
     def close(self) -> None:
@@ -723,12 +813,20 @@ class _GraphRounds:
     the counts of the launches the capture holds are added to
     `build.LAUNCHES` per replay.  Capture or replay errors raise; nothing
     falls back to eager rounds.  `stats` holds the host seconds of the
-    warm-up round and of the capture, and the number of replays."""
+    warm-up round and of the capture, and the number of replays.
 
-    def __init__(self, body, carry, consts, device):
+    A `tapped` body's captured tele tensors are static too: the next replay
+    overwrites them.  So each chunk gets its own device buffer of tele rows,
+    and after every replay the static tele is copied device to device into
+    that replay's row (the eager warm-up round's tele into its row too),
+    left in `tele`; a recorder that keeps the buffer lazily reads every
+    round's own tele."""
+
+    def __init__(self, body, carry, consts, device, tapped=False):
         self.body, self.carry, self.consts, self.device = body, carry, consts, device
-        self.layout = None
-        self.graph = self.static = self.static_losses = None
+        self.tapped = tapped
+        self.layout = self.tele = None
+        self.graph = self.static = self.static_losses = self.static_tele = None
         self.warm = False
         self.launches: dict[str, int] = {}
         self.stream = _side_stream(device)
@@ -739,27 +837,41 @@ class _GraphRounds:
             self.layout = _Layout(xs)
         host = torch.from_numpy(self.layout.pack(xs)).pin_memory()
         rows = host.to(self.device, non_blocking=True)
-        start, losses = 0, None
+        start, losses, warm_tele = 0, None, None
         if not self.warm:
             t0 = time.perf_counter()
             new, losses = self.body(self.carry, self.layout.views(rows[0]), self.consts)
+            if self.tapped:
+                losses, warm_tele = losses
             _assign(self.carry, new)
             torch.cuda.synchronize(self.device)  # once a run, before the capture
             self.stats["warmup_s"] = time.perf_counter() - t0
             self.warm, start = True, 1
         if start < len(rows) and self.graph is None:
             self._capture()
+        tele = None
+        if self.tapped:
+            like = warm_tele if warm_tele is not None else self.static_tele
+            tele = {k: torch.empty((len(rows),) + v.shape, dtype=v.dtype, device=self.device)
+                    for k, v in like.items()}
+            if warm_tele is not None:
+                for k, v in warm_tele.items():
+                    tele[k][0].copy_(v)
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
             for c in range(start, len(rows)):
                 self.static.copy_(rows[c])
                 self.graph.replay()
+                if tele is not None:
+                    for k, v in self.static_tele.items():
+                        tele[k][c].copy_(v)
                 for name, n in self.launches.items():
                     LAUNCHES[name] += n
         finally:
             torch.cuda.set_sync_debug_mode(mode)
         self.stats["replays"] += len(rows) - start
+        self.tele = tele
         return losses if start == len(rows) else self.static_losses.clone()
 
     def _capture(self) -> None:
@@ -780,6 +892,8 @@ class _GraphRounds:
             with torch.cuda.graph(graph, stream=side):
                 new, losses = self.body(self.carry, x, self.consts)
                 _assign(self.carry, new)
+            if self.tapped:
+                losses, self.static_tele = losses
         finally:
             captured = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
             LAUNCHES.update(before)  # nothing launched while capturing
@@ -797,5 +911,5 @@ class _GraphRounds:
         if self.graph is not None:
             LIVE_GRAPHS.remove(self.graph)
             self.graph.reset()
-            self.graph = self.static = self.static_losses = None
+            self.graph = self.static = self.static_losses = self.static_tele = None
             torch.cuda.empty_cache()  # the pool's blocks go back to the card

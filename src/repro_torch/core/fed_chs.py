@@ -38,6 +38,16 @@ round, unmasked.
 (`core/engine.py`); a precision policy forces delta mode, prices the dense
 uplink at its wire width (unless a channel or `qsgd_levels` is given) and
 every model broadcast too.
+
+`obs` (`repro_torch.obs.RunTelemetry`) traces both executors' phases
+("precompute", "stage", "scan_chunk", "materialize" scanned; "round"
+looped; "eval" in both) and, with its taps on, records each round's tele;
+the tapped rounds' params equal the untapped rounds' bit for bit.
+`checkpoint` saves the looped driver's whole round-boundary state every
+`checkpoint_every` rounds (`repro_torch.checkpoint.save_run_state`:
+params, optimizer stacks, the key chain, scheduler, data draws, ledger and
+logs), and `resume=True` continues from it bit for bit; a run with a
+checkpoint takes the looped driver, as in the reference.
 """
 from __future__ import annotations
 
@@ -47,6 +57,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import (
+    load_run_state,
+    read_run_meta,
+    run_state_exists,
+    save_run_state,
+)
 from repro_torch.comm.channels import Channel, DenseChannel, channel_wire_bits
 from repro_torch.core.dynamics import make_dynamic
 from repro_torch.core.engine import (
@@ -68,6 +84,7 @@ from repro_torch.core.scheduler import (
 from repro_torch.core.simulation import FLTask, RunRecorder, RunResult
 from repro_torch.core.topology import make_topology
 from repro_torch.data.sources import scatter_put, stage_chunk
+from repro_torch.obs.trace import maybe_span
 from repro_torch.optim.local import PlainSGD
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
 from repro_torch.part import is_full_participation, participation_mask
@@ -75,8 +92,7 @@ from repro_torch.utils import tree_leaves
 
 # reference config fields this port does not implement yet, with their
 # defaults: setting one away from its default raises
-_NOT_PORTED = {"obs": None, "mesh": None, "checkpoint": None, "checkpoint_every": 1,
-               "resume": False}
+_NOT_PORTED = {"mesh": None}
 
 
 @dataclasses.dataclass
@@ -113,12 +129,11 @@ class FedCHSConfig:
     precision: Precision | None = None     # mixed-precision policy
                                            # (core/precision.py): bf16 client
                                            # compute, f32 master, bf16 wire
-    # not ported (see _NOT_PORTED): must keep their defaults
-    obs: Any = None
-    mesh: Any = None
-    checkpoint: str | None = None
-    checkpoint_every: int = 1
-    resume: bool = False
+    obs: Any = None                        # repro_torch.obs.RunTelemetry
+    mesh: Any = None                       # not ported (see _NOT_PORTED)
+    checkpoint: str | None = None          # path prefix of the looped run state
+    checkpoint_every: int = 1              # rounds between saves
+    resume: bool = False                   # continue from `checkpoint` if saved
 
     def __post_init__(self):
         unset = [f for f, default in _NOT_PORTED.items() if getattr(self, f) != default]
@@ -142,8 +157,61 @@ def _make_scheduler(task: FLTask, config: FedCHSConfig, topo, m0: int):
     return FedCHSScheduler(topo, task.cluster_sizes, initial=m0)
 
 
+def _save_sync_state(path: str, task: FLTask, t_next: int, params, opt_states, key,
+                     losses, scheduler, ledger, recorder) -> None:
+    """Save the looped driver's whole round-boundary state (atomic), in the
+    reference's layout: a file either package writes loads in the other."""
+    arrays = {"params": params, "key": key, "losses": losses,
+              "opt": {str(m): s for m, s in opt_states.items()}}
+    meta = {
+        "algo": "fed_chs",
+        "round": t_next,
+        "scheduler": {
+            "current": int(scheduler.state.current),
+            "visit_counts": [int(c) for c in scheduler.state.visit_counts],
+            "step": int(scheduler.state.step),
+        },
+        "opt_clusters": sorted(opt_states),
+        "losses_shape": list(losses.shape),
+        "losses_dtype": str(losses.dtype).removeprefix("torch."),
+        "draw_counts": list(task.source.draw_counts),
+        "ledger": ledger.state_dict(),
+        "recorder": {"rounds": recorder.rounds_log, "acc": recorder.acc_log,
+                     "loss": recorder.loss_log},
+    }
+    save_run_state(path, arrays, meta)
+
+
+def _load_sync_state(path: str, task: FLTask, params0, engine, scheduler, ledger, recorder):
+    """Restore the looped driver's state; returns (t, params, opt_states,
+    key, losses).  Sets the scheduler, ledger, recorder and data source in
+    place.  The losses come back in the dtype they were saved in (a file of
+    the reference, which does not record it, holds f32)."""
+    meta = read_run_meta(path)
+    like = {
+        "params": params0,
+        "key": PRNGKey(0),
+        "losses": torch.zeros(meta["losses_shape"], device=task.device,
+                              dtype=getattr(torch, meta.get("losses_dtype", "float32"))),
+        "opt": {str(m): engine.init_opt_state(params0, len(task.cluster_members[int(m)]))
+                for m in meta["opt_clusters"]},
+    }
+    arrays, meta = load_run_state(path, like)
+    st = meta["scheduler"]
+    scheduler.state.current = int(st["current"])
+    scheduler.state.visit_counts = np.asarray(st["visit_counts"], np.int64)
+    scheduler.state.step = int(st["step"])
+    ledger.load_state(meta["ledger"])
+    recorder.rounds_log = list(meta["recorder"]["rounds"])
+    recorder.acc_log = list(meta["recorder"]["acc"])
+    recorder.loss_log = list(meta["recorder"]["loss"])
+    task.source.fast_forward(meta["draw_counts"])
+    opt_states = {int(m): s for m, s in arrays["opt"].items()}
+    return int(meta["round"]), arrays["params"], opt_states, arrays["key"], arrays["losses"]
+
+
 def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
-    if config.scan_rounds:
+    if config.scan_rounds and not config.checkpoint:
         return _run_fed_chs_scanned(task, config)
     task.reset_loaders(config.seed)
     assert config.local_steps % config.local_epochs == 0, "K must divide by E"
@@ -200,16 +268,26 @@ def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
     )
     opt_states: dict[int, Any] = {}  # cluster -> stacked client-held opt state
 
-    recorder = RunRecorder(task, config.rounds, config.eval_every)
+    obs = config.obs
+    taps = obs is not None and obs.taps
+    recorder = RunRecorder(task, config.rounds, config.eval_every, obs=obs)
     m = scheduler.state.current
     losses = torch.full((1,), float("nan"))  # stays nan until a first trained round
-    for t in range(config.rounds):
+    start_round = 0
+    if config.resume and config.checkpoint and run_state_exists(config.checkpoint):
+        start_round, params, opt_states, key, losses = _load_sync_state(
+            config.checkpoint, task, params, engine, scheduler, ledger, recorder)
+        m = scheduler.state.current
+    for t in range(start_round, config.rounds):
         members = task.cluster_members[m]
         participating = members if full_part else config.sampler.participants(t, members)
+        out = None
         if grad_mode:
             gammas = torch.from_numpy(task.cluster_weights(m)).to(task.device)
             batch = task.sample_cluster_batches(m, K)
-            params, losses = engine.grad_round(params, batch, gammas, lrs_grad)
+            with maybe_span(obs, "round"):
+                out = engine.grad_round(params, batch, gammas, lrs_grad, taps=taps)
+                params, losses = out[:2]
         elif participating:
             pmask = None
             w = task.cluster_weights(m)
@@ -229,11 +307,15 @@ def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
                 opt_states[m] = engine.init_opt_state(params, len(members))
             if pmask is not None:
                 pmask = torch.from_numpy(pmask).to(task.device)
-            params, opt_states[m], losses = engine.cluster_round(
-                params, batch, gammas, lrs_t, subs, opt_states[m], mask=pmask)
+            with maybe_span(obs, "round"):
+                out = engine.cluster_round(params, batch, gammas, lrs_t, subs, opt_states[m],
+                                           mask=pmask, taps=taps)
+                params, opt_states[m], losses = out[:3]
         # else: the whole cluster is unavailable, and the ES is a pass-through
         # hop: no training, no draws, no keys, no client traffic; the model is
         # forwarded on the ES->ES pass below (losses keeps its last value)
+        if taps and out is not None:
+            obs.record_round(t, out[-1])
 
         # comm accounting: one broadcast + one upload per participating
         # client per interaction, metered per message so netsim sees the
@@ -260,6 +342,9 @@ def run_fed_chs(task: FLTask, config: FedCHSConfig) -> RunResult:
                       sender=f"es:{prev_m}", receiver=f"es:{m}")
         engine.end_round(ledger, t)
         recorder.record(t, params, losses)
+        if config.checkpoint and (t + 1) % config.checkpoint_every == 0:
+            _save_sync_state(config.checkpoint, task, t + 1, params, opt_states, key, losses,
+                             scheduler, ledger, recorder)
 
     return recorder.result("fed_chs", ledger, params)
 
@@ -326,6 +411,7 @@ def _fed_chs_scan_plan(task: FLTask, source, config: FedCHSConfig):
         and config.precision is None
         and (config.local_opt is None or isinstance(config.local_opt, PlainSGD))
     )
+    taps = config.obs is not None and config.obs.taps
 
     M = task.num_clusters
     n_max = max(len(m) for m in members_of)
@@ -393,7 +479,7 @@ def _fed_chs_scan_plan(task: FLTask, source, config: FedCHSConfig):
             return {"batch": batch, "gammas": gammas_r[idxs],
                     "lrs": np.broadcast_to(lrs, (len(idxs), K)).copy()}
 
-        body = scan_grad_body(engine.model, config.client_microbatch)
+        body = scan_grad_body(engine.model, config.client_microbatch, taps)
         carry = params
         consts = {}
         params_of = lambda c: c  # noqa: E731
@@ -413,13 +499,14 @@ def _fed_chs_scan_plan(task: FLTask, source, config: FedCHSConfig):
             return xs
 
         body = scan_cluster_delta_body(engine.model, channel, engine.local_opt,
-                                       config.client_microbatch, config.precision)
+                                       config.client_microbatch, config.precision, taps)
         carry = (params, engine.init_opt_state(params, M, n_max))
         consts = {"lrs": engine.step_sizes(lrs.reshape(interactions, E), task.device)}
         params_of = lambda c: c[0]  # noqa: E731
 
     plan = ScanPlan(body=body, carry=carry, consts=consts, stage=stage, trained=trained,
-                    rounds=R, eval_every=config.eval_every, chunk_rounds=config.chunk_rounds)
+                    rounds=R, eval_every=config.eval_every, chunk_rounds=config.chunk_rounds,
+                    obs=config.obs)
 
     down_bits = DenseChannel(
         downlink_bits_per_param(config.precision, config.bits_per_param)).message_bits(d)
@@ -451,9 +538,12 @@ def _fed_chs_scan_plan(task: FLTask, source, config: FedCHSConfig):
 
 
 def _run_fed_chs_scanned(task: FLTask, config: FedCHSConfig) -> RunResult:
-    plan, params_of, traffic = _fed_chs_scan_plan(task, task.source, config)
-    recorder = RunRecorder(task, config.rounds, config.eval_every)
+    obs = config.obs
+    with maybe_span(obs, "precompute"):
+        plan, params_of, traffic = _fed_chs_scan_plan(task, task.source, config)
+    recorder = RunRecorder(task, config.rounds, config.eval_every, obs=obs)
     carry = run_scan(plan, lambda t, c, losses, _lt: recorder.record(t, params_of(c), losses))
     ledger = CommLedger(track_events=config.track_events)
-    ledger.materialize(traffic(config.track_events))
+    with maybe_span(obs, "materialize"):
+        ledger.materialize(traffic(config.track_events))
     return recorder.result("fed_chs", ledger, params_of(carry))

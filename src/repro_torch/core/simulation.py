@@ -21,6 +21,7 @@ from repro_torch.data.partition import ClientData
 from repro_torch.data.sources import ArraySource
 from repro_torch.data.synthetic import Dataset
 from repro_torch.models.fed import as_fed_model
+from repro_torch.obs.trace import maybe_span
 from repro_torch.utils import resolve_device, tree_leaves, tree_num_params
 
 Tree = Any
@@ -175,11 +176,16 @@ class FLTask:
 @dataclasses.dataclass
 class RunRecorder:
     """The eval/log tail: `record(t, params, losses)` appends to the logs iff
-    t is an eval round (t % eval_every == 0, or the final round)."""
+    t is an eval round (t % eval_every == 0, or the final round).
+
+    `obs` (`repro_torch.obs.RunTelemetry`) is the run's observability
+    carrier: every evaluation runs in its "eval" span, and the telemetry
+    rides out on `RunResult.telemetry`."""
 
     task: FLTask
     rounds: int
     eval_every: int
+    obs: Any = None
     rounds_log: list = dataclasses.field(default_factory=list)
     acc_log: list = dataclasses.field(default_factory=list)
     loss_log: list = dataclasses.field(default_factory=list)
@@ -191,12 +197,13 @@ class RunRecorder:
         if not self.should_eval(t):
             return
         self.rounds_log.append(t)
-        self.acc_log.append(self.task.evaluate(params))
+        with maybe_span(self.obs, "eval"):
+            self.acc_log.append(self.task.evaluate(params))
         self.loss_log.append(float("nan") if losses is None else float(torch.mean(losses)))
 
     def result(self, name: str, ledger: CommLedger, params: Tree) -> RunResult:
         return RunResult(name, self.rounds_log, self.acc_log, self.loss_log, ledger,
-                         params, metric_mode=self.task.metric_mode)
+                         params, metric_mode=self.task.metric_mode, telemetry=self.obs)
 
 
 @dataclasses.dataclass
@@ -208,6 +215,10 @@ class RunResult:
     ledger: CommLedger
     final_params: Tree
     metric_mode: str = "max"
+    telemetry: Any = None          # the run's RunTelemetry, when it carried one
+    sim_times: list | None = None  # simulated seconds at each eval: set by the
+    #   event-driven async drivers (repro_torch.async_fl), whose runs execute
+    #   on a simulated clock instead of replaying one after the fact
 
     def _empty_metric(self) -> float:
         # an empty log reads as worst-possible in the metric's direction
@@ -236,3 +247,13 @@ class RunResult:
     def bits_to_accuracy(self, gamma: float) -> int | None:
         r = self.rounds_to_accuracy(gamma)
         return None if r is None else self.ledger.bits_until(r)
+
+    def sim_time_to_accuracy(self, gamma: float) -> float | None:
+        """First simulated second at which the metric crosses `gamma`; only
+        runs that carry `sim_times` (the async drivers) have one."""
+        if self.sim_times is None:
+            return None
+        for t_s, a in zip(self.sim_times, self.test_acc):
+            if self._reached(a, gamma):
+                return t_s
+        return None

@@ -325,7 +325,7 @@ def test_fed_chs_channels_and_optimizers_match_reference(tasks, kw, tol):
 
 @pytest.mark.parametrize("cls,field", [
     (cls, field) for cls in (tb.FedAvgConfig, tb.WRWGDConfig, tb.HierLocalQSGDConfig)
-    for field in ("obs", "mesh")
+    for field in ("mesh",)  # obs runs now: tests/test_torch_obs.py
 ], ids=lambda x: getattr(x, "__name__", x))
 def test_unported_baseline_fields_raise(cls, field):
     with pytest.raises(NotImplementedError, match=field):

@@ -149,10 +149,9 @@ def test_qsgd_delta_run_matches_reference(tasks):
 
 
 # ids as the cases had them when the list also held the fields ported since
-@pytest.mark.parametrize("field,value", [
-    ("obs", object()), ("mesh", object()), ("checkpoint", "ck"), ("checkpoint_every", 5),
-    ("resume", True),
-], ids=["obs-value5", "mesh-value6", "checkpoint-ck", "checkpoint_every-5", "resume-True"])
+# (obs, checkpoint, checkpoint_every and resume run now: tests/test_torch_obs.py,
+# tests/test_torch_checkpoint.py)
+@pytest.mark.parametrize("field,value", [("mesh", object())], ids=["mesh-value6"])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         FedCHSConfig(**{field: value})

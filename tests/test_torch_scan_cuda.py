@@ -154,3 +154,26 @@ def test_a_scanned_run_frees_its_graph_pool(task):
     # the run keeps its carry; the graph's pool went back to the device
     assert after <= before + carry_bytes + 8 * 2**20
     assert after < max(r for _, r in during)
+
+
+@needs_card
+@pytest.mark.parametrize("run,cfg", CASES, ids=["fed_chs_qsgd", "fed_chs_grad", "fedavg",
+                                                 "wrwgd", "hier"])
+def test_tapped_graph_replay_equals_untapped_and_looped_tele(even_task, run, cfg):
+    """Taps inside the captured round: params and launches equal the
+    untapped replay's; every replayed round's tele (copied into its own row
+    of the chunk's buffer) equals the looped tapped run's at 1e-6."""
+    from repro_torch.obs import RunTelemetry
+
+    plain, n_plain = run_counted(run, even_task, cfg)
+    obs, looped_obs = RunTelemetry(), RunTelemetry()
+    tapped, n_tapped = run_counted(run, even_task, dataclasses.replace(cfg, obs=obs))
+    run(even_task, dataclasses.replace(cfg, obs=looped_obs, scan_rounds=False))
+    assert_same_run(plain, tapped)
+    assert n_plain == n_tapped
+    assert obs.rounds == looped_obs.rounds == list(range(cfg.rounds))
+    for k, vs in looped_obs.metrics.items():
+        np.testing.assert_allclose(np.asarray(obs.metrics[k]), np.asarray(vs), rtol=1e-6,
+                                   atol=1e-7 if k.endswith("comp_err") else 0)
+    # the rounds of one chunk carry their own tele, not the last replay's
+    assert len({float(np.sum(v)) for v in obs.metrics["update_norm"]}) == cfg.rounds
