@@ -20,7 +20,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
      within 1 at no more than 0.1% of entries, and the dequantized values
      of the kernel's own payload bit for bit.  Flash attention: the
      reference's kernel-test sweep, causal and not, plus the LM paths'
-     shapes (2 clients of batch 2, and one client under phase 3h), atol
+     shapes (2 clients of batch 2, and one client under phase 3h) and
+     dbrx-132b's prefill (B 4, T = S 512, H 48, Hkv 8, hd 128, bf16), atol
      3e-5 in f32 and 2e-2 in bf16;
   3. the paths, through the entry points a user calls, each with the launch
      counts set to 0 just before it and read just after:
@@ -100,6 +101,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
         and the resume bit-equal, and time to accuracy 0.70 in simulated
         seconds beside sync Fed-CHS replayed through the same networks
         (3j-c);
+     k. the MoE decoder and the serving path at dbrx-132b's full width
+        (d_model 6144, 16 experts top-4, d_ff 10752, GQA 48/8, vocab
+        100352, bf16, random weights): at 4 layers (14.27B params)
+        `prefill` of 4 x 512 tokens (the flash kernel once per layer; the
+        forward and the cache replay timed apart), `serve_loop` of 8
+        requests over 4 slots (prompt 64, exactly 32 new tokens each;
+        tokens/s, ms per batched decode step, peak memory), and
+        teacher-forced `decode_step` against `forward` with `dense_topk`
+        routing, held to DECODE_BOUND beside an off-by-one cache control
+        (3k-a); at 2 layers `make_train_step(remat=True)`, batch 1 x 512, 3
+        steps: the loss falling, the flash kernel twice per layer per step,
+        s/step and peak (3k-b); the smoke dbrx LM under Fed-CHS QSGD(16),
+        scanned: launches exact, uplinks at the closed form, scanned = looped
+        = a second run bit for bit, card against the CPU beside controls,
+        and `serve_loop` at smoke qwen3-0.6b on the card, batched = solo
+        (3k-c);
   4. time each kernel at its path's shapes with CUDA events (L2 flushed
      before every launch, the card kept busy while the host enqueues it),
      beside its plain version, its bound and, for flash attention, torch's
@@ -108,7 +125,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
      bound of the CUDA cores.  The packed pair is also timed at the
      comparison path's LeNet shapes (100 senders, 4-bit codes), and unpack
      -> dequantize over a whole uplink message of each path, one launch per
-     leaf.  Rows after a kernel's first do not enter the kernels line.
+     leaf, and flash attention in bf16 at dbrx-132b's prefill shape.  Rows
+     after a kernel's first do not enter the kernels line.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; exits non-zero without
 one, and outside a checkout of the repository.
@@ -486,10 +504,14 @@ def flash_vs_plain(torch, fa):
         check(not any(fa._rows_aligned(x) for x in views), "the misaligned views")
         for causal, window in masks:
             held(*views, causal, window, "misaligned views")
+    # dbrx-132b's prefill (phase 3k-a): GQA groups of 6, hd 128, in bf16
+    held(*flash_inputs(torch, gen, *FLASH_DBRX, torch.bfloat16), True, None,
+         f"dbrx-132b prefill {FLASH_DBRX}")
     print(f"phase 2: flash attention vs plain passed on {n_cases} cases (T,S in {FLASH_TS}, "
           f"H,Hkv in {FLASH_HEADS}, hd in {FLASH_HDS}, (causal, window) in {masks}; the LM "
           f"path's shape {FLASH_PATH}; fused-projection views and views off 16-byte "
-          f"alignment; f32 + bf16), and the lean path's {FLASH_LEAN}; max |diff| "
+          f"alignment; f32 + bf16), the lean path's {FLASH_LEAN} and dbrx-132b's prefill "
+          f"{FLASH_DBRX} (bf16); max |diff| "
           f"{worst[torch.float32]:.3g} in f32, {worst[torch.bfloat16]:.3g} in bf16")
     return worst[torch.float32]
 
@@ -1364,6 +1386,7 @@ LEAN_MB, LEAN_ROUNDS = 1, 6
 MB_ARMS = (("Hier-Local-QSGD QSGD(16)", 2), ("FedAvg", 10))
 CROSS_ULPS = 2.0
 BF16_ULP = 2.0**-7
+F32_ULP = 2.0**-23
 
 
 def lean_lm_path(torch, build, f32_peak_gb, f32_round_s):
@@ -2284,6 +2307,316 @@ def async_path(torch, build, task):
     part("the sync run and its replays")
 
 
+# phase 3k: the MoE decoder and the serving path.  dbrx-132b at full width
+# (d_model 6144, 16 experts top-4 of d_ff 10752, GQA 48/8 heads of 128,
+# vocab 100352, bf16, random weights from a seed), its depth cut to 4 layers
+# for serving (14.27B params) and to 2 for the SGD step (params, grads and
+# new params on one card); federated MoE at dbrx's smoke width.
+MOE_ARCH = "dbrx-132b"
+SERVE_LAYERS, TRAIN_LAYERS = 4, 2
+PREFILL_BATCH, PREFILL_SEQ = 4, 512
+SERVE = dict(requests=8, slots=4, prompt_len=64, max_new=32)
+PARITY_BATCH, PARITY_SEQ = 2, 64
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_LR = 3, 512, 0.3
+FLASH_DBRX = (PREFILL_BATCH, PREFILL_SEQ, PREFILL_SEQ, 48, 8, 128)  # prefill's attention
+# teacher-forced decode against forward in bf16, relative L2 of the logits.
+# The two paths round activations to bf16 at other places (the flash
+# kernel's P, other product shapes), and a token whose router scores nearly
+# tie may take another expert.  A 4-layer, d_model 1024 cut of the config
+# read 0.039 on the CPU, and the off-by-one control 0.76.
+DECODE_BOUND = 0.125
+# phase 3k-c: the first QSGD(16) round of the smoke MoE LM, card against
+# CPU, over the update.  A code step is a sixteenth of a block norm, and
+# the card's flash runs split TF32, so codes (and with them expert choices)
+# flip where the CPU's do not: an H100 80GB HBM3 at 700 W read 0.019, the
+# CPU run against itself from weights 1 + 2^-23 apart 0.0049.  The bound
+# must reject the controls, all run on the CPU: QSGD with one level fewer
+# (15) reads 0.56, QSGD(8) 1.08, dense uplinks 0.75, and a run that
+# never updates 1.  Expert choice makes a round chaotic (a 5% smaller step
+# reads 0.52), so a fault in the MoE path reads far above the bound.
+MOE_QSGD_BOUND = 0.1
+
+
+def moe_batch(torch, cfg, B, T, seed):
+    from repro_torch.data.tokens import synthetic_lm_batch
+
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in synthetic_lm_batch(cfg.vocab_size, B, T, seed=seed).items()}
+
+
+def teacher_forced(torch, cfg, params, tokens, off_by_one=False):
+    """Logits (B, T, V) of decode_step fed the prompt token by token with
+    `dense_topk` routing; `off_by_one` writes each token after the first
+    over the previous token's cache slot (a control)."""
+    from repro_torch.models import transformer as tf
+
+    B, T = tokens.shape
+    caches, out = tf.init_caches(cfg, B, T, device=tokens.device), []
+    for t in range(T):
+        if off_by_one and t:
+            caches = tf.set_cache_len(caches, t - 1)
+        logits, caches = tf.decode_step(cfg, params, caches, tokens[:, t:t + 1],
+                                        moe_method="dense_topk")
+        out.append(logits.float())
+    return torch.stack(out, dim=1)
+
+
+def moe_serving_path(torch, build):
+    """Phase 3k-a: dbrx-132b at full width, 4 layers, bf16: `prefill` of
+    4 x 512 tokens (the flash kernel once per layer; the forward, the LM
+    head on the last position only, and the cache replay timed apart), `serve_loop` (8 requests over 4 slots, every
+    request exactly max_new tokens; s per batched decode step, tokens/s,
+    peak memory), and teacher-forced decode against `forward` with
+    `dense_topk` routing, held to DECODE_BOUND beside an off-by-one control
+    that the bound must reject."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils import tree_leaves, tree_num_params
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=SERVE_LAYERS, use_flash=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = timed(torch, lambda: tf.init_params(cfg, 0, "cuda"))
+    n = tree_num_params(params)
+    weights_gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    print(f"phase 3k-a: {MOE_ARCH} at full width (d_model {cfg.d_model}, {cfg.num_experts} "
+          f"experts top-{cfg.experts_per_token}, d_ff {cfg.d_ff}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}), "
+          f"{SERVE_LAYERS} layers: {n} params ({weights_gb:.2f} GB) drawn in {init_ms / 1e3:.2f} s")
+
+    B, T = PREFILL_BATCH, PREFILL_SEQ
+    b = moe_batch(torch, cfg, B, T, 0)
+    with torch.no_grad():
+        timed(torch, lambda: tf.forward(cfg, params, b))  # first launches, cuBLAS set-up
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        (logits, caches), prefill_ms = timed(torch, lambda: tf.prefill(cfg, params, b))
+        launches = dict(build.LAUNCHES)
+        prefill_gb = torch.cuda.max_memory_allocated() / 1e9
+        # prefill's forward (the LM head on the last position only), and
+        # beside it the forward that makes all (B, T, V) logits
+        _, fwd_ms = timed(torch, lambda: tf.forward(cfg, params, b, last_only=True))
+        _, full_ms = timed(torch, lambda: tf.forward(cfg, params, b))
+    want = dict.fromkeys(launches, 0) | {"flash_attention": SERVE_LAYERS}
+    check(launches == want, f"3k-a prefill launches {launches}, expected {want}")
+    check(tuple(logits.shape) == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          "3k-a prefill logits")
+    lens = [t for t in tree_leaves(caches) if t.dtype == torch.int32]
+    check(all(bool((t == T).all()) for t in lens), "3k-a: the caches do not hold the prompt")
+    print(f"  prefill of {B} prompts x {T} tokens: {prefill_ms / 1e3:.3f} s; its forward "
+          f"{fwd_ms:.1f} ms warm ({full_ms:.1f} ms with all {B} x {T} x {cfg.vocab_size} "
+          f"logits; flash launched {launches['flash_attention']} times, once per "
+          f"layer), the cache replay ({T} decode steps) {(prefill_ms - fwd_ms) / 1e3:.3f} s "
+          f"({(prefill_ms - fwd_ms) / T:.2f} ms a step); peak {prefill_gb:.2f} GB")
+    del logits, caches
+
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    (done, steps), serve_ms = timed(torch, lambda: serve_loop(cfg, params, **SERVE))
+    launches = dict(build.LAUNCHES)
+    serve_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(sorted(done) == list(range(SERVE["requests"]))
+          and all(len(v) == SERVE["max_new"] for v in done.values())
+          and all(0 <= t < cfg.vocab_size for v in done.values() for t in v),
+          "3k-a serve_loop: a request without exactly max_new tokens")
+    check(not any(launches.values()), f"3k-a serve_loop launched {launches}")
+    tokens = sum(len(v) for v in done.values())
+    calls = steps + SERVE["requests"] * SERVE["prompt_len"]
+    # one batched decode step at SERVE["slots"] slots, warm, timed alone
+    caches = tf.init_caches(cfg, SERVE["slots"], SERVE["prompt_len"] + SERVE["max_new"],
+                            device="cuda")
+    tok = torch.zeros((SERVE["slots"], 1), dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        for _ in range(2):
+            _, caches = tf.decode_step(cfg, params, caches, tok)
+        steps_ms = []
+        for _ in range(16):
+            (_, caches), ms = timed(torch, lambda: tf.decode_step(cfg, params, caches, tok))
+            steps_ms.append(ms)
+    step_ms = statistics.median(steps_ms)
+    print(f"  serve_loop, {SERVE['requests']} requests over {SERVE['slots']} slots, prompt "
+          f"{SERVE['prompt_len']}, max_new {SERVE['max_new']}: {tokens} tokens (exactly "
+          f"{SERVE['max_new']} a request) in {serve_ms / 1e3:.2f} s = "
+          f"{tokens / serve_ms * 1e3:.1f} tokens/s; {steps} batched decode steps and "
+          f"{calls - steps} teacher-forced prefill "
+          f"steps ({serve_ms / calls:.2f} ms a decode_step call); a batched decode step at "
+          f"{SERVE['slots']} slots {step_ms:.2f} ms warm (median of 16; min {min(steps_ms):.2f}); "
+          f"peak {serve_gb:.2f} GB")
+
+    b = moe_batch(torch, cfg, PARITY_BATCH, PARITY_SEQ, 1)
+    with torch.no_grad():
+        fwd, _ = tf.forward(cfg, params, b, moe_method="dense_topk")
+        fwd = fwd.float()
+        dec = teacher_forced(torch, cfg, params, b["tokens"])
+        ctrl = teacher_forced(torch, cfg, params, b["tokens"], off_by_one=True)
+    rel = float((dec - fwd).norm() / fwd.norm())
+    ctrl_rel = float((ctrl - fwd).norm() / fwd.norm())
+    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    print(f"  teacher-forced decode_step vs forward (dense_topk, {PARITY_BATCH} x {PARITY_SEQ} "
+          f"tokens): logits {rel:.4g} apart in relative L2 (bound {DECODE_BOUND}), max |diff| "
+          f"{float((dec - fwd).abs().max()):.3g} of max |logit| {float(fwd.abs().max()):.3g}, "
+          f"argmax equal at {100 * agree:.1f}% of positions; off-by-one cache control "
+          f"{ctrl_rel:.4g}")
+    check(rel <= DECODE_BOUND and bool(torch.isfinite(dec).all()),
+          "3k-a: teacher-forced decode strays from forward")
+    check(ctrl_rel > DECODE_BOUND, "3k-a: the decode bound would pass an off-by-one cache")
+    return {"prefill_s": prefill_ms / 1e3, "step_ms": step_ms}
+
+
+def moe_train_step_path(torch, build):
+    """Phase 3k-b: `make_train_step(remat=True)` on dbrx-132b at full width,
+    2 layers, bf16, batch 1 x 512, flash on, 3 SGD steps on one batch: the
+    loss finite and falling, the aux loss finite, the flash kernel twice per
+    layer per step (forward and the remat recompute), s/step and peak."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=TRAIN_LAYERS, use_flash=True)
+    params = tf.init_params(cfg, 1, "cuda")
+    b = moe_batch(torch, cfg, 1, TRAIN_SEQ, 2)
+    step = tf.make_train_step(cfg, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, steps_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        build.reset_launches()
+        (params, loss), ms = timed(torch, lambda: step(params, b, TRAIN_LR))
+        launches = dict(build.LAUNCHES)
+        want = dict.fromkeys(launches, 0) | {"flash_attention": 2 * TRAIN_LAYERS}
+        check(launches == want, f"3k-b step launches {launches}, expected {want}")
+        losses.append(float(loss))
+        steps_ms.append(ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        _, aux = tf.forward(cfg, params, b)
+    print(f"phase 3k-b: {MOE_ARCH} at full width, {TRAIN_LAYERS} layers "
+          f"({cfg.param_count() / 1e9:.2f}B params), make_train_step(remat=True), batch 1 x "
+          f"{TRAIN_SEQ}, flash on, lr {TRAIN_LR}: losses {losses}, aux loss after "
+          f"{float(aux):.5f}; s/step {[round(ms / 1e3, 3) for ms in steps_ms]}; flash "
+          f"{2 * TRAIN_LAYERS} launches a step; peak {peak_gb:.2f} GB")
+    check(all(math.isfinite(x) for x in losses) and math.isfinite(float(aux)),
+          "3k-b: non-finite loss")
+    check(losses[-1] < losses[0], "3k-b: the loss did not fall")
+    return {"step_s": steps_ms[-1] / 1e3, "peak_gb": peak_gb}
+
+
+def moe_fed_path(torch, build):
+    """Phase 3k-c: `LMFedModel(smoke dbrx-132b, flash=True)` under
+    `run_fed_chs` with QSGD(16) uplinks, 4 clients in 2 clusters, scanned:
+    launches exact, every uplink at the closed form, scanned bit-equal to
+    looped and to a second run of the same seed; the same run on the card
+    against the CPU's plain path, printed beside the CPU run's own gap from
+    weights 1 + 2^-23 apart (after its first round the run strays from
+    itself by a third or more of its update), its first round alone held
+    to MOE_QSGD_BOUND beside no-update, dense-uplink, QSGD(15) and QSGD(8)
+    controls, and a
+    grad-mode run held to GRAD_BOUND beside a wrong-mask control, as phase
+    3d holds its LM; then `serve_loop` at smoke qwen3-0.6b on the card,
+    solo equal to batched."""
+    from repro_torch.comm.channels import DenseChannel, QSGDChannel, channel_wire_bits
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils import tree_leaves
+
+    cfg = smoke_config(MOE_ARCH)
+    kw = dict(num_clients=4, batch_size=2, seq_len=64)
+    channel = QSGDChannel(16)
+    rounds, K, E = 3, 4, 2
+    config = FedCHSConfig(rounds=rounds, local_steps=K, local_epochs=E, eval_every=1,
+                          channel=channel, seed=0, schedule=lambda k: 0.3)
+    task = lm_task(cfg, init_on_cpu=True, **kw)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    res, ms = timed(torch, lambda: run_fed_chs(task, config))
+    launches = dict(build.LAUNCHES)
+    leaf_sizes = [t.numel() for t in tree_leaves(res.final_params)]
+    J, evals = K // E, len(res.rounds)
+    n_eval_batches = len(task.source.eval_data()["tokens"])
+    want = {"flash_attention": cfg.num_layers * (rounds * K + evals * n_eval_batches),
+            "qsgd_quantize_pack": rounds * J * len(leaf_sizes),
+            "qsgd_unpack_dequantize": rounds * J * len(leaf_sizes),
+            "qsgd_quantize": 0, "qsgd_dequantize": 0}
+    check(launches == want, f"3k-c launches {launches}, expected {want}")
+    d = sum(leaf_sizes)
+    up = channel_wire_bits(channel, d, leaf_sizes)
+    led = res.ledger
+    visited = [int(e.sender.split(":")[1]) for e in led.events if e.hop == "es_to_es"]
+    n_up = sum(J * len(LM_CLUSTERS[m]) for m in visited)
+    check(led.messages["client_to_es"] == n_up and led.bits["client_to_es"] == n_up * up
+          and all(e.n_bits == up for e in led.events if e.hop == "client_to_es"),
+          "3k-c: uplinks differ from the closed form")
+    looped = run_fed_chs(task, dataclasses.replace(config, scan_rounds=False))
+    same_run(torch, "3k-c looped", res, looped)
+    same_run(torch, "3k-c same seed", run_fed_chs(task, config), res)
+    print(f"phase 3k-c: smoke {MOE_ARCH} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token}; {d} params in "
+          f"{len(leaf_sizes)} leaves) Fed-CHS QSGD(16), flash, {rounds} rounds scanned in "
+          f"{ms / 1e3:.2f} s: launches {launches} (exact); {n_up} uplinks of {up} bits (the "
+          f"closed form); scanned = looped = a second run, bit for bit; perplexity "
+          f"{res.test_acc}")
+
+    # card against CPU.  Expert choice gives each expert the top half of the
+    # tokens, so a token at the boundary switches experts under any change of
+    # float order, and QSGD codes flip with it: after its first round the run
+    # strays even from itself.  Each QSGD comparison prints the CPU run
+    # against itself from weights 1 + 2^-23 apart; the 3-round run's gap is
+    # printed beside it, the first round's is held to MOE_QSGD_BOUND.
+    def cpu_run(conf, c=cfg, scale=1.0):
+        return run_fed_chs(lm_task(c, device="cpu", init_on_cpu=True, scale=scale, **kw), conf)
+
+    p0 = lm_task(cfg, device="cpu", init_on_cpu=True, **kw).init_params()
+
+    def gaps(name, on_card, conf, controls=()):
+        on_cpu, twin = cpu_run(conf), cpu_run(conf, scale=1 + F32_ULP)
+        _, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
+        _, ulp_rel, _, _ = card_vs_cpu(torch, twin, on_cpu, p0)
+        b = flat_params(torch, on_cpu.final_params)
+        update = float((b - flat_params(torch, p0)).norm())
+        read = {c_name: float((flat_params(torch, c_run.final_params) - b).norm()) / update
+                for c_name, c_run in controls}
+        print(f"  {name}, card vs CPU plain path: params gap {upd_rel:.3g} of the update (which "
+              f"is {upd:.3g} of p_T), largest perplexity gap {gap:.3g}; the CPU run against "
+              f"itself from weights 1 + 2^-23 apart: {ulp_rel:.3g}"
+              + "".join(f"; {c_name} control {r:.3g}" for c_name, r in read.items()))
+        return upd_rel, read
+
+    gaps(f"the {rounds}-round QSGD(16) run above", res, config)
+    one = dataclasses.replace(config, rounds=1)
+    upd_rel, read = gaps(
+        f"its first round alone (bound {MOE_QSGD_BOUND})", run_fed_chs(task, one), one,
+        [("no-update", cpu_run(dataclasses.replace(one, schedule=lambda k: 0.0))),
+         ("dense-uplink", cpu_run(dataclasses.replace(one, channel=DenseChannel()))),
+         ("QSGD(15)", cpu_run(dataclasses.replace(one, channel=QSGDChannel(15)))),
+         ("QSGD(8)", cpu_run(dataclasses.replace(one, channel=QSGDChannel(8))))])
+    check(upd_rel <= MOE_QSGD_BOUND, "3k-c: the card's first MoE round strays from the CPU's")
+    for c_name, r in read.items():
+        check(r > MOE_QSGD_BOUND, f"3k-c: the bound would pass the {c_name} control")
+    grad = FedCHSConfig(rounds=2, local_steps=4, local_epochs=1, eval_every=1,
+                        channel=DenseChannel(), seed=0, schedule=lambda k: 0.3)
+    on_card = run_fed_chs(task, grad)
+    on_cpu = cpu_run(grad)
+    _, upd_rel, upd, _ = card_vs_cpu(torch, on_card, on_cpu, p0)
+    wrong = dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16)
+    _, ctrl_rel, _, _ = card_vs_cpu(torch, cpu_run(grad, wrong), on_cpu, p0)
+    print(f"  grad mode (dense uplinks, E=1, 2 rounds), card vs CPU plain path: params gap "
+          f"{upd_rel:.3g} of the update (which is {upd:.3g} of p_T; bound {GRAD_BOUND:g}); "
+          f"wrong-mask control on the CPU (window 16) reads {ctrl_rel:.3g}")
+    check(upd_rel <= GRAD_BOUND, "3k-c: the card's grad-mode MoE run strays from the CPU run")
+    check(ctrl_rel > GRAD_BOUND, "3k-c: the grad-mode bound would pass a wrong attention mask")
+
+    qcfg = smoke_config(LM_ARCH)
+    qparams = tf.init_params(qcfg, 0, "cuda")
+    batched, _ = serve_loop(qcfg, qparams, requests=6, slots=4, prompt_len=6, max_new=8)
+    solo, _ = serve_loop(qcfg, qparams, requests=6, slots=1, prompt_len=6, max_new=8)
+    check(batched == solo and all(len(v) == 8 for v in solo.values()),
+          "3k-c: serve_loop batched differs from solo on the card")
+    print(f"  serve_loop at smoke {LM_ARCH} on the card: 6 requests over 4 slots equal to "
+          f"1 slot, token for token, 8 tokens each")
+
+
 def time_launches(torch, fn, reps, flush):
     """Median of per-launch CUDA-event times (ms), L2 flushed before each.
     A spin of about a millisecond on the card comes first, so the host has
@@ -2457,6 +2790,20 @@ def flash_timings(torch, fa, flush):
           f"{F32_OPS_PER_S / 1e12:g} TFLOP/s outside the tensor cores, {fma_ms:.4f} ms by "
           f"{fma_by}); {row['ms'] / row['library_ms']:.3f}x SDPA's f32 time; bf16 "
           f"{bf16['ms'] / bf16['library_ms']:.3f}x SDPA's bf16 time")
+    # dbrx-132b's prefill shape (phase 3k-a), bf16: a row of its own
+    B, T, S, H, Hkv, hd = FLASH_DBRX
+    q, k, v = flash_inputs(torch, gen, B, T, S, H, Hkv, hd, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    dbrx = timed_row(
+        torch, flush, "flash_attention", f"dbrx-132b prefill B={B} T=S={T} H={H} Hkv={Hkv} "
+        f"hd={hd} torch.bfloat16", *flash_work(B, T, S, H, Hkv, hd, q.element_size()),
+        lambda: fa.flash_attention(q, k, v, causal=True),
+        lambda: fa.flash_attention_plain(q, k, v, causal=True),
+        library=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=True),
+        ops_per_s=BF16_OPS_PER_S)
+    print(f"phase 4: flash_attention at dbrx-132b's prefill shape: "
+          f"{dbrx['ms'] / dbrx['library_ms']:.3f}x SDPA's bf16 time")
     return row
 
 
@@ -2547,6 +2894,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     telemetry_lm_path(torch, build)
     elapsed("3j-a's LM arm")
+    torch.cuda.empty_cache()
+    moe_serving_path(torch, build)
+    torch.cuda.empty_cache()
+    moe_train_step_path(torch, build)
+    torch.cuda.empty_cache()
+    moe_fed_path(torch, build)
+    elapsed("3k")
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2

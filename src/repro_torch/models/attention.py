@@ -16,9 +16,15 @@ axis, and one kernel launch serves every client of a step.  (A
 `torch.func` transforms: its generated autograd function has no
 `setup_context`.)
 
-Not ported: decode attention with caches, and MLA.
+Decode attends one query against a fixed-capacity cache: full caches are
+written at `len` (clamped to the last slot), sliding-window caches are ring
+buffers written at `len % S`.  Decode attention is plain torch in f32, as
+the reference's is plain jnp.
 
-Shapes: x (B, T, D); q (B, T, H, hd); kv (B, S, Hkv, hd).
+Not ported: MLA.
+
+Shapes: x (B, T, D); q (B, T, H, hd); kv (B, S, Hkv, hd); caches
+(B, S, Hkv, hd).
 """
 from __future__ import annotations
 
@@ -165,3 +171,48 @@ def attention_forward(cfg: ArchConfig, p, x, *, window: int | None = None):
     else:
         out = blockwise_attention(q, k, v, causal=True, window=window)
     return out.reshape(B, T, -1) @ p["wo"]
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int | None = None):
+    """Single-step decode: q (B,1,H,hd) against caches (B,S,Hkv,hd) in f32;
+    positions >= cache_len (B,) are masked.  A sliding-window cache is a
+    ring buffer, so its live entries are all valid and `window` is already
+    structural."""
+    B, T, H, hd = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    g = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qf = (q * scale).float().reshape(B, T, Hkv, g, hd)
+    s = torch.einsum("bthgd,bshd->bthgs", qf, k_cache.float())
+    valid = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]
+    s = torch.where(valid[:, None, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bthgs,bshd->bthgd", p, v_cache.float())
+    return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+def attention_decode(cfg: ArchConfig, p, x, cache: dict, *, window: int | None = None):
+    """One-token decode. cache = {"k": (B,S,Hkv,hd), "v": ..., "len": (B,)}
+    -> (y (B,1,D), new cache); the cache passed in is not written."""
+    B, T, _ = x.shape
+    if T != 1:
+        raise ValueError(f"decode takes one token per sequence, got {T}")
+    q, k, v = _project_qkv(cfg, p, x, cache["len"][:, None])
+    S = cache["k"].shape[1]
+    slot = cache["len"] % S if window is not None else torch.clamp(cache["len"], max=S - 1)
+    at = (torch.arange(B, device=x.device), slot.long())
+    k_cache = cache["k"].index_put(at, k[:, 0])
+    v_cache = cache["v"].index_put(at, v[:, 0])
+    new_len = cache["len"] + 1
+    eff_len = torch.clamp(new_len, max=S) if window is not None else new_len
+    out = decode_attention(q, k_cache, v_cache, eff_len, window=window)
+    return out.reshape(B, T, -1) @ p["wo"], {"k": k_cache, "v": v_cache, "len": new_len}
+
+
+def init_attn_cache(cfg: ArchConfig, batch: int, capacity: int, dtype, device) -> dict:
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, capacity, hkv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, capacity, hkv, hd), dtype=dtype, device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }

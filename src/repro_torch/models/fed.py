@@ -63,9 +63,10 @@ class ClassifierFedModel:
 class LMFedModel:
     """Decoder transformer LM as a FedModel.
 
-    Batch = {"tokens": (B, T) int32, "labels": (B, T) int32}; the loss is the
-    next-token cross entropy of `models.transformer.loss_fn`, the metric the
-    perplexity over a fixed held-out batch set.  `flash` routes
+    Batch = {"tokens": (B, T) int32, "labels": (B, T) int32}; the loss is
+    `models.transformer.loss_fn`, the next-token cross entropy plus a MoE
+    model's router aux loss, and the metric exp(mean loss) over a fixed
+    held-out batch set, aux included, as the reference's.  `flash` routes
     self-attention through the flash-attention kernel (sets
     `cfg.use_flash`); `remat` recomputes each superblock in the backward
     pass instead of keeping its activations (`transformer.RematBlock`).

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense attention blocks (port of the training
-path of `repro/models/transformer.py`).
+"""Decoder-only transformer LM: attention blocks with a dense or MoE FFN,
+training and serving (port of `repro/models/transformer.py`).
 
 Layout, as the reference's: the arch's `block_pattern` is stacked
 `num_layers // len(pattern)` times into "superblocks" whose params carry a
@@ -7,7 +7,18 @@ leading layer axis (`params["super"][pos]["attn"]["wq"]` is (L, d, H*hd)),
 and the remainder layers are an unstacked "tail" list.  The leaves, their
 order and their shapes are the reference's, so a message's per-leaf QSGD
 keys and its ledger price are too.  `forward` loops over the layer axis
-where the reference scans it.
+where the reference scans it.  Decode caches are laid out the same way:
+`init_caches(...)["super"][pos]` stacks the layers' caches on a leading
+axis (batch on axis 1), `["tail"][i]` holds one layer's (batch on axis 0).
+
+Entry points (all functional):
+  init_params(cfg, seed, device)          -> params
+  forward(cfg, params, batch)             -> (logits, aux_loss)
+  loss_fn(cfg, params, batch)             -> cross entropy + aux_loss
+  make_train_step(cfg)                    -> (params, batch, lr) -> (params, loss)
+  init_caches(cfg, batch, capacity)       -> caches
+  decode_step(cfg, params, caches, token) -> (logits (B, V), caches)
+  prefill(cfg, params, batch)             -> (last-position logits, caches)
 
 `forward(..., remat=True)` recomputes each superblock in the backward pass
 instead of keeping its activations, as the reference's `jax.checkpoint`
@@ -17,23 +28,23 @@ and layer tensors, and its backward runs the block again under
 engine's `vmap(grad_and_value(...))`: torch.func refuses its saved-tensor
 hooks, and its reentrant form has no `setup_context`.)
 
-Block kinds ported: "attn" and "local" (sliding window), with a dense FFN.
-Not ported (`check_ported` raises NotImplementedError): MLA, MoE, SSD and
-RG-LRU blocks, the encoder, patch embeddings, multi-token prediction;
-decode, prefill and serving.
+Block kinds ported: "attn" and "local" (sliding window), with a dense or
+MoE FFN.  Not ported (`check_ported` raises NotImplementedError): MLA,
+SSD and RG-LRU blocks, the encoder and its cross-attention caches, patch
+embeddings, multi-token prediction.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from torch.func import vjp
+from torch.func import grad_and_value, vjp
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import attention_forward, init_attention
+from repro_torch.models import attention as attn
 from repro_torch.models.common import cross_entropy_loss, dense_init, rms_norm
-from repro_torch.models.ffn import ffn_forward, init_ffn
-from repro_torch.utils import tree_flatten, tree_unflatten
+from repro_torch.models.ffn import ffn_forward, init_ffn, init_moe, moe_forward
+from repro_torch.utils import resolve_device, tree_flatten, tree_map, tree_unflatten
 
 KINDS = ("attn", "local")
 
@@ -41,7 +52,7 @@ KINDS = ("attn", "local")
 def check_ported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for the parts of `cfg` the port lacks."""
     missing = [name for name, on in (
-        ("MLA", cfg.mla is not None), ("MoE", cfg.is_moe),
+        ("MLA", cfg.mla is not None),
         ("encoder", cfg.is_encoder_decoder), ("patch embeddings", bool(cfg.num_patches)),
         ("multi-token prediction", bool(cfg.mtp_depth)),
     ) if on]
@@ -61,18 +72,62 @@ def _layout(cfg: ArchConfig) -> tuple[int, int]:
     return cfg.num_layers // plen, cfg.num_layers % plen
 
 
+def _head(cfg: ArchConfig, params: dict) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ==========================================================================
+# per-block init / forward / decode
+# ==========================================================================
+
+
 def init_block(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()) -> dict:
+    """A block's params, drawn attention first, then the FFN."""
     ones = torch.ones((*lead, cfg.d_model), dtype=dtype, device=gen.device)
-    return {"ln1": ones, "attn": init_attention(cfg, gen, dtype, lead),
-            "ln2": ones.clone(), "ffn": init_ffn(cfg, gen, dtype, lead)}
+    p = {"ln1": ones, "attn": attn.init_attention(cfg, gen, dtype, lead), "ln2": ones.clone()}
+    p["ffn"] = init_moe(cfg, gen, dtype, lead) if cfg.is_moe else init_ffn(cfg, gen, dtype, lead)
+    return p
 
 
-def block_forward(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x (B,T,d) -> x'. Causal training path."""
+def _ffn(cfg: ArchConfig, p: dict, x: torch.Tensor, moe_method: str):
+    """x + FFN(norm(x)), and the block's aux loss (f32 zero without MoE)."""
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.is_moe:
+        y, aux = moe_forward(cfg, p["ffn"], h, method=moe_method)
+        return x + y, aux
+    return x + ffn_forward(cfg, p["ffn"], h), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def block_forward(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
+                  moe_method: str = "expert_choice") -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B,T,d) -> (x', aux). Causal training / prefill path."""
     window = cfg.sliding_window if kind == "local" else None
-    x = x + attention_forward(cfg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                              window=window)
-    return x + ffn_forward(cfg, p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    x = x + attn.attention_forward(cfg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                                   window=window)
+    return _ffn(cfg, p, x, moe_method)
+
+
+def init_block_cache(cfg: ArchConfig, kind: str, batch: int, capacity: int, dtype,
+                     device) -> dict:
+    """A block's decode cache; a sliding-window block's is a ring buffer of
+    at most `sliding_window` entries."""
+    cap = capacity if kind == "attn" else min(capacity, cfg.sliding_window)
+    return {"self": attn.init_attn_cache(cfg, batch, cap, dtype, device)}
+
+
+def block_decode(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, cache: dict, *,
+                 moe_method: str = "expert_choice") -> tuple[torch.Tensor, dict]:
+    """x (B,1,d) against the block's cache -> (x', new cache)."""
+    window = cfg.sliding_window if kind == "local" else None
+    y, new_self = attn.attention_decode(cfg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                                        cache["self"], window=window)
+    x, _ = _ffn(cfg, p, x + y, moe_method)
+    return x, dict(cache, self=new_self)
+
+
+# ==========================================================================
+# params, forward, loss, train step
+# ==========================================================================
 
 
 def init_params(cfg: ArchConfig, seed: int, device) -> dict:
@@ -93,68 +148,204 @@ def init_params(cfg: ArchConfig, seed: int, device) -> dict:
     return p
 
 
-def super_block(cfg: ArchConfig, treedefs: tuple, h: torch.Tensor, *leaves) -> torch.Tensor:
-    """One superblock: the layers of `cfg.block_pattern` in turn.  `leaves`
-    are the layers' tensors in pattern order, `treedefs` their structures."""
-    i = 0
+def super_block(cfg: ArchConfig, moe_method: str, treedefs: tuple, h: torch.Tensor,
+                *leaves) -> tuple[torch.Tensor, torch.Tensor]:
+    """One superblock: the layers of `cfg.block_pattern` in turn, and the
+    sum of their aux losses.  `leaves` are the layers' tensors in pattern
+    order, `treedefs` their structures."""
+    i, aux = 0, torch.zeros((), dtype=torch.float32, device=h.device)
     for kind, (treedef, n) in zip(cfg.block_pattern, treedefs):
-        h = block_forward(cfg, kind, tree_unflatten(treedef, list(leaves[i:i + n])), h)
+        h, a = block_forward(cfg, kind, tree_unflatten(treedef, list(leaves[i:i + n])), h,
+                             moe_method=moe_method)
+        aux = aux + a
         i += n
-    return h
+    return h, aux
 
 
 class RematBlock(torch.autograd.Function):
     """A superblock that keeps no activations: the forward saves its input
     and layer tensors only, and the backward recomputes the block under
-    `torch.func.vjp` and pulls the cotangent back through it.  The vmap rule
-    is generated, so it runs under the engine's vmap over clients; a flash
-    attention call inside it runs its kernel again in the recompute."""
+    `torch.func.vjp` and pulls both cotangents (activations and aux loss)
+    back through it.  The vmap rule is generated, so it runs under the
+    engine's vmap over clients; a flash attention call inside it runs its
+    kernel again in the recompute."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(cfg, treedefs, h, *leaves):
-        return super_block(cfg, treedefs, h, *leaves)
+    def forward(cfg, moe_method, treedefs, h, *leaves):
+        return super_block(cfg, moe_method, treedefs, h, *leaves)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        cfg, treedefs, h, *leaves = inputs
-        ctx.cfg, ctx.treedefs = cfg, treedefs
+        cfg, moe_method, treedefs, h, *leaves = inputs
+        ctx.cfg, ctx.moe_method, ctx.treedefs = cfg, moe_method, treedefs
         ctx.save_for_backward(h, *leaves)
 
     @staticmethod
-    def backward(ctx, ct):
-        _, pullback = vjp(lambda *xs: super_block(ctx.cfg, ctx.treedefs, *xs),
+    def backward(ctx, ct_h, ct_aux):
+        _, pullback = vjp(lambda *xs: super_block(ctx.cfg, ctx.moe_method, ctx.treedefs, *xs),
                           *ctx.saved_tensors)
-        return (None, None, *pullback(ct))
+        return (None, None, None, *pullback((ct_h, ct_aux)))
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False) -> torch.Tensor:
-    """-> logits (B, T, V).  `remat` recomputes each superblock in the
-    backward pass (`RematBlock`)."""
-    x = F.embedding(batch["tokens"].long(), params["embed"])
-    plen = len(cfg.block_pattern)
-    n_super, n_tail = _layout(cfg)
-    # one unbind per stacked leaf: its backward stacks the layers' grads
-    # once, where indexing each layer fills and adds a zero tensor of the
-    # whole stack per layer
+def _stacked_layers(cfg: ArchConfig, params: dict) -> tuple[tuple, list[list]]:
+    """(treedefs, per-layer leaves) of the superblocks.  One unbind per
+    stacked leaf: its backward stacks the layers' grads once, where
+    indexing each layer fills and adds a zero tensor of the whole stack per
+    layer."""
+    n_super, _ = _layout(cfg)
     stacks = []
-    for pos in range(plen if n_super else 0):
+    for pos in range(len(cfg.block_pattern) if n_super else 0):
         leaves, treedef = tree_flatten(params["super"][pos])
         stacks.append((treedef, [leaf.unbind(0) for leaf in leaves]))
     treedefs = tuple((treedef, len(layers)) for treedef, layers in stacks)
-    for r in range(n_super):
-        leaves = [u[r] for _, layers in stacks for u in layers]
+    return treedefs, [[u[r] for _, layers in stacks for u in layers] for r in range(n_super)]
+
+
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
+            moe_method: str = "expert_choice", last_only: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (logits (B, T, V), or (B, 1, V) with `last_only`, aux loss).
+    `remat` recomputes each superblock in the backward pass (`RematBlock`);
+    `last_only` slices the hidden state to the last position before the
+    LM head, so a prefill never holds (B, T, V) logits."""
+    x = F.embedding(batch["tokens"].long(), params["embed"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_super, n_tail = _layout(cfg)
+    treedefs, layers = _stacked_layers(cfg, params)
+    for leaves in layers:
         if remat:
-            x = RematBlock.apply(cfg, treedefs, x, *leaves)
+            x, a = RematBlock.apply(cfg, moe_method, treedefs, x, *leaves)
         else:
-            x = super_block(cfg, treedefs, x, *leaves)
+            x, a = super_block(cfg, moe_method, treedefs, x, *leaves)
+        aux = aux + a
+    plen = len(cfg.block_pattern)
     for i in range(n_tail):
-        x = block_forward(cfg, cfg.block_kind(n_super * plen + i), params["tail"][i], x)
+        x, a = block_forward(cfg, cfg.block_kind(n_super * plen + i), params["tail"][i], x,
+                             moe_method=moe_method)
+        aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    if last_only:
+        x = x[:, -1:]
+    return x @ _head(cfg, params), aux
 
 
-def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False) -> torch.Tensor:
-    return cross_entropy_loss(forward(cfg, params, batch, remat=remat), batch["labels"])
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
+            moe_method: str = "expert_choice") -> torch.Tensor:
+    """Mean next-token cross entropy plus the MoE aux loss."""
+    logits, aux = forward(cfg, params, batch, remat=remat, moe_method=moe_method)
+    return cross_entropy_loss(logits, batch["labels"]) + aux
+
+
+def sgd_update(params: dict, grads: dict, lr: float) -> dict:
+    """p - lr * g, computed in f32 and rounded to each leaf's dtype (`torch.add`
+    with alpha), as the reference's step with an f32 learning rate."""
+    return tree_map(lambda p, g: torch.add(p, g, alpha=-lr), params, grads)
+
+
+def make_train_step(cfg: ArchConfig, *, remat: bool = True, moe_method: str = "expert_choice"):
+    """Plain SGD step, the Eq. (5)-compatible unit the FL layer composes:
+    (params, batch, lr) -> (new params, loss)."""
+
+    def train_step(params: dict, batch: dict, lr: float):
+        grads, loss = grad_and_value(
+            lambda p: loss_fn(cfg, p, batch, remat=remat, moe_method=moe_method))(params)
+        return sgd_update(params, grads, lr), loss
+
+    return train_step
+
+
+# ==========================================================================
+# serving: caches, single-token decode, prefill
+# ==========================================================================
+
+
+def init_caches(cfg: ArchConfig, batch: int, capacity: int, *, device=None) -> dict:
+    """Empty decode caches for `batch` sequences of up to `capacity` tokens,
+    on `device` (the card unless asked): {"super": per pattern position, the
+    layers' caches stacked on axis 0; "tail": one per remainder layer}."""
+    check_ported(cfg)
+    device = resolve_device(device)
+    dtype = _dtype(cfg)
+    n_super, n_tail = _layout(cfg)
+    plen = len(cfg.block_pattern)
+    super_caches = [
+        tree_map(lambda *xs: torch.stack(xs),
+                 *[init_block_cache(cfg, kind, batch, capacity, dtype, device)
+                   for _ in range(n_super)])
+        for kind in cfg.block_pattern] if n_super else []
+    tail = [init_block_cache(cfg, cfg.block_kind(n_super * plen + i), batch, capacity, dtype,
+                             device) for i in range(n_tail)]
+    return {"super": super_caches, "tail": tail}
+
+
+def _map_named(tree, name: str, fn):
+    """`tree` with `fn` applied to every leaf stored under the key `name`."""
+    if isinstance(tree, dict):
+        return {k: fn(v) if k == name else _map_named(v, name, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_named(v, name, fn) for v in tree)
+    return tree
+
+
+def set_cache_len(caches: dict, new_len: int) -> dict:
+    """Mark caches as holding `new_len` tokens."""
+    return _map_named(caches, "len", lambda t: torch.full_like(t, new_len))
+
+
+def decode_step(cfg: ArchConfig, params: dict, caches: dict, token: torch.Tensor, *,
+                moe_method: str = "expert_choice") -> tuple[torch.Tensor, dict]:
+    """token (B, 1) int -> (logits (B, V), new caches): one new token
+    against the caches.  The caches passed in are not written."""
+    x = F.embedding(token.long(), params["embed"])
+    plen = len(cfg.block_pattern)
+    n_super, n_tail = _layout(cfg)
+    treedefs, layers = _stacked_layers(cfg, params)
+    cache_defs, cache_layers = _stacked_layers(cfg, caches)
+    new_layers = []
+    for leaves, cache_leaves in zip(layers, cache_layers):
+        i, j, new_leaves = 0, 0, []
+        for kind, (treedef, n), (cache_def, m) in zip(cfg.block_pattern, treedefs, cache_defs):
+            x, nc = block_decode(cfg, kind, tree_unflatten(treedef, leaves[i:i + n]), x,
+                                 tree_unflatten(cache_def, cache_leaves[j:j + m]),
+                                 moe_method=moe_method)
+            new_leaves += tree_flatten(nc)[0]
+            i, j = i + n, j + m
+        new_layers.append(new_leaves)
+    new_super, j = [], 0
+    for cache_def, m in cache_defs:
+        new_super.append(tree_unflatten(
+            cache_def, [torch.stack(xs) for xs in zip(*(ls[j:j + m] for ls in new_layers))]))
+        j += m
+    new_tail = []
+    for i in range(n_tail):
+        x, nc = block_decode(cfg, cfg.block_kind(n_super * plen + i), params["tail"][i], x,
+                             caches["tail"][i], moe_method=moe_method)
+        new_tail.append(nc)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ _head(cfg, params))[:, 0], {"super": new_super, "tail": new_tail}
+
+
+def prefill(cfg: ArchConfig, params: dict, batch: dict, *, capacity: int | None = None,
+            moe_method: str = "expert_choice") -> tuple[torch.Tensor, dict]:
+    """Run the whole prompt: (last-position logits (B, V), caches filled
+    with it, room for `capacity` tokens (default the prompt's length)).
+    The LM head sees only the last position (`last_only`), so no (B, T, V)
+    logits are made."""
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    logits, _ = forward(cfg, params, batch, moe_method=moe_method, last_only=True)
+    caches = init_caches(cfg, B, capacity or T, device=tokens.device)
+    caches = _fill_caches_by_replay(cfg, params, batch, caches, moe_method=moe_method)
+    return logits[:, -1], caches
+
+
+def _fill_caches_by_replay(cfg: ArchConfig, params: dict, batch: dict, caches: dict, *,
+                           moe_method: str) -> dict:
+    """Decode the prompt token by token to fill the caches (the reference's
+    "reference-quality path": one decode step per prompt token)."""
+    tokens = batch["tokens"]
+    for t in range(tokens.shape[1]):
+        _, caches = decode_step(cfg, params, caches, tokens[:, t:t + 1], moe_method=moe_method)
+    return caches

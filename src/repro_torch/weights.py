@@ -15,11 +15,17 @@ from repro_torch.utils import resolve_device
 
 
 def params_from_jax(np_tree: Any, device=None) -> Any:
-    """Tree of arrays (e.g. `np.asarray` of the reference's params: dicts and
-    lists) -> the same tree of tensors on `device` (the card unless asked)."""
+    """Tree of arrays (e.g. `np.asarray` of the reference's params or
+    caches: dicts and lists) -> the same tree of tensors on `device` (the
+    card unless asked), each leaf in its own dtype: a bf16 leaf (numpy's
+    `ml_dtypes.bfloat16`, which torch cannot read) goes across as its bit
+    pattern, so an f32 router inside a bf16 tree stays f32."""
     device = resolve_device(device)
     if isinstance(np_tree, dict):
         return {k: params_from_jax(v, device) for k, v in np_tree.items()}
     if isinstance(np_tree, (list, tuple)):
         return type(np_tree)(params_from_jax(v, device) for v in np_tree)
-    return torch.from_numpy(np.array(np_tree, copy=True)).to(device)
+    arr = np.array(np_tree, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)

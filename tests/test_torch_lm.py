@@ -162,14 +162,15 @@ def test_token_source_draws_match_reference():
     np.testing.assert_array_equal(src.next_batch(0)["tokens"], jsrc.next_batch(0)["tokens"])
 
 
-# ids as the cases had them when the list also held remat=True, ported since
+# ids as the cases had them when the list also held remat=True and the MoE
+# case (make1), both ported since
 @pytest.mark.parametrize("make", [
-    lambda: LMFedModel(smoke_config("dbrx-132b")),          # MoE
-    lambda: LMFedModel(smoke_config("deepseek-v3-671b")),   # MLA, MoE, MTP
+    lambda: LMFedModel(smoke_config("deepseek-v3-671b")),   # MLA, MTP
     lambda: LMFedModel(smoke_config("mamba2-370m")),        # SSD blocks
     lambda: LMFedModel(smoke_config("recurrentgemma-9b")),  # RG-LRU blocks
     lambda: LMFedModel(smoke_config("whisper-tiny")),       # encoder
-], ids=["make1", "make2", "make3", "make4", "make5"])
+    lambda: LMFedModel(smoke_config("phi-3-vision-4.2b")),  # patch embeddings
+], ids=["make2", "make3", "make4", "make5", "make6"])
 def test_unported_model_options_raise(make):
     with pytest.raises(NotImplementedError):
         make()
