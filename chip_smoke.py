@@ -117,6 +117,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
         = a second run bit for bit, card against the CPU beside controls,
         and `serve_loop` at smoke qwen3-0.6b on the card, batched = solo
         (3k-c);
+     l. MLA, multi-token prediction and SSD blocks: deepseek-v3-671b at full
+        width (d_model 7168, 128 heads, MLA q rank 1536, kv rank 512, rope
+        64, v 128; 256 experts top-8 of d_ff 2048 and a shared expert;
+        vocab 129280; bf16, random weights) at 1 layer with its MTP block
+        (24.97B params) served as 3k-a serves dbrx (prefill 4 x 128,
+        `serve_loop` of 8 requests over 4 slots, prompt 32, exactly 16 new
+        tokens, a decode step beside its byte bound, decode against
+        forward beside the off-by-one control) and its losses printed
+        (main, MTP, aux) (3l-a); its 1-layer SGD step without MTP (13.36B
+        params; params, grads and one new leaf at a time), the loss falling
+        (3l-b); the smoke deepseek LM under Fed-CHS QSGD(16) as 3k-c holds
+        smoke dbrx (3l-c); mamba2-370m whole (48 layers, 0.42B params):
+        prefill 4 x 272, `serve_loop` (prompt 16, 32 new tokens), decode
+        against forward beside a control that forgets the state, 3 SGD
+        steps of 1 x 512, and smoke mamba2 under Fed-CHS QSGD(16), 2 rounds
+        (3l-d);
   4. time each kernel at its path's shapes with CUDA events (L2 flushed
      before every launch, the card kept busy while the host enqueues it),
      beside its plain version, its bound and, for flash attention, torch's
@@ -2323,7 +2339,10 @@ FLASH_DBRX = (PREFILL_BATCH, PREFILL_SEQ, PREFILL_SEQ, 48, 8, 128)  # prefill's 
 # The two paths round activations to bf16 at other places (the flash
 # kernel's P, other product shapes), and a token whose router scores nearly
 # tie may take another expert.  A 4-layer, d_model 1024 cut of the config
-# read 0.039 on the CPU, and the off-by-one control 0.76.
+# read 0.039 on the CPU, and the off-by-one control 0.76.  Phase 3l-a holds
+# MLA to the same bound: a 1-layer, d_model 1024 cut of deepseek-v3-671b (16
+# heads, 64 experts, the full MLA dims) read 0.0098 and 0.032 on the CPU
+# (two weight draws), the off-by-one control 0.45.
 DECODE_BOUND = 0.125
 # phase 3k-c: the first QSGD(16) round of the smoke MoE LM, card against
 # CPU, over the update.  A code step is a sixteenth of a block norm, and
@@ -2334,6 +2353,7 @@ DECODE_BOUND = 0.125
 # (15) reads 0.56, QSGD(8) 1.08, dense uplinks 0.75, and a run that
 # never updates 1.  Expert choice makes a round chaotic (a 5% smaller step
 # reads 0.52), so a fault in the MoE path reads far above the bound.
+# Phases 3l-c and 3l-d hold their smoke runs to it too.
 MOE_QSGD_BOUND = 0.1
 
 
@@ -2344,48 +2364,68 @@ def moe_batch(torch, cfg, B, T, seed):
             for k, v in synthetic_lm_batch(cfg.vocab_size, B, T, seed=seed).items()}
 
 
-def teacher_forced(torch, cfg, params, tokens, off_by_one=False):
+def teacher_forced(torch, cfg, params, tokens, control=None):
     """Logits (B, T, V) of decode_step fed the prompt token by token with
-    `dense_topk` routing; `off_by_one` writes each token after the first
-    over the previous token's cache slot (a control)."""
+    `dense_topk` routing.  Controls: "off_by_one" writes each token after
+    the first over the previous token's cache slot; "forget" decodes each
+    token from empty caches (an SSD model's state dropped)."""
     from repro_torch.models import transformer as tf
 
     B, T = tokens.shape
-    caches, out = tf.init_caches(cfg, B, T, device=tokens.device), []
+    empty = tf.init_caches(cfg, B, T, device=tokens.device)
+    caches, out = empty, []
     for t in range(T):
-        if off_by_one and t:
+        if control == "off_by_one" and t:
             caches = tf.set_cache_len(caches, t - 1)
+        elif control == "forget":
+            caches = empty
         logits, caches = tf.decode_step(cfg, params, caches, tokens[:, t:t + 1],
                                         moe_method="dense_topk")
         out.append(logits.float())
     return torch.stack(out, dim=1)
 
 
-def moe_serving_path(torch, build):
-    """Phase 3k-a: dbrx-132b at full width, 4 layers, bf16: `prefill` of
-    4 x 512 tokens (the flash kernel once per layer; the forward, the LM
-    head on the last position only, and the cache replay timed apart), `serve_loop` (8 requests over 4 slots, every
-    request exactly max_new tokens; s per batched decode step, tokens/s,
-    peak memory), and teacher-forced decode against `forward` with
-    `dense_topk` routing, held to DECODE_BOUND beside an off-by-one control
-    that the bound must reject."""
-    from repro_torch.configs.registry import get_config
+def flash_layers(cfg) -> int:
+    """Layers whose attention runs the flash kernel when `use_flash` is on:
+    GQA attention blocks (MLA and SSD blocks run no kernel)."""
+    if cfg.mla is not None:
+        return 0
+    return sum(cfg.block_kind(i) in ("attn", "local") for i in range(cfg.num_layers))
+
+
+def decode_read_bytes(params, caches) -> int:
+    """Bytes one batched decode step reads at least: every weight it uses
+    (all experts, since expert choice at one token a slot gives each expert
+    C = 1) and the caches, each once; not the embedding table (one row a
+    slot) and not the MTP block, which decode never runs."""
+    from repro_torch.utils import tree_leaves
+
+    used = [params[k] for k in ("super", "tail", "final_norm", "lm_head") if k in params]
+    return sum(t.numel() * t.element_size() for t in tree_leaves([used, caches]))
+
+
+def serving_path(torch, build, label, cfg, what, prefill, serve, parity, control, bound):
+    """`prefill` of prefill = (B, T) tokens (the flash kernel once per GQA
+    layer; the forward, the LM head on the last position only, and the
+    cache replay timed apart), `serve_loop` (every request exactly max_new
+    tokens; s per batched decode step beside its byte bound, tokens/s, peak
+    memory), and teacher-forced decode against `forward` with `dense_topk`
+    routing, held to `bound` beside a `control` that the bound must reject.
+    Returns the params (for the phase's next checks)."""
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models import transformer as tf
     from repro_torch.utils import tree_leaves, tree_num_params
 
-    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=SERVE_LAYERS, use_flash=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params, init_ms = timed(torch, lambda: tf.init_params(cfg, 0, "cuda"))
     n = tree_num_params(params)
     weights_gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
-    print(f"phase 3k-a: {MOE_ARCH} at full width (d_model {cfg.d_model}, {cfg.num_experts} "
-          f"experts top-{cfg.experts_per_token}, d_ff {cfg.d_ff}, {cfg.num_heads}/"
-          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}), "
-          f"{SERVE_LAYERS} layers: {n} params ({weights_gb:.2f} GB) drawn in {init_ms / 1e3:.2f} s")
+    print(f"phase {label}: {cfg.name} at full width ({what}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}), {cfg.num_layers} layers: {n} params ({weights_gb:.2f} GB) drawn in "
+          f"{init_ms / 1e3:.2f} s")
 
-    B, T = PREFILL_BATCH, PREFILL_SEQ
+    B, T = prefill
     b = moe_batch(torch, cfg, B, T, 0)
     with torch.no_grad():
         timed(torch, lambda: tf.forward(cfg, params, b))  # first launches, cuBLAS set-up
@@ -2398,35 +2438,37 @@ def moe_serving_path(torch, build):
         # beside it the forward that makes all (B, T, V) logits
         _, fwd_ms = timed(torch, lambda: tf.forward(cfg, params, b, last_only=True))
         _, full_ms = timed(torch, lambda: tf.forward(cfg, params, b))
-    want = dict.fromkeys(launches, 0) | {"flash_attention": SERVE_LAYERS}
-    check(launches == want, f"3k-a prefill launches {launches}, expected {want}")
+    want = dict.fromkeys(launches, 0) | {"flash_attention": flash_layers(cfg)}
+    check(launches == want, f"{label} prefill launches {launches}, expected {want}")
     check(tuple(logits.shape) == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
-          "3k-a prefill logits")
+          f"{label} prefill logits")
     lens = [t for t in tree_leaves(caches) if t.dtype == torch.int32]
-    check(all(bool((t == T).all()) for t in lens), "3k-a: the caches do not hold the prompt")
+    check(all(bool((t == T).all()) for t in lens),
+          f"{label}: the caches do not hold the prompt")
     print(f"  prefill of {B} prompts x {T} tokens: {prefill_ms / 1e3:.3f} s; its forward "
           f"{fwd_ms:.1f} ms warm ({full_ms:.1f} ms with all {B} x {T} x {cfg.vocab_size} "
-          f"logits; flash launched {launches['flash_attention']} times, once per "
+          f"logits; flash launched {launches['flash_attention']} times, once per GQA "
           f"layer), the cache replay ({T} decode steps) {(prefill_ms - fwd_ms) / 1e3:.3f} s "
           f"({(prefill_ms - fwd_ms) / T:.2f} ms a step); peak {prefill_gb:.2f} GB")
     del logits, caches
 
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    (done, steps), serve_ms = timed(torch, lambda: serve_loop(cfg, params, **SERVE))
+    (done, steps), serve_ms = timed(torch, lambda: serve_loop(cfg, params, **serve))
     launches = dict(build.LAUNCHES)
     serve_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(sorted(done) == list(range(SERVE["requests"]))
-          and all(len(v) == SERVE["max_new"] for v in done.values())
+    check(sorted(done) == list(range(serve["requests"]))
+          and all(len(v) == serve["max_new"] for v in done.values())
           and all(0 <= t < cfg.vocab_size for v in done.values() for t in v),
-          "3k-a serve_loop: a request without exactly max_new tokens")
-    check(not any(launches.values()), f"3k-a serve_loop launched {launches}")
+          f"{label} serve_loop: a request without exactly max_new tokens")
+    check(not any(launches.values()), f"{label} serve_loop launched {launches}")
     tokens = sum(len(v) for v in done.values())
-    calls = steps + SERVE["requests"] * SERVE["prompt_len"]
-    # one batched decode step at SERVE["slots"] slots, warm, timed alone
-    caches = tf.init_caches(cfg, SERVE["slots"], SERVE["prompt_len"] + SERVE["max_new"],
+    calls = steps + serve["requests"] * serve["prompt_len"]
+    # one batched decode step at serve["slots"] slots, warm, timed alone
+    caches = tf.init_caches(cfg, serve["slots"], serve["prompt_len"] + serve["max_new"],
                             device="cuda")
-    tok = torch.zeros((SERVE["slots"], 1), dtype=torch.int32, device="cuda")
+    step_bound_ms = decode_read_bytes(params, caches) / MEM_BYTES_PER_S * 1e3
+    tok = torch.zeros((serve["slots"], 1), dtype=torch.int32, device="cuda")
     with torch.no_grad():
         for _ in range(2):
             _, caches = tf.decode_step(cfg, params, caches, tok)
@@ -2435,96 +2477,114 @@ def moe_serving_path(torch, build):
             (_, caches), ms = timed(torch, lambda: tf.decode_step(cfg, params, caches, tok))
             steps_ms.append(ms)
     step_ms = statistics.median(steps_ms)
-    print(f"  serve_loop, {SERVE['requests']} requests over {SERVE['slots']} slots, prompt "
-          f"{SERVE['prompt_len']}, max_new {SERVE['max_new']}: {tokens} tokens (exactly "
-          f"{SERVE['max_new']} a request) in {serve_ms / 1e3:.2f} s = "
+    print(f"  serve_loop, {serve['requests']} requests over {serve['slots']} slots, prompt "
+          f"{serve['prompt_len']}, max_new {serve['max_new']}: {tokens} tokens (exactly "
+          f"{serve['max_new']} a request) in {serve_ms / 1e3:.2f} s = "
           f"{tokens / serve_ms * 1e3:.1f} tokens/s; {steps} batched decode steps and "
           f"{calls - steps} teacher-forced prefill "
           f"steps ({serve_ms / calls:.2f} ms a decode_step call); a batched decode step at "
-          f"{SERVE['slots']} slots {step_ms:.2f} ms warm (median of 16; min {min(steps_ms):.2f}); "
+          f"{serve['slots']} slots {step_ms:.2f} ms warm (median of 16; min {min(steps_ms):.2f}; "
+          f"byte bound {step_bound_ms:.2f} ms, {step_ms / step_bound_ms:.2f}x); "
           f"peak {serve_gb:.2f} GB")
 
-    b = moe_batch(torch, cfg, PARITY_BATCH, PARITY_SEQ, 1)
+    b = moe_batch(torch, cfg, *parity, 1)
     with torch.no_grad():
         fwd, _ = tf.forward(cfg, params, b, moe_method="dense_topk")
         fwd = fwd.float()
         dec = teacher_forced(torch, cfg, params, b["tokens"])
-        ctrl = teacher_forced(torch, cfg, params, b["tokens"], off_by_one=True)
+        ctrl = teacher_forced(torch, cfg, params, b["tokens"], control=control)
     rel = float((dec - fwd).norm() / fwd.norm())
     ctrl_rel = float((ctrl - fwd).norm() / fwd.norm())
     agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
-    print(f"  teacher-forced decode_step vs forward (dense_topk, {PARITY_BATCH} x {PARITY_SEQ} "
-          f"tokens): logits {rel:.4g} apart in relative L2 (bound {DECODE_BOUND}), max |diff| "
+    print(f"  teacher-forced decode_step vs forward (dense_topk, {parity[0]} x {parity[1]} "
+          f"tokens): logits {rel:.4g} apart in relative L2 (bound {bound}), max |diff| "
           f"{float((dec - fwd).abs().max()):.3g} of max |logit| {float(fwd.abs().max()):.3g}, "
-          f"argmax equal at {100 * agree:.1f}% of positions; off-by-one cache control "
-          f"{ctrl_rel:.4g}")
-    check(rel <= DECODE_BOUND and bool(torch.isfinite(dec).all()),
-          "3k-a: teacher-forced decode strays from forward")
-    check(ctrl_rel > DECODE_BOUND, "3k-a: the decode bound would pass an off-by-one cache")
-    return {"prefill_s": prefill_ms / 1e3, "step_ms": step_ms}
+          f"argmax equal at {100 * agree:.1f}% of positions; {control.replace('_', '-')} "
+          f"control {ctrl_rel:.4g}")
+    check(rel <= bound and bool(torch.isfinite(dec).all()),
+          f"{label}: teacher-forced decode strays from forward")
+    check(ctrl_rel > bound, f"{label}: the decode bound would pass the {control} control")
+    return params
 
 
-def moe_train_step_path(torch, build):
-    """Phase 3k-b: `make_train_step(remat=True)` on dbrx-132b at full width,
-    2 layers, bf16, batch 1 x 512, flash on, 3 SGD steps on one batch: the
-    loss finite and falling, the aux loss finite, the flash kernel twice per
-    layer per step (forward and the remat recompute), s/step and peak."""
+def moe_serving_path(torch, build):
+    """Phase 3k-a: dbrx-132b at full width, 4 layers, bf16: `prefill` of
+    4 x 512 tokens, `serve_loop` of 8 requests over 4 slots, and
+    teacher-forced decode against `forward` held to DECODE_BOUND beside an
+    off-by-one cache control (`serving_path`)."""
     from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=SERVE_LAYERS, use_flash=True)
+    what = (f"d_model {cfg.d_model}, {cfg.num_experts} experts top-{cfg.experts_per_token}, "
+            f"d_ff {cfg.d_ff}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}")
+    serving_path(torch, build, "3k-a", cfg, what, (PREFILL_BATCH, PREFILL_SEQ), SERVE,
+                 (PARITY_BATCH, PARITY_SEQ), "off_by_one", DECODE_BOUND)
+
+
+def train_step_path(torch, build, label, cfg, seq, lr):
+    """`make_train_step(remat=True)`, batch 1 x `seq`, TRAIN_STEPS SGD steps
+    on one batch: the loss finite and falling, the aux loss finite, the
+    flash kernel twice per GQA layer per step (forward and the remat
+    recompute), s/step and peak."""
     from repro_torch.models import transformer as tf
 
-    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=TRAIN_LAYERS, use_flash=True)
     params = tf.init_params(cfg, 1, "cuda")
-    b = moe_batch(torch, cfg, 1, TRAIN_SEQ, 2)
+    b = moe_batch(torch, cfg, 1, seq, 2)
     step = tf.make_train_step(cfg, remat=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, steps_ms = [], []
     for _ in range(TRAIN_STEPS):
         build.reset_launches()
-        (params, loss), ms = timed(torch, lambda: step(params, b, TRAIN_LR))
+        (params, loss), ms = timed(torch, lambda: step(params, b, lr))
         launches = dict(build.LAUNCHES)
-        want = dict.fromkeys(launches, 0) | {"flash_attention": 2 * TRAIN_LAYERS}
-        check(launches == want, f"3k-b step launches {launches}, expected {want}")
+        want = dict.fromkeys(launches, 0) | {"flash_attention": 2 * flash_layers(cfg)}
+        check(launches == want, f"{label} step launches {launches}, expected {want}")
         losses.append(float(loss))
         steps_ms.append(ms)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with torch.no_grad():
         _, aux = tf.forward(cfg, params, b)
-    print(f"phase 3k-b: {MOE_ARCH} at full width, {TRAIN_LAYERS} layers "
+    print(f"phase {label}: {cfg.name} at full width, {cfg.num_layers} layers "
           f"({cfg.param_count() / 1e9:.2f}B params), make_train_step(remat=True), batch 1 x "
-          f"{TRAIN_SEQ}, flash on, lr {TRAIN_LR}: losses {losses}, aux loss after "
-          f"{float(aux):.5f}; s/step {[round(ms / 1e3, 3) for ms in steps_ms]}; flash "
-          f"{2 * TRAIN_LAYERS} launches a step; peak {peak_gb:.2f} GB")
+          f"{seq}, flash {'on' if cfg.use_flash else 'off'}, lr {lr}: losses {losses}, aux "
+          f"loss after {float(aux):.5f}; s/step {[round(ms / 1e3, 3) for ms in steps_ms]}; "
+          f"flash {2 * flash_layers(cfg)} launches a step; peak {peak_gb:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
     check(all(math.isfinite(x) for x in losses) and math.isfinite(float(aux)),
-          "3k-b: non-finite loss")
-    check(losses[-1] < losses[0], "3k-b: the loss did not fall")
+          f"{label}: non-finite loss")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall")
     return {"step_s": steps_ms[-1] / 1e3, "peak_gb": peak_gb}
 
 
-def moe_fed_path(torch, build):
-    """Phase 3k-c: `LMFedModel(smoke dbrx-132b, flash=True)` under
-    `run_fed_chs` with QSGD(16) uplinks, 4 clients in 2 clusters, scanned:
-    launches exact, every uplink at the closed form, scanned bit-equal to
-    looped and to a second run of the same seed; the same run on the card
-    against the CPU's plain path, printed beside the CPU run's own gap from
-    weights 1 + 2^-23 apart (after its first round the run strays from
-    itself by a third or more of its update), its first round alone held
-    to MOE_QSGD_BOUND beside no-update, dense-uplink, QSGD(15) and QSGD(8)
-    controls, and a
-    grad-mode run held to GRAD_BOUND beside a wrong-mask control, as phase
-    3d holds its LM; then `serve_loop` at smoke qwen3-0.6b on the card,
-    solo equal to batched."""
+def moe_train_step_path(torch, build):
+    """Phase 3k-b: dbrx-132b at full width, 2 layers, bf16, batch 1 x 512,
+    flash on (`train_step_path`)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=TRAIN_LAYERS, use_flash=True)
+    return train_step_path(torch, build, "3k-b", cfg, TRAIN_SEQ, TRAIN_LR)
+
+
+def fed_lm_path(torch, build, label, cfg, rounds, grad_control):
+    """`LMFedModel(cfg, flash=True)` at a smoke config under `run_fed_chs`
+    with QSGD(16) uplinks, 4 clients in 2 clusters, scanned: launches
+    exact, every uplink at the closed form, scanned bit-equal to looped and
+    to a second run of the same seed; the same run on the card against the
+    CPU's plain path, printed beside the CPU run's own gap from weights
+    1 + 2^-23 apart (an expert-choice run strays from itself after its
+    first round by a third or more of its update), its first round alone
+    held to MOE_QSGD_BOUND beside no-update, dense-uplink, QSGD(15) and
+    QSGD(8) controls, and a grad-mode run held to GRAD_BOUND beside
+    `grad_control` = (name, the arch config and the step size it runs on
+    the CPU), as phase 3d holds its LM."""
     from repro_torch.comm.channels import DenseChannel, QSGDChannel, channel_wire_bits
-    from repro_torch.configs.registry import smoke_config
     from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
-    from repro_torch.launch.serve import serve_loop
-    from repro_torch.models import transformer as tf
     from repro_torch.utils import tree_leaves
 
-    cfg = smoke_config(MOE_ARCH)
     kw = dict(num_clients=4, batch_size=2, seq_len=64)
     channel = QSGDChannel(16)
-    rounds, K, E = 3, 4, 2
+    K, E = 4, 2
     config = FedCHSConfig(rounds=rounds, local_steps=K, local_epochs=E, eval_every=1,
                           channel=channel, seed=0, schedule=lambda k: 0.3)
     task = lm_task(cfg, init_on_cpu=True, **kw)
@@ -2535,11 +2595,11 @@ def moe_fed_path(torch, build):
     leaf_sizes = [t.numel() for t in tree_leaves(res.final_params)]
     J, evals = K // E, len(res.rounds)
     n_eval_batches = len(task.source.eval_data()["tokens"])
-    want = {"flash_attention": cfg.num_layers * (rounds * K + evals * n_eval_batches),
+    want = {"flash_attention": flash_layers(cfg) * (rounds * K + evals * n_eval_batches),
             "qsgd_quantize_pack": rounds * J * len(leaf_sizes),
             "qsgd_unpack_dequantize": rounds * J * len(leaf_sizes),
             "qsgd_quantize": 0, "qsgd_dequantize": 0}
-    check(launches == want, f"3k-c launches {launches}, expected {want}")
+    check(launches == want, f"{label} launches {launches}, expected {want}")
     d = sum(leaf_sizes)
     up = channel_wire_bits(channel, d, leaf_sizes)
     led = res.ledger
@@ -2547,22 +2607,22 @@ def moe_fed_path(torch, build):
     n_up = sum(J * len(LM_CLUSTERS[m]) for m in visited)
     check(led.messages["client_to_es"] == n_up and led.bits["client_to_es"] == n_up * up
           and all(e.n_bits == up for e in led.events if e.hop == "client_to_es"),
-          "3k-c: uplinks differ from the closed form")
+          f"{label}: uplinks differ from the closed form")
     looped = run_fed_chs(task, dataclasses.replace(config, scan_rounds=False))
-    same_run(torch, "3k-c looped", res, looped)
-    same_run(torch, "3k-c same seed", run_fed_chs(task, config), res)
-    print(f"phase 3k-c: smoke {MOE_ARCH} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_experts} experts top-{cfg.experts_per_token}; {d} params in "
-          f"{len(leaf_sizes)} leaves) Fed-CHS QSGD(16), flash, {rounds} rounds scanned in "
-          f"{ms / 1e3:.2f} s: launches {launches} (exact); {n_up} uplinks of {up} bits (the "
-          f"closed form); scanned = looped = a second run, bit for bit; perplexity "
-          f"{res.test_acc}")
+    same_run(torch, f"{label} looped", res, looped)
+    same_run(torch, f"{label} same seed", run_fed_chs(task, config), res)
+    moe = (f", {cfg.num_experts} experts top-{cfg.experts_per_token}" if cfg.is_moe else "")
+    print(f"phase {label}: smoke {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}"
+          f"{moe}; {d} params in {len(leaf_sizes)} leaves) Fed-CHS QSGD(16), flash, {rounds} "
+          f"rounds scanned in {ms / 1e3:.2f} s: launches {launches} (exact); {n_up} uplinks of "
+          f"{up} bits (the closed form); scanned = looped = a second run, bit for bit; "
+          f"perplexity {res.test_acc}")
 
     # card against CPU.  Expert choice gives each expert the top half of the
     # tokens, so a token at the boundary switches experts under any change of
     # float order, and QSGD codes flip with it: after its first round the run
     # strays even from itself.  Each QSGD comparison prints the CPU run
-    # against itself from weights 1 + 2^-23 apart; the 3-round run's gap is
+    # against itself from weights 1 + 2^-23 apart; the whole run's gap is
     # printed beside it, the first round's is held to MOE_QSGD_BOUND.
     def cpu_run(conf, c=cfg, scale=1.0):
         return run_fed_chs(lm_task(c, device="cpu", init_on_cpu=True, scale=scale, **kw), conf)
@@ -2591,22 +2651,36 @@ def moe_fed_path(torch, build):
          ("dense-uplink", cpu_run(dataclasses.replace(one, channel=DenseChannel()))),
          ("QSGD(15)", cpu_run(dataclasses.replace(one, channel=QSGDChannel(15)))),
          ("QSGD(8)", cpu_run(dataclasses.replace(one, channel=QSGDChannel(8))))])
-    check(upd_rel <= MOE_QSGD_BOUND, "3k-c: the card's first MoE round strays from the CPU's")
+    check(upd_rel <= MOE_QSGD_BOUND, f"{label}: the card's first round strays from the CPU's")
     for c_name, r in read.items():
-        check(r > MOE_QSGD_BOUND, f"3k-c: the bound would pass the {c_name} control")
+        check(r > MOE_QSGD_BOUND, f"{label}: the bound would pass the {c_name} control")
     grad = FedCHSConfig(rounds=2, local_steps=4, local_epochs=1, eval_every=1,
                         channel=DenseChannel(), seed=0, schedule=lambda k: 0.3)
     on_card = run_fed_chs(task, grad)
     on_cpu = cpu_run(grad)
     _, upd_rel, upd, _ = card_vs_cpu(torch, on_card, on_cpu, p0)
-    wrong = dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16)
-    _, ctrl_rel, _, _ = card_vs_cpu(torch, cpu_run(grad, wrong), on_cpu, p0)
+    ctrl_name, ctrl_cfg, ctrl_lr = grad_control
+    ctrl = cpu_run(dataclasses.replace(grad, schedule=lambda k: ctrl_lr), ctrl_cfg)
+    _, ctrl_rel, _, _ = card_vs_cpu(torch, ctrl, on_cpu, p0)
     print(f"  grad mode (dense uplinks, E=1, 2 rounds), card vs CPU plain path: params gap "
           f"{upd_rel:.3g} of the update (which is {upd:.3g} of p_T; bound {GRAD_BOUND:g}); "
-          f"wrong-mask control on the CPU (window 16) reads {ctrl_rel:.3g}")
-    check(upd_rel <= GRAD_BOUND, "3k-c: the card's grad-mode MoE run strays from the CPU run")
-    check(ctrl_rel > GRAD_BOUND, "3k-c: the grad-mode bound would pass a wrong attention mask")
+          f"{ctrl_name} reads {ctrl_rel:.3g}")
+    check(upd_rel <= GRAD_BOUND, f"{label}: the card's grad-mode run strays from the CPU run")
+    check(ctrl_rel > GRAD_BOUND, f"{label}: the grad-mode bound would pass the {ctrl_name}")
 
+
+def moe_fed_path(torch, build):
+    """Phase 3k-c: smoke dbrx-132b under Fed-CHS QSGD(16), 3 rounds
+    (`fed_lm_path`, with a wrong-mask grad-mode control); then `serve_loop`
+    at smoke qwen3-0.6b on the card, solo equal to batched."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models import transformer as tf
+
+    cfg = smoke_config(MOE_ARCH)
+    fed_lm_path(torch, build, "3k-c", cfg, 3, (
+        "wrong-mask control on the CPU (window 16)",
+        dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16), 0.3))
     qcfg = smoke_config(LM_ARCH)
     qparams = tf.init_params(qcfg, 0, "cuda")
     batched, _ = serve_loop(qcfg, qparams, requests=6, slots=4, prompt_len=6, max_new=8)
@@ -2615,6 +2689,108 @@ def moe_fed_path(torch, build):
           "3k-c: serve_loop batched differs from solo on the card")
     print(f"  serve_loop at smoke {LM_ARCH} on the card: 6 requests over 4 slots equal to "
           f"1 slot, token for token, 8 tokens each")
+
+
+# phase 3l: MLA and multi-token prediction through deepseek-v3-671b at full
+# width (d_model 7168, 128 heads, MLA q rank 1536, kv rank 512, rope 64, v
+# 128; 256 routed experts top-8 of d_ff 2048 and a shared expert; vocab
+# 129280; bf16, random weights), cut to 1 layer: served with its MTP block
+# (24.97B params), its SGD step without it (13.36B); the smoke deepseek LM
+# under Fed-CHS; then SSD blocks through mamba2-370m at full size.
+MLA_ARCH, SSD_ARCH = "deepseek-v3-671b", "mamba2-370m"
+MLA_PREFILL, MLA_PARITY, MLA_TRAIN_SEQ = (4, 128), (2, 32), 256
+MLA_SERVE = dict(requests=8, slots=4, prompt_len=32, max_new=16)
+# the SSD decode step is host-bound (66-95 ms at 48 layers on an H100 80GB
+# HBM3 at 700 W), so the prompts decoded token by token are cut: the
+# prefill to 272 tokens (two chunks of 256, the second ragged), the serving
+# prompts to 16
+SSD_PREFILL, SSD_PARITY, SSD_TRAIN_SEQ = (4, 272), (2, 64), 512
+SSD_SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=32)
+# mamba2-370m's teacher-forced decode against its chunked forward in bf16:
+# 48 layers round the conv and the residual stream at other places (the
+# forward sums the conv's bf16 products, decode contracts the history in
+# f32).  The whole model on the CPU read 0.088 and 0.093 (two weight
+# draws), argmax equal at 76-81% of positions; decoding every token from an
+# empty state read 1.38.
+SSD_DECODE_BOUND = 0.3
+
+
+def mla_serving_path(torch, build):
+    """Phase 3l-a: deepseek-v3-671b at full width, 1 layer, with its MTP
+    block, bf16: `serving_path` (prefill 4 x 128, `serve_loop` 8 requests
+    over 4 slots, prompt 32, 16 new tokens, decode against forward at
+    DECODE_BOUND beside an off-by-one control), then `loss_fn` with MTP:
+    the main, MTP and aux losses, their sum equal to `loss_fn`."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import cross_entropy_loss
+
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=1)
+    m = cfg.mla
+    what = (f"d_model {cfg.d_model}, {cfg.num_heads} heads, MLA q rank {m.q_lora_rank}, kv "
+            f"rank {m.kv_lora_rank}, nope {m.qk_nope_head_dim} + rope {m.qk_rope_head_dim}, v "
+            f"{m.v_head_dim}; {cfg.num_experts} experts top-{cfg.experts_per_token} of d_ff "
+            f"{cfg.d_ff} and {cfg.num_shared_experts} shared; MTP depth {cfg.mtp_depth}")
+    params = serving_path(torch, build, "3l-a", cfg, what, MLA_PREFILL, MLA_SERVE, MLA_PARITY,
+                          "off_by_one", DECODE_BOUND)
+    b = moe_batch(torch, cfg, 2, 64, 3)
+    with torch.no_grad():
+        logits, aux = tf.forward(cfg, params, b)
+        main = cross_entropy_loss(logits, b["labels"])
+        mtp = tf._mtp_loss(cfg, params, b)
+        total = tf.loss_fn(cfg, params, b)
+    parts = float(main + 0.3 * mtp + aux)
+    print(f"  loss_fn with MTP (2 x 64 tokens): main {float(main):.5f}, MTP {float(mtp):.5f}, "
+          f"aux {float(aux):.6f}; main + 0.3 x MTP + aux = {parts:.5f}, loss_fn "
+          f"{float(total):.5f}")
+    check(all(math.isfinite(float(x)) for x in (main, mtp, aux, total)),
+          "3l-a: a non-finite loss")
+    check(abs(float(total) - parts) <= 1e-5 * abs(parts), "3l-a: loss_fn is not its parts")
+
+
+def mla_train_step_path(torch, build):
+    """Phase 3l-b: deepseek-v3-671b at full width, 1 layer, no MTP block,
+    bf16, batch 1 x 256 (`train_step_path`): params, grads and one new
+    leaf must fit beside each other."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=1, mtp_depth=0)
+    return train_step_path(torch, build, "3l-b", cfg, MLA_TRAIN_SEQ, TRAIN_LR)
+
+
+def mla_fed_path(torch, build):
+    """Phase 3l-c: smoke deepseek-v3-671b (MLA, MTP, expert choice) under
+    Fed-CHS QSGD(16), 3 rounds (`fed_lm_path`): B1 and B2 on the MLA and
+    MTP leaves.  MLA ignores the window of "local" blocks, so the grad-mode
+    control halves the rope base instead."""
+    from repro_torch.configs.registry import smoke_config
+
+    cfg = smoke_config(MLA_ARCH)
+    fed_lm_path(torch, build, "3l-c", cfg, 3, (
+        "wrong-position control on the CPU (rope base halved)",
+        dataclasses.replace(cfg, rope_theta=cfg.rope_theta / 2), 0.3))
+
+
+def ssd_path(torch, build):
+    """Phase 3l-d: mamba2-370m at full size (48 layers, bf16): `serving_path`
+    (prefill 4 x 272, `serve_loop` 8 requests over 4 slots, prompt 16, 32 new
+    tokens, decode against forward at SSD_DECODE_BOUND beside a control
+    that forgets the state), `make_train_step`, 3 steps of 1 x 512; then the
+    smoke mamba2 under Fed-CHS QSGD(16), 2 rounds (`fed_lm_path`, with a 5%
+    smaller step as the grad-mode control)."""
+    from repro_torch.configs.registry import get_config, smoke_config
+
+    cfg = get_config(SSD_ARCH)
+    what = (f"d_model {cfg.d_model}, state {cfg.ssm_state}, inner {cfg.ssm_expand * cfg.d_model}"
+            f" in heads of {cfg.ssm_head_dim}, conv {cfg.ssm_conv}, chunk {cfg.ssm_chunk}")
+    params = serving_path(torch, build, "3l-d", cfg, what, SSD_PREFILL, SSD_SERVE, SSD_PARITY,
+                          "forget", SSD_DECODE_BOUND)
+    del params
+    torch.cuda.empty_cache()
+    train_step_path(torch, build, "3l-d", cfg, SSD_TRAIN_SEQ, TRAIN_LR)
+    torch.cuda.empty_cache()
+    small = smoke_config(SSD_ARCH)
+    fed_lm_path(torch, build, "3l-d", small, 2, ("a 5% smaller step on the CPU", small, 0.285))
 
 
 def time_launches(torch, fn, reps, flush):
@@ -2901,6 +3077,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe_fed_path(torch, build)
     elapsed("3k")
+    torch.cuda.empty_cache()
+    mla_serving_path(torch, build)
+    torch.cuda.empty_cache()
+    mla_train_step_path(torch, build)
+    torch.cuda.empty_cache()
+    mla_fed_path(torch, build)
+    elapsed("3l-a, 3l-b, 3l-c")
+    torch.cuda.empty_cache()
+    ssd_path(torch, build)
+    elapsed("3l-d")
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2

@@ -1,7 +1,9 @@
 """Channels (dense, QSGD, Sign-SGD, Top-K), exact message-size formulas, and the QSGD wrappers.
 
 Re-exports the channel abstraction and the kernel wrappers so higher
-layers depend on `repro_torch.comm`, not on kernel internals.
+layers depend on `repro_torch.comm`, not on kernel internals.  `CommLedger`
+is imported on first use: `core/ledger.py` imports `comm.bits`, so an
+eager import here would import the ledger while it is half made.
 """
 from repro_torch.comm.bits import (
     dense_message_bits,
@@ -26,6 +28,10 @@ from repro_torch.kernels.ops import (
     qsgd_encode,
     qsgd_quantize,
     qsgd_roundtrip,
+    signsgd_decode,
+    signsgd_encode,
+    topk_sparsify,
+    topk_sparsify_tree,
 )
 
 __all__ = [
@@ -37,6 +43,7 @@ __all__ = [
     "channel_wire_bits",
     "low_bit_channel",
     "make_channel",
+    "CommLedger",
     "dense_message_bits",
     "qsgd_message_bits",
     "signsgd_message_bits",
@@ -47,4 +54,21 @@ __all__ = [
     "qsgd_encode",
     "qsgd_quantize",
     "qsgd_roundtrip",
+    "signsgd_decode",
+    "signsgd_encode",
+    "topk_sparsify",
+    "topk_sparsify_tree",
 ]
+
+
+def __getattr__(name: str):
+    if name != "CommLedger":
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    from repro_torch.core.ledger import CommLedger
+
+    globals()[name] = CommLedger
+    return CommLedger
+
+
+def __dir__() -> list[str]:
+    return sorted(set(globals()) | set(__all__))

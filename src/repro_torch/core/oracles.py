@@ -10,14 +10,21 @@
 Step sizes may be a device tensor: a step multiplies by its 0-dim entry,
 which rounds as the Python float of the same value does, and reads nothing
 back to the host (a captured CUDA graph replays it).
+
+The classifier-signature wrappers `local_sgd`, `multi_client_local_sgd`
+and `cluster_sgd` keep the reference's historical ``(params, xs, ys,
+lrs)`` calling convention, for its seed-style loops and benchmarks.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch.models.fed import as_fed_model
+from repro_torch.optim.local import PlainSGD
 from repro_torch.utils import tree_leaves, tree_map
 
 Tree = Any
@@ -89,3 +96,50 @@ def grad_phase(model, microbatch: int | None = None):
         return params, torch.stack(losses)
 
     return phase
+
+
+# --------------------------------------------------------------------------
+# classifier-signature oracles
+# --------------------------------------------------------------------------
+
+
+@functools.cache
+def multi_client_local_sgd(model):
+    """E plain local SGD steps for each of n clients from the same params:
+    xs (n, E, B, ...), ys (n, E, B), lrs (E,).  Returns (params with a
+    leading client axis, per-client mean losses (n,))."""
+    run = local_opt_steps(as_fed_model(model), PlainSGD())
+
+    def fn(params, xs, ys, lrs):
+        n = xs.shape[0]
+        stacked = tree_map(lambda a: a.expand(n, *a.shape), params)
+        p, _, losses = run(stacked, (), {"x": xs, "y": ys}, lrs)
+        return p, losses
+
+    return fn
+
+
+@functools.cache
+def local_sgd(model):
+    """E plain local SGD steps for ONE client: xs (E, B, ...), ys (E, B),
+    lrs (E,).  Returns (params, mean loss)."""
+    many = multi_client_local_sgd(model)
+
+    def fn(params, xs, ys, lrs):
+        p, losses = many(params, xs[None], ys[None], lrs)
+        return tree_map(lambda a: a[0], p), losses[0]
+
+    return fn
+
+
+@functools.cache
+def cluster_sgd(model):
+    """One Eq. (5) in-cluster phase: xs (K, n, B, ...), ys (K, n, B),
+    gammas (n,), lrs (K,).  Returns (params, mean loss over steps)."""
+    phase = grad_phase(as_fed_model(model))
+
+    def fn(params, xs, ys, gammas, lrs):
+        p, losses = phase(params, {"x": xs, "y": ys}, gammas, lrs)
+        return p, torch.mean(losses)
+
+    return fn

@@ -257,3 +257,10 @@ class RunResult:
             if self._reached(a, gamma):
                 return t_s
         return None
+
+
+def evaluate(model, params: Tree, eval_data, batch: int = 512) -> float:
+    """Scalar evaluation: the model's `eval_metric` over `eval_data` (for a
+    classifier, test-set accuracy over a `Dataset`, batched at 512)."""
+    del batch  # fixed inside ClassifierFedModel.eval_metric, as the reference's
+    return as_fed_model(model).eval_metric(params, eval_data)

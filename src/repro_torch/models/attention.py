@@ -1,5 +1,5 @@
-"""GQA self-attention, full or sliding-window (port of the training path of
-`repro/models/attention.py`).
+"""GQA self-attention, full or sliding-window, and DeepSeek's multi-head
+latent attention (MLA) (port of `repro/models/attention.py`).
 
 Training attention is *blockwise*: an online softmax over KV chunks, so the
 (T, S) score matrix is never held whole.  With `cfg.use_flash` it goes
@@ -21,7 +21,11 @@ written at `len` (clamped to the last slot), sliding-window caches are ring
 buffers written at `len % S`.  Decode attention is plain torch in f32, as
 the reference's is plain jnp.
 
-Not ported: MLA.
+MLA's training path (`mla_forward`) materialises per-head K/V from the
+latent and runs the blockwise path whatever `cfg.use_flash` says, as the
+reference does: its q/k heads (nope + rope) are wider than its v heads,
+which `blockwise_attention` takes (`hd_v`).  Its decode (`mla_decode`) is
+the absorbed form over a cache of the latent and the shared rope key only.
 
 Shapes: x (B, T, D); q (B, T, H, hd); kv (B, S, Hkv, hd); caches
 (B, S, Hkv, hd).
@@ -58,6 +62,28 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = (
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((*lead, hd), dtype=dtype, device=dev)
         p["k_norm"] = torch.ones((*lead, hd), dtype=dtype, device=dev)
+    return p
+
+
+def init_mla(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()) -> dict:
+    """MLA params (the reference's leaves); `lead` = (layers,) stacks that
+    many blocks.  Drawn query projections first, then the latent K/V and
+    the output projection."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dev = gen.device
+    p = {}
+    if m.q_lora_rank:
+        p["wq_a"] = dense_init(gen, d, m.q_lora_rank, lead=lead, dtype=dtype)
+        p["q_norm"] = torch.ones((*lead, m.q_lora_rank), dtype=dtype, device=dev)
+        p["wq_b"] = dense_init(gen, m.q_lora_rank, h * qk_head, lead=lead, dtype=dtype)
+    else:
+        p["wq"] = dense_init(gen, d, h * qk_head, lead=lead, dtype=dtype)
+    p["wkv_a"] = dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim, lead=lead, dtype=dtype)
+    p["kv_norm"] = torch.ones((*lead, m.kv_lora_rank), dtype=dtype, device=dev)
+    p["wkv_b"] = dense_init(gen, m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim),
+                            lead=lead, dtype=dtype)
+    p["wo"] = dense_init(gen, h * m.v_head_dim, d, lead=lead, dtype=dtype)
     return p
 
 
@@ -214,5 +240,96 @@ def init_attn_cache(cfg: ArchConfig, batch: int, capacity: int, dtype, device) -
     return {
         "k": torch.zeros((batch, capacity, hkv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, capacity, hkv, hd), dtype=dtype, device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# --------------------------------------------------------------------------
+
+
+def _mla_q(cfg: ArchConfig, p, x, positions):
+    """-> (q_nope (B,T,H,nope), q_rope (B,T,H,rope) rotated)."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    if m.q_lora_rank:
+        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, T, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_latent(cfg: ArchConfig, p, x, positions):
+    """-> (c_kv (B,T,r) normed, k_rope (B,T,1,rope) rotated)."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    c_kv, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return (rms_norm(c_kv, p["kv_norm"], cfg.norm_eps),
+            apply_rope(k_rope.reshape(B, T, 1, m.qk_rope_head_dim), cos, sin))
+
+
+def mla_forward(cfg: ArchConfig, p, x):
+    """Training / prefill MLA: per-head K/V materialised from the latent,
+    then causal blockwise attention with q/k heads of nope + rope and v
+    heads of `v_head_dim` (scale 1/sqrt(nope + rope))."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    h = cfg.num_heads
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_rope = _mla_latent(cfg, p, x, positions)
+    kv = (c_kv @ p["wkv_b"]).reshape(B, T, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, T, h, m.qk_rope_head_dim)], dim=-1)
+    out = blockwise_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True)
+    return out.reshape(B, T, -1) @ p["wo"]
+
+
+def mla_decode(cfg: ArchConfig, p, x, cache: dict):
+    """Absorbed-form decode over the latent cache: score = q_nope W_uk c_kv
+    + q_rope k_rope, out = (probs c_kv) W_uv.  cache = {"c_kv": (B,S,r),
+    "k_rope": (B,S,rope), "len": (B,)} -> (y (B,1,D), new cache); the cache
+    passed in is not written.  The casts are the reference's: the
+    absorption and both score products in the params' dtype, their sum
+    scaled and softmaxed in f32, the context cast back before W_uv."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    if T != 1:
+        raise ValueError(f"decode takes one token per sequence, got {T}")
+    h = cfg.num_heads
+    positions = cache["len"][:, None]
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)  # (B,1,h,*)
+    c_new, kr_new = _mla_latent(cfg, p, x, positions)
+    S = cache["c_kv"].shape[1]
+    at = (torch.arange(B, device=x.device), torch.clamp(cache["len"], max=S - 1).long())
+    c_kv = cache["c_kv"].index_put(at, c_new[:, 0])
+    k_rope = cache["k_rope"].index_put(at, kr_new[:, 0, 0])
+    new_len = cache["len"] + 1
+
+    w_uk, w_uv = p["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim) \
+        .split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    q_abs = torch.einsum("bthd,rhd->bthr", q_nope, w_uk)
+    s = torch.einsum("bthr,bsr->bths", q_abs, c_kv) + torch.einsum(
+        "bthd,bsd->bths", q_rope, k_rope)
+    s = s.float() * (1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim))
+    valid = torch.arange(S, device=x.device)[None, :] < new_len[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bths,bsr->bthr", probs, c_kv.float()).to(x.dtype)
+    out = torch.einsum("bthr,rhd->bthd", ctx, w_uv)
+    return out.reshape(B, T, -1) @ p["wo"], {"c_kv": c_kv, "k_rope": k_rope, "len": new_len}
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, capacity: int, dtype, device) -> dict:
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, capacity, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, capacity, m.qk_rope_head_dim), dtype=dtype,
+                              device=device),
         "len": torch.zeros((batch,), dtype=torch.int32, device=device),
     }

@@ -19,6 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.func import grad_and_value
 
 from repro_torch.utils import resolve_device
 
@@ -33,6 +34,15 @@ class Classifier:
     def loss(self, params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         logp = torch.log_softmax(self.apply(params, x), dim=-1)
         return -torch.mean(torch.gather(logp, 1, y[:, None].long()))
+
+    def loss_and_grad(self, params: dict, x: torch.Tensor, y: torch.Tensor):
+        """(loss, grads), as `jax.value_and_grad(loss)` returns them."""
+        grads, loss = grad_and_value(self.loss)(params, x, y)
+        return loss, grads
+
+    def accuracy(self, params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        pred = torch.argmax(self.apply(params, x), dim=-1)
+        return torch.mean((pred == y.to(pred.device)).float())
 
 
 def _dense_init(gen, n_in, n_out):

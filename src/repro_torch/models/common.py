@@ -52,9 +52,14 @@ def activation(name: str):
     raise ValueError(name)
 
 
-def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """logits (B, T, V) any float dtype; labels (B, T) int. Mean NLL in f32."""
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       z_loss: float = 0.0) -> torch.Tensor:
+    """logits (B, T, V) any float dtype; labels (B, T) int. Mean NLL in f32,
+    plus `z_loss` times the mean squared log-partition."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.mean(lse - ll)
+    loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss

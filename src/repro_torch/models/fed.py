@@ -1,7 +1,7 @@
 """FedModel adapters (port of `repro/models/fed.py`).
 
-A FedModel is what the round engine sees of the task: parameter init, the
-loss of one batch tree, and the held-out metric.
+A FedModel (the `FedModel` protocol) is what the round engine sees of the
+task: parameter init, the loss of one batch tree, and the held-out metric.
 
   * `ClassifierFedModel` — the Appendix-A classifiers; batches are
     ``{"x": images, "y": labels}`` and the metric is test-set accuracy.
@@ -12,7 +12,7 @@ loss of one batch tree, and the held-out metric.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -25,6 +25,27 @@ from repro_torch.utils import resolve_device, tree_leaves
 
 Tree = Any
 Batch = Any
+
+
+@runtime_checkable
+class FedModel(Protocol):
+    """What the FL core needs from a workload."""
+
+    name: str
+    metric_name: str  # e.g. "accuracy", "perplexity"
+    metric_mode: str  # "max" (accuracy-like) or "min" (loss-like)
+
+    def init(self, seed: int = 0, device=None) -> Tree:
+        """Fresh parameter tree on `device`."""
+        ...
+
+    def loss(self, params: Tree, batch: Batch) -> torch.Tensor:
+        """Scalar training loss of one mini-batch tree."""
+        ...
+
+    def eval_metric(self, params: Tree, eval_data: Any) -> float:
+        """Scalar quality metric on held-out data."""
+        ...
 
 
 @dataclasses.dataclass(frozen=True)

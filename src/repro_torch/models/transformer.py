@@ -28,10 +28,11 @@ and layer tensors, and its backward runs the block again under
 engine's `vmap(grad_and_value(...))`: torch.func refuses its saved-tensor
 hooks, and its reentrant form has no `setup_context`.)
 
-Block kinds ported: "attn" and "local" (sliding window), with a dense or
-MoE FFN.  Not ported (`check_ported` raises NotImplementedError): MLA,
-SSD and RG-LRU blocks, the encoder and its cross-attention caches, patch
-embeddings, multi-token prediction.
+Block kinds ported: "attn" and "local" (sliding window; MLA when
+`cfg.mla` is set), with a dense or MoE FFN, and "ssd" (Mamba-2, no FFN);
+DeepSeek's multi-token prediction head (`cfg.mtp_depth`, `_mtp_loss`).
+Not ported (`check_ported` raises NotImplementedError): RG-LRU blocks,
+the encoder and its cross-attention caches, patch embeddings.
 """
 from __future__ import annotations
 
@@ -42,19 +43,19 @@ from torch.func import grad_and_value, vjp
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssd
 from repro_torch.models.common import cross_entropy_loss, dense_init, rms_norm
 from repro_torch.models.ffn import ffn_forward, init_ffn, init_moe, moe_forward
-from repro_torch.utils import resolve_device, tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils import (resolve_device, tree_flatten, tree_leaves, tree_map,
+                               tree_unflatten)
 
-KINDS = ("attn", "local")
+KINDS = ("attn", "local", "ssd")
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for the parts of `cfg` the port lacks."""
     missing = [name for name, on in (
-        ("MLA", cfg.mla is not None),
         ("encoder", cfg.is_encoder_decoder), ("patch embeddings", bool(cfg.num_patches)),
-        ("multi-token prediction", bool(cfg.mtp_depth)),
     ) if on]
     missing += [f"{kind!r} blocks" for kind in dict.fromkeys(cfg.block_pattern)
                 if kind not in KINDS]
@@ -81,48 +82,83 @@ def _head(cfg: ArchConfig, params: dict) -> torch.Tensor:
 # ==========================================================================
 
 
-def init_block(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()) -> dict:
-    """A block's params, drawn attention first, then the FFN."""
+def _has_ffn(kind: str) -> bool:
+    return kind != "ssd"  # mamba2 blocks are mixer-only
+
+
+def init_block(cfg: ArchConfig, kind: str, gen: torch.Generator, dtype,
+               lead: tuple = ()) -> dict:
+    """A block's params: the mixer (attention, MLA or SSD) drawn first, then
+    the FFN, the order that keeps every earlier config's weights."""
     ones = torch.ones((*lead, cfg.d_model), dtype=dtype, device=gen.device)
-    p = {"ln1": ones, "attn": attn.init_attention(cfg, gen, dtype, lead), "ln2": ones.clone()}
-    p["ffn"] = init_moe(cfg, gen, dtype, lead) if cfg.is_moe else init_ffn(cfg, gen, dtype, lead)
+    p: dict = {"ln1": ones}
+    if kind == "ssd":
+        p["mixer"] = ssd.init_ssd_block(cfg, gen, dtype, lead)
+    elif kind in ("attn", "local"):
+        init = attn.init_mla if cfg.mla is not None else attn.init_attention
+        p["attn"] = init(cfg, gen, dtype, lead)
+    else:
+        raise ValueError(kind)
+    if _has_ffn(kind):
+        p["ln2"] = ones.clone()
+        p["ffn"] = (init_moe if cfg.is_moe else init_ffn)(cfg, gen, dtype, lead)
     return p
 
 
-def _ffn(cfg: ArchConfig, p: dict, x: torch.Tensor, moe_method: str):
-    """x + FFN(norm(x)), and the block's aux loss (f32 zero without MoE)."""
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if cfg.is_moe:
-        y, aux = moe_forward(cfg, p["ffn"], h, method=moe_method)
-        return x + y, aux
-    return x + ffn_forward(cfg, p["ffn"], h), torch.zeros((), dtype=torch.float32, device=x.device)
+def _ffn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, moe_method: str):
+    """x + FFN(norm(x)), and the block's aux loss (f32 zero without MoE);
+    x itself for a block without an FFN."""
+    if _has_ffn(kind):
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if cfg.is_moe:
+            y, aux = moe_forward(cfg, p["ffn"], h, method=moe_method)
+            return x + y, aux
+        x = x + ffn_forward(cfg, p["ffn"], h)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_forward(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
                   moe_method: str = "expert_choice") -> tuple[torch.Tensor, torch.Tensor]:
     """x (B,T,d) -> (x', aux). Causal training / prefill path."""
-    window = cfg.sliding_window if kind == "local" else None
-    x = x + attn.attention_forward(cfg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                                   window=window)
-    return _ffn(cfg, p, x, moe_method)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "ssd":
+        y = ssd.ssd_block_forward(cfg, p["mixer"], h)
+    elif cfg.mla is not None:
+        y = attn.mla_forward(cfg, p["attn"], h)
+    else:
+        window = cfg.sliding_window if kind == "local" else None
+        y = attn.attention_forward(cfg, p["attn"], h, window=window)
+    return _ffn(cfg, kind, p, x + y, moe_method)
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, capacity: int, dtype,
                      device) -> dict:
     """A block's decode cache; a sliding-window block's is a ring buffer of
-    at most `sliding_window` entries."""
+    at most `sliding_window` entries, an SSD block's holds its conv
+    histories and state."""
+    if kind == "ssd":
+        return {"mixer": ssd.init_ssd_cache(cfg, batch, dtype, device)}
     cap = capacity if kind == "attn" else min(capacity, cfg.sliding_window)
-    return {"self": attn.init_attn_cache(cfg, batch, cap, dtype, device)}
+    init = attn.init_mla_cache if cfg.mla is not None else attn.init_attn_cache
+    return {"self": init(cfg, batch, cap, dtype, device)}
 
 
 def block_decode(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, cache: dict, *,
                  moe_method: str = "expert_choice") -> tuple[torch.Tensor, dict]:
     """x (B,1,d) against the block's cache -> (x', new cache)."""
-    window = cfg.sliding_window if kind == "local" else None
-    y, new_self = attn.attention_decode(cfg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                                        cache["self"], window=window)
-    x, _ = _ffn(cfg, p, x + y, moe_method)
-    return x, dict(cache, self=new_self)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "ssd":
+        y, new = ssd.ssd_block_decode(cfg, p["mixer"], h, cache["mixer"])
+        cache = dict(cache, mixer=new)
+    else:
+        if cfg.mla is not None:
+            y, new = attn.mla_decode(cfg, p["attn"], h, cache["self"])
+        else:
+            window = cfg.sliding_window if kind == "local" else None
+            y, new = attn.attention_decode(cfg, p["attn"], h, cache["self"], window=window)
+        cache = dict(cache, self=new)
+    x, _ = _ffn(cfg, kind, p, x + y, moe_method)
+    return x, cache
 
 
 # ==========================================================================
@@ -136,15 +172,23 @@ def init_params(cfg: ArchConfig, seed: int, device) -> dict:
     dtype = _dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     n_super, n_tail = _layout(cfg)
+    plen = len(cfg.block_pattern)
     p: dict = {
         "embed": dense_init(gen, cfg.vocab_size, cfg.d_model, scale=0.02, dtype=dtype),
-        "super": [init_block(cfg, gen, dtype, (n_super,)) for _ in cfg.block_pattern]
+        "super": [init_block(cfg, kind, gen, dtype, (n_super,)) for kind in cfg.block_pattern]
         if n_super else [],
-        "tail": [init_block(cfg, gen, dtype) for _ in range(n_tail)],
+        "tail": [init_block(cfg, cfg.block_kind(n_super * plen + i), gen, dtype)
+                 for i in range(n_tail)],
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype=dtype)
+    if cfg.mtp_depth:  # drawn last, so the trunk's weights are those without it
+        p["mtp"] = {
+            "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype=dtype),
+            "block": init_block(cfg, "attn", gen, dtype),
+            "norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        }
     return p
 
 
@@ -233,15 +277,47 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
             moe_method: str = "expert_choice") -> torch.Tensor:
-    """Mean next-token cross entropy plus the MoE aux loss."""
+    """Mean next-token cross entropy, plus 0.3 x the multi-token prediction
+    loss when `cfg.mtp_depth` is set, plus the MoE aux loss."""
     logits, aux = forward(cfg, params, batch, remat=remat, moe_method=moe_method)
-    return cross_entropy_loss(logits, batch["labels"]) + aux
+    loss = cross_entropy_loss(logits, batch["labels"])
+    if cfg.mtp_depth:
+        loss = loss + 0.3 * _mtp_loss(cfg, params, batch)
+    return loss + aux
 
 
-def sgd_update(params: dict, grads: dict, lr: float) -> dict:
+def _mtp_loss(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction, depth 1, as the reference
+    computes it: the token and next-token embeddings, each normed, fused by
+    `proj`, through one extra "attn" block (default expert-choice routing,
+    its aux loss dropped, never rematerialised) and the LM head, scored
+    against the labels shifted left by one with the last label repeated."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    m = params["mtp"]
+    x = rms_norm(F.embedding(tokens.long(), params["embed"]), m["norm"], cfg.norm_eps)
+    nxt = rms_norm(F.embedding(labels.long(), params["embed"]), m["norm"], cfg.norm_eps)
+    h, _ = block_forward(cfg, "attn", m["block"], torch.cat([x, nxt], dim=-1) @ m["proj"])
+    l2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+    return cross_entropy_loss(h @ _head(cfg, params), l2)
+
+
+def sgd_update(params: dict, grads, lr: float) -> dict:
     """p - lr * g, computed in f32 and rounded to each leaf's dtype (`torch.add`
-    with alpha), as the reference's step with an f32 learning rate."""
-    return tree_map(lambda p, g: torch.add(p, g, alpha=-lr), params, grads)
+    with alpha), as the reference's step with an f32 learning rate.
+
+    `grads` is a tree of the params' structure, or the list of its leaves
+    (`tree_leaves` order), which the update empties as it goes: each
+    gradient is then freed as soon as its new leaf is made, so a step holds
+    the params, the gradients and one new leaf at once, not the params
+    twice beside the gradients."""
+    leaves, treedef = tree_flatten(params)
+    g = grads if isinstance(grads, list) and all(
+        isinstance(t, torch.Tensor) for t in grads) else tree_leaves(grads)
+    new = []
+    for i, p in enumerate(leaves):
+        new.append(torch.add(p, g[i], alpha=-lr))
+        g[i] = None
+    return tree_unflatten(treedef, new)
 
 
 def make_train_step(cfg: ArchConfig, *, remat: bool = True, moe_method: str = "expert_choice"):
@@ -251,6 +327,7 @@ def make_train_step(cfg: ArchConfig, *, remat: bool = True, moe_method: str = "e
     def train_step(params: dict, batch: dict, lr: float):
         grads, loss = grad_and_value(
             lambda p: loss_fn(cfg, p, batch, remat=remat, moe_method=moe_method))(params)
+        grads = tree_leaves(grads)  # the only reference: the update frees each in turn
         return sgd_update(params, grads, lr), loss
 
     return train_step

@@ -10,13 +10,26 @@ client axis as on one client.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Protocol, runtime_checkable
 
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_step
 from repro_torch.optim.sgd import SGDConfig, sgd_init, sgd_step
 from repro_torch.utils import tree_map
 
 Tree = Any
+
+
+@runtime_checkable
+class LocalOpt(Protocol):
+    """Per-client local optimizer: state init and one step."""
+
+    def init(self, params: Tree) -> Tree:
+        """Fresh optimizer state (an empty tree if stateless)."""
+        ...
+
+    def step(self, params: Tree, state: Tree, grads: Tree, lr) -> tuple[Tree, Tree]:
+        """One local update: -> (new params, new state)."""
+        ...
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,5 @@
-"""Small shared utilities: tree helpers over dicts and lists, device resolution.
+"""Small shared utilities: tree helpers over dicts and lists (the tree
+arithmetic of the reference's `repro/utils.py`), device resolution.
 
 Parameters, gradients and messages are trees of tensors: nested dicts,
 lists and tuples.  Leaves are visited in the order `jax.tree.flatten` gives
@@ -10,7 +11,10 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
 import torch
+
+from repro_torch.core.prng import split
 
 Tree = Any  # nested dicts / lists / tuples of tensors (or a bare tensor)
 
@@ -58,12 +62,65 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
 
 
+def tree_zeros_like(tree: Tree) -> Tree:
+    return tree_map(torch.zeros_like, tree)
+
+
 def tree_add(a: Tree, b: Tree) -> Tree:
     return tree_map(torch.add, a, b)
 
 
+def tree_sub(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree: Tree, s) -> Tree:
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_axpy(alpha, x: Tree, y: Tree) -> Tree:
+    """alpha * x + y."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def tree_weighted_sum(trees: list[Tree], weights) -> Tree:
+    """sum_i weights[i] * trees[i], the ES aggregation of Eq. (5), summed in
+    list order."""
+    if not trees or len(trees) != len(weights):
+        raise ValueError("tree_weighted_sum needs one weight per tree, and a tree")
+    acc = tree_scale(trees[0], weights[0])
+    for t, w in zip(trees[1:], weights[1:]):
+        acc = tree_axpy(w, t, acc)
+    return acc
+
+
+def tree_dot(a: Tree, b: Tree) -> torch.Tensor:
+    """sum over leaves of <a, b>, a 0-dim tensor."""
+    return sum(torch.vdot(x.reshape(-1), y.reshape(-1))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_sq_norm(tree: Tree) -> torch.Tensor:
+    return tree_dot(tree, tree)
+
+
 def tree_num_params(tree: Tree) -> int:
     return int(sum(leaf.numel() for leaf in tree_leaves(tree)))
+
+
+def tree_num_bytes(tree: Tree) -> int:
+    return int(sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(tree)))
+
+
+def tree_any_nan(tree: Tree) -> bool:
+    return any(bool(torch.isnan(leaf).any()) for leaf in tree_leaves(tree))
+
+
+def split_like(key: np.ndarray, tree: Tree) -> Tree:
+    """One key (uint32 key words) per leaf, in the tree's structure: the
+    words of `jax.random.split(key, n_leaves)`."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, list(split(key, len(leaves))))
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

@@ -163,10 +163,14 @@ def test_token_source_draws_match_reference():
 
 
 # ids as the cases had them when the list also held remat=True and the MoE
-# case (make1), both ported since
+# case (make1), both ported since; make2 and make3 were deepseek-v3 (MLA,
+# MTP) and mamba2 (SSD blocks), ported since, and now hold RG-LRU blocks
+# beside those ported options
 @pytest.mark.parametrize("make", [
-    lambda: LMFedModel(smoke_config("deepseek-v3-671b")),   # MLA, MTP
-    lambda: LMFedModel(smoke_config("mamba2-370m")),        # SSD blocks
+    lambda: LMFedModel(dataclasses.replace(smoke_config("deepseek-v3-671b"),
+                                           block_pattern=("attn", "rglru"))),
+    lambda: LMFedModel(dataclasses.replace(smoke_config("mamba2-370m"),
+                                           block_pattern=("ssd", "rglru"))),
     lambda: LMFedModel(smoke_config("recurrentgemma-9b")),  # RG-LRU blocks
     lambda: LMFedModel(smoke_config("whisper-tiny")),       # encoder
     lambda: LMFedModel(smoke_config("phi-3-vision-4.2b")),  # patch embeddings
