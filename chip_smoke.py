@@ -20,9 +20,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
      within 1 at no more than 0.1% of entries, and the dequantized values
      of the kernel's own payload bit for bit.  Flash attention: the
      reference's kernel-test sweep, causal and not, plus the LM paths'
-     shapes (2 clients of batch 2, and one client under phase 3h) and
-     dbrx-132b's prefill (B 4, T = S 512, H 48, Hkv 8, hd 128, bf16), atol
-     3e-5 in f32 and 2e-2 in bf16;
+     shapes (2 clients of batch 2, and one client under phase 3h),
+     dbrx-132b's prefill (B 4, T = S 512, H 48, Hkv 8, hd 128, bf16) and
+     phase 3m's (recurrentgemma-9b's MQA local attention, H 16, Hkv 1, hd
+     256, past its window of 2048 at T 2112; phi-3-vision-4.2b's 4 x 704,
+     H = Hkv = 32, hd 96; whisper-tiny's 4 x 128, H = Hkv = 6, hd 64; bf16),
+     atol 3e-5 in f32 and 2e-2 in bf16;
   3. the paths, through the entry points a user calls, each with the launch
      counts set to 0 just before it and read just after:
      a. LeNet-MNIST Fed-CHS with QSGD(16) uplinks at the paper's Appendix-A
@@ -130,9 +133,27 @@ Phases, each of which fails the script (non-zero exit, no result line):
         (3l-b); the smoke deepseek LM under Fed-CHS QSGD(16) as 3k-c holds
         smoke dbrx (3l-c); mamba2-370m whole (48 layers, 0.42B params):
         prefill 4 x 272, `serve_loop` (prompt 16, 32 new tokens), decode
-        against forward beside a control that forgets the state, 3 SGD
-        steps of 1 x 512, and smoke mamba2 under Fed-CHS QSGD(16), 2 rounds
-        (3l-d);
+        against forward beside a control that forgets the state (these at 12
+        of its 48 layers), 3 SGD steps of 1 x 512, and smoke mamba2 under
+        Fed-CHS QSGD(16), 2 rounds (3l-d);
+     m. RG-LRU blocks, the encoder and patch embeddings (bf16, random
+        weights): recurrentgemma-9b whole (38 layers, 8.53B params) served
+        as 3k-a serves dbrx (decode against forward held to
+        RG_DECODE_BOUND beside a control that forgets the state) and 3 SGD
+        steps of 1 x 512 (3m-a); one pattern of it (3 layers) over 2 x
+        2112 tokens, decode against the flash forward past the 2048-token
+        window beside forget and off-by-one controls (3m-b); smoke
+        recurrentgemma under Fed-CHS QSGD(16) as 3k-c holds smoke dbrx
+        (3m-c); whisper-tiny whole with frames drawn from a seed (prefill
+        fills the cross caches; decode against forward beside off-by-one
+        and zeroed-cross controls; `serve_loop` batched = solo; the
+        encoder's gradient; 3 SGD steps; `launch.train --execute` at smoke
+        size; the smoke model card against CPU) (3m-d); phi-3-vision-4.2b
+        whole with 576 patches drawn from a seed (the forward over patches
+        and tokens; decode against the backbone's forward without them;
+        the projector's gradient; SGD steps over 1 x 512 tokens and the
+        patches; `launch.train --execute`; the smoke model card against
+        CPU) (3m-e);
   4. time each kernel at its path's shapes with CUDA events (L2 flushed
      before every launch, the card kept busy while the host enqueues it),
      beside its plain version, its bound and, for flash attention, torch's
@@ -141,8 +162,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
      bound of the CUDA cores.  The packed pair is also timed at the
      comparison path's LeNet shapes (100 senders, 4-bit codes), and unpack
      -> dequantize over a whole uplink message of each path, one launch per
-     leaf, and flash attention in bf16 at dbrx-132b's prefill shape.  Rows
-     after a kernel's first do not enter the kernels line.
+     leaf, and flash attention in bf16 at dbrx-132b's prefill shape and at
+     phase 3m's (beside SDPA with a boolean mask).  Rows after a kernel's
+     first do not enter the kernels line, which also lists each kernel's
+     launches on the serving, SGD-step and federated paths of phases
+     3k-3m (`launches_on_paths`).
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; exits non-zero without
 one, and outside a checkout of the repository.
@@ -190,11 +214,17 @@ LM_LEAVES, LM_PARAMS = 14, 751_632_384
 
 # flash attention: the reference's kernel-test sweep, and the path's shape
 FLASH_TS = ((128, 128), (64, 256), (200, 200), (50, 77), (80, 70))
-FLASH_HEADS = ((4, 4), (8, 2), (16, 8))
+FLASH_HEADS = ((4, 4), (8, 2), (16, 8), (16, 1))
 FLASH_HDS = tuple(range(32, 257, 32))  # every head dim the kernel takes
 FLASH_WINDOWS = (None, 16, 64)
 FLASH_PATH = (LM_BATCH * 2, LM_SEQ, LM_SEQ, 16, 8, 128)  # B (2 clients x 2), T, S, H, Hkv, hd
 FLASH_LEAN = (LM_BATCH, LM_SEQ, LM_SEQ, 16, 8, 128)  # phase 3h: one client (batch 2) at a time
+# phase 3m's attention, bf16: recurrentgemma-9b's local blocks past their
+# window (3m-b; MQA), phi-3-vision-4.2b's prefill over 576 patches + 128
+# tokens, whisper-tiny's decoder prefill (3m-d, 3m-e)
+FLASH_RG, FLASH_RG_WINDOW = (2, 2112, 2112, 16, 1, 256), 2048
+FLASH_VLM = (4, 704, 704, 32, 32, 96)
+FLASH_ENC = (4, 128, 128, 6, 6, 64)
 
 REPLACES = {
     "qsgd_quantize_pack": ("src/repro_torch/csrc/qsgd.cu", "src/repro/kernels/qsgd.py:194"),
@@ -219,6 +249,13 @@ def ptxas_shown(ref) -> dict[str, str]:
                 f"quantize_pack_regs_kernelILi8ELi{bits}E",
             f"unpack -> dequantize, block 1024, s = {PACK_LEVELS}":
                 f"unpack_dequantize_regs_kernelILi{bits}E"}
+
+
+# flash instantiations phase 3m runs, whose ptxas lines phase 1 prints
+# whether or not they spill
+PTXAS_NOTED = {"flash bf16, hd 256 (recurrentgemma-9b)": "flash_fwd_kernelI13__nv_bfloat16Li256E",
+               "flash bf16, hd 96 (phi-3-vision-4.2b)": "flash_fwd_kernelI13__nv_bfloat16Li96E",
+               "flash bf16, hd 64 (whisper-tiny)": "flash_fwd_kernelI13__nv_bfloat16Li64E"}
 
 
 def ptxas_kernels(log: str) -> list[tuple[str, int, int, int]]:
@@ -520,14 +557,21 @@ def flash_vs_plain(torch, fa):
         check(not any(fa._rows_aligned(x) for x in views), "the misaligned views")
         for causal, window in masks:
             held(*views, causal, window, "misaligned views")
-    # dbrx-132b's prefill (phase 3k-a): GQA groups of 6, hd 128, in bf16
-    held(*flash_inputs(torch, gen, *FLASH_DBRX, torch.bfloat16), True, None,
-         f"dbrx-132b prefill {FLASH_DBRX}")
+    # dbrx-132b's prefill (phase 3k-a): GQA groups of 6, hd 128, in bf16;
+    # phase 3m's shapes
+    for name, shape, window in (("dbrx-132b prefill", FLASH_DBRX, None),
+                                ("recurrentgemma-9b past its window", FLASH_RG,
+                                 FLASH_RG_WINDOW),
+                                ("phi-3-vision-4.2b prefill", FLASH_VLM, None),
+                                ("whisper-tiny prefill", FLASH_ENC, None)):
+        held(*flash_inputs(torch, gen, *shape, torch.bfloat16), True, window,
+             f"{name} {shape}")
     print(f"phase 2: flash attention vs plain passed on {n_cases} cases (T,S in {FLASH_TS}, "
           f"H,Hkv in {FLASH_HEADS}, hd in {FLASH_HDS}, (causal, window) in {masks}; the LM "
           f"path's shape {FLASH_PATH}; fused-projection views and views off 16-byte "
-          f"alignment; f32 + bf16), the lean path's {FLASH_LEAN} and dbrx-132b's prefill "
-          f"{FLASH_DBRX} (bf16); max |diff| "
+          f"alignment; f32 + bf16), the lean path's {FLASH_LEAN}, dbrx-132b's prefill "
+          f"{FLASH_DBRX}, recurrentgemma-9b's {FLASH_RG} at window {FLASH_RG_WINDOW}, "
+          f"phi-3-vision-4.2b's {FLASH_VLM} and whisper-tiny's {FLASH_ENC} (bf16); max |diff| "
           f"{worst[torch.float32]:.3g} in f32, {worst[torch.bfloat16]:.3g} in bf16")
     return worst[torch.float32]
 
@@ -610,11 +654,13 @@ def timed(torch, run):
 
 
 def profiled(torch, run):
-    """(result, wall ms, CUDA kernel events) of `run()` under the profiler."""
+    """(result, wall ms, CUDA kernel events) of `run()` under the profiler,
+    which traces the card only: host-op events would add nothing the
+    kernel share reads, and summing them takes longer than the run."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         result = run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1394,11 +1440,12 @@ def masked_cross_check(torch):
 # phase 3h: the memory-lean engine.  The LM arms train one client at a time
 # (client_microbatch 1) for LEAN_ROUNDS rounds: 3b's 3 do not show the
 # QSGD(16) arm's loss falling under bf16 compute (an H100 80GB HBM3 at 700 W
-# read 12.4355, 12.4186, 12.4412, then 12.4034, 12.4197, 12.3727); the
+# read 12.4355, 12.4186, 12.4412, then 12.4034, 12.4197, 12.3727), 4 do (6
+# until the script needed the time for phase 3m); the
 # Appendix-A arms at 3e's scale keep 2 and 10 client replicas live.  A
 # card-vs-CPU gap under bf16 compute is bounded by CROSS_ULPS times the CPU
 # run's own gap from weights 1 bf16 ulp apart.
-LEAN_MB, LEAN_ROUNDS = 1, 6
+LEAN_MB, LEAN_ROUNDS = 1, 4
 MB_ARMS = (("Hier-Local-QSGD QSGD(16)", 2), ("FedAvg", 10))
 CROSS_ULPS = 2.0
 BF16_ULP = 2.0**-7
@@ -2226,7 +2273,9 @@ def async_path(torch, build, task):
                 check(v == want, f"3j-c {name}, {scen}: {k} launched {v} times, expected "
                                  f"{want} = {L} leaves x {cohorts} cohort computations")
             share = ""
-            if scen == "churn" or name == "Fed-CHS":
+            # each driver's kernel share once: Fed-CHS under the straggler
+            # network, the PS drivers under churn
+            if (scen == "churn") != (name == "Fed-CHS"):
                 # the kernel share of the run's first ASYNC_PROFILED steps: the
                 # kernel time of a profiled run of them over the wall of an
                 # unprofiled one (CUPTI makes a whole profiled run slow)
@@ -2358,21 +2407,36 @@ MOE_QSGD_BOUND = 0.1
 
 
 def moe_batch(torch, cfg, B, T, seed):
+    """Tokens and labels (B, T) on the card, and, for a config with a stub
+    frontend, its input drawn from `seed` on the card: frames (B, F, d) for
+    an encoder-decoder, patches (B, P, 1024) for a VLM."""
     from repro_torch.data.tokens import synthetic_lm_batch
 
-    return {k: torch.from_numpy(v).cuda()
-            for k, v in synthetic_lm_batch(cfg.vocab_size, B, T, seed=seed).items()}
+    b = {k: torch.from_numpy(v).cuda()
+         for k, v in synthetic_lm_batch(cfg.vocab_size, B, T, seed=seed).items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.is_encoder_decoder:
+        b["frames"] = torch.randn((B, cfg.num_audio_frames, cfg.d_model), generator=gen,
+                                  device="cuda")
+    if cfg.num_patches:
+        b["patches"] = torch.randn((B, cfg.num_patches, 1024), generator=gen, device="cuda")
+    return b
 
 
-def teacher_forced(torch, cfg, params, tokens, control=None):
+def teacher_forced(torch, cfg, params, batch, control=None):
     """Logits (B, T, V) of decode_step fed the prompt token by token with
-    `dense_topk` routing.  Controls: "off_by_one" writes each token after
+    `dense_topk` routing, an encoder-decoder's cross caches first filled
+    from `batch["frames"]`.  Controls: "off_by_one" writes each token after
     the first over the previous token's cache slot; "forget" decodes each
-    token from empty caches (an SSD model's state dropped)."""
+    token from empty caches (an SSD or RG-LRU model's state dropped);
+    "zero_cross" leaves the cross caches zero."""
     from repro_torch.models import transformer as tf
 
+    tokens = batch["tokens"]
     B, T = tokens.shape
-    empty = tf.init_caches(cfg, B, T, device=tokens.device)
+    empty = tf.init_caches(cfg, B, T, enc_len=cfg.num_audio_frames, device=tokens.device)
+    if cfg.is_encoder_decoder and control != "zero_cross":
+        empty = tf._fill_cross_caches(cfg, params, batch, empty)
     caches, out = empty, []
     for t in range(T):
         if control == "off_by_one" and t:
@@ -2404,14 +2468,17 @@ def decode_read_bytes(params, caches) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves([used, caches]))
 
 
-def serving_path(torch, build, label, cfg, what, prefill, serve, parity, control, bound):
+def serving_path(torch, build, label, cfg, what, prefill, serve, parity, controls, bound):
     """`prefill` of prefill = (B, T) tokens (the flash kernel once per GQA
     layer; the forward, the LM head on the last position only, and the
     cache replay timed apart), `serve_loop` (every request exactly max_new
     tokens; s per batched decode step beside its byte bound, tokens/s, peak
     memory), and teacher-forced decode against `forward` with `dense_topk`
-    routing, held to `bound` beside a `control` that the bound must reject.
-    Returns the params (for the phase's next checks)."""
+    routing, held to `bound` beside `controls` (`teacher_forced`'s) that
+    the bound must reject.  A VLM's decode never sees patches, so it is held
+    against the forward of its backbone without them, as the reference's
+    decode parity holds it.  Returns the params (for the phase's next
+    checks)."""
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models import transformer as tf
     from repro_torch.utils import tree_leaves, tree_num_params
@@ -2433,6 +2500,7 @@ def serving_path(torch, build, label, cfg, what, prefill, serve, parity, control
         build.reset_launches()
         (logits, caches), prefill_ms = timed(torch, lambda: tf.prefill(cfg, params, b))
         launches = dict(build.LAUNCHES)
+        PATH_LAUNCHES[f"{label} prefill"] = launches
         prefill_gb = torch.cuda.max_memory_allocated() / 1e9
         # prefill's forward (the LM head on the last position only), and
         # beside it the forward that makes all (B, T, V) logits
@@ -2487,23 +2555,26 @@ def serving_path(torch, build, label, cfg, what, prefill, serve, parity, control
           f"byte bound {step_bound_ms:.2f} ms, {step_ms / step_bound_ms:.2f}x); "
           f"peak {serve_gb:.2f} GB")
 
-    b = moe_batch(torch, cfg, *parity, 1)
+    backbone = dataclasses.replace(cfg, num_patches=0)
+    b = moe_batch(torch, backbone, *parity, 1)
     with torch.no_grad():
-        fwd, _ = tf.forward(cfg, params, b, moe_method="dense_topk")
+        fwd, _ = tf.forward(backbone, params, b, moe_method="dense_topk")
         fwd = fwd.float()
-        dec = teacher_forced(torch, cfg, params, b["tokens"])
-        ctrl = teacher_forced(torch, cfg, params, b["tokens"], control=control)
+        dec = teacher_forced(torch, cfg, params, b)
+        ctrl_rel = {c: float((teacher_forced(torch, cfg, params, b, control=c) - fwd).norm()
+                             / fwd.norm()) for c in controls}
     rel = float((dec - fwd).norm() / fwd.norm())
-    ctrl_rel = float((ctrl - fwd).norm() / fwd.norm())
     agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
     print(f"  teacher-forced decode_step vs forward (dense_topk, {parity[0]} x {parity[1]} "
-          f"tokens): logits {rel:.4g} apart in relative L2 (bound {bound}), max |diff| "
+          f"tokens{', the backbone without patches' if cfg.num_patches else ''}): logits "
+          f"{rel:.4g} apart in relative L2 (bound {bound}), max |diff| "
           f"{float((dec - fwd).abs().max()):.3g} of max |logit| {float(fwd.abs().max()):.3g}, "
-          f"argmax equal at {100 * agree:.1f}% of positions; {control.replace('_', '-')} "
-          f"control {ctrl_rel:.4g}")
+          f"argmax equal at {100 * agree:.1f}% of positions; "
+          + "; ".join(f"{c.replace('_', '-')} control {r:.4g}" for c, r in ctrl_rel.items()))
     check(rel <= bound and bool(torch.isfinite(dec).all()),
           f"{label}: teacher-forced decode strays from forward")
-    check(ctrl_rel > bound, f"{label}: the decode bound would pass the {control} control")
+    for c, r in ctrl_rel.items():
+        check(r > bound, f"{label}: the decode bound would pass the {c} control")
     return params
 
 
@@ -2518,7 +2589,7 @@ def moe_serving_path(torch, build):
     what = (f"d_model {cfg.d_model}, {cfg.num_experts} experts top-{cfg.experts_per_token}, "
             f"d_ff {cfg.d_ff}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}")
     serving_path(torch, build, "3k-a", cfg, what, (PREFILL_BATCH, PREFILL_SEQ), SERVE,
-                 (PARITY_BATCH, PARITY_SEQ), "off_by_one", DECODE_BOUND)
+                 (PARITY_BATCH, PARITY_SEQ), ("off_by_one",), DECODE_BOUND)
 
 
 def train_step_path(torch, build, label, cfg, seq, lr):
@@ -2538,6 +2609,7 @@ def train_step_path(torch, build, label, cfg, seq, lr):
         build.reset_launches()
         (params, loss), ms = timed(torch, lambda: step(params, b, lr))
         launches = dict(build.LAUNCHES)
+        PATH_LAUNCHES[f"{label} SGD step"] = launches
         want = dict.fromkeys(launches, 0) | {"flash_attention": 2 * flash_layers(cfg)}
         check(launches == want, f"{label} step launches {launches}, expected {want}")
         losses.append(float(loss))
@@ -2592,6 +2664,7 @@ def fed_lm_path(torch, build, label, cfg, rounds, grad_control):
     build.reset_launches()
     res, ms = timed(torch, lambda: run_fed_chs(task, config))
     launches = dict(build.LAUNCHES)
+    PATH_LAUNCHES[f"{label} Fed-CHS"] = launches
     leaf_sizes = [t.numel() for t in tree_leaves(res.final_params)]
     J, evals = K // E, len(res.rounds)
     n_eval_batches = len(task.source.eval_data()["tokens"])
@@ -2705,6 +2778,9 @@ MLA_SERVE = dict(requests=8, slots=4, prompt_len=32, max_new=16)
 # prefill to 272 tokens (two chunks of 256, the second ragged), the serving
 # prompts to 16
 SSD_PREFILL, SSD_PARITY, SSD_TRAIN_SEQ = (4, 272), (2, 64), 512
+# and the serving checks run 12 of its 48 layers (the SGD step all 48), so
+# the whole script keeps within its time limit beside phase 3m
+SSD_SERVE_LAYERS = 12
 SSD_SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=32)
 # mamba2-370m's teacher-forced decode against its chunked forward in bf16:
 # 48 layers round the conv and the residual stream at other places (the
@@ -2732,7 +2808,7 @@ def mla_serving_path(torch, build):
             f"{m.v_head_dim}; {cfg.num_experts} experts top-{cfg.experts_per_token} of d_ff "
             f"{cfg.d_ff} and {cfg.num_shared_experts} shared; MTP depth {cfg.mtp_depth}")
     params = serving_path(torch, build, "3l-a", cfg, what, MLA_PREFILL, MLA_SERVE, MLA_PARITY,
-                          "off_by_one", DECODE_BOUND)
+                          ("off_by_one",), DECODE_BOUND)
     b = moe_batch(torch, cfg, 2, 64, 3)
     with torch.no_grad():
         logits, aux = tf.forward(cfg, params, b)
@@ -2772,25 +2848,269 @@ def mla_fed_path(torch, build):
 
 
 def ssd_path(torch, build):
-    """Phase 3l-d: mamba2-370m at full size (48 layers, bf16): `serving_path`
-    (prefill 4 x 272, `serve_loop` 8 requests over 4 slots, prompt 16, 32 new
-    tokens, decode against forward at SSD_DECODE_BOUND beside a control
-    that forgets the state), `make_train_step`, 3 steps of 1 x 512; then the
+    """Phase 3l-d: mamba2-370m at full width (bf16): `serving_path` at 12 of
+    its 48 layers (prefill 4 x 272, `serve_loop` 8 requests over 4 slots,
+    prompt 16, 32 new tokens, decode against forward at SSD_DECODE_BOUND
+    beside a control that forgets the state), `make_train_step` at all 48
+    layers, 3 steps of 1 x 512; then the
     smoke mamba2 under Fed-CHS QSGD(16), 2 rounds (`fed_lm_path`, with a 5%
     smaller step as the grad-mode control)."""
     from repro_torch.configs.registry import get_config, smoke_config
 
     cfg = get_config(SSD_ARCH)
+    served = dataclasses.replace(cfg, num_layers=SSD_SERVE_LAYERS)
     what = (f"d_model {cfg.d_model}, state {cfg.ssm_state}, inner {cfg.ssm_expand * cfg.d_model}"
             f" in heads of {cfg.ssm_head_dim}, conv {cfg.ssm_conv}, chunk {cfg.ssm_chunk}")
-    params = serving_path(torch, build, "3l-d", cfg, what, SSD_PREFILL, SSD_SERVE, SSD_PARITY,
-                          "forget", SSD_DECODE_BOUND)
+    params = serving_path(torch, build, "3l-d", served, what, SSD_PREFILL, SSD_SERVE,
+                          SSD_PARITY, ("forget",), SSD_DECODE_BOUND)
     del params
     torch.cuda.empty_cache()
     train_step_path(torch, build, "3l-d", cfg, SSD_TRAIN_SEQ, TRAIN_LR)
     torch.cuda.empty_cache()
     small = smoke_config(SSD_ARCH)
     fed_lm_path(torch, build, "3l-d", small, 2, ("a 5% smaller step on the CPU", small, 0.285))
+
+
+# phase 3m: RG-LRU blocks through recurrentgemma-9b (d_model 4096, LRU width
+# 4096, 16 heads of 256 with one KV head, window 2048, d_ff 12288 GeLU,
+# vocab 256000; rglru, rglru, local), the encoder, cross-attention caches and
+# stub frames through whisper-tiny (4 + 4 layers, d_model 384, 1500 frames),
+# and stub patch embeddings through phi-3-vision-4.2b (32 layers, d_model
+# 3072, 32 heads of 96, 576 patches of width 1024); bf16, random weights.
+RG_ARCH, ENC_ARCH, VLM_ARCH = "recurrentgemma-9b", "whisper-tiny", "phi-3-vision-4.2b"
+RG_PREFILL, RG_PARITY, RG_TRAIN_SEQ = (4, 128), (2, 64), 512
+RG_SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=32)
+RG_WRAP_LAYERS, RG_WRAP = 3, (2, 2112)  # one pattern; 64 tokens past the window
+ENC_PREFILL, ENC_PARITY, ENC_TRAIN_SEQ = (4, 128), (2, 64), 256
+ENC_SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=32)
+VLM_PREFILL, VLM_PARITY, VLM_TRAIN_SEQ = (4, 128), (2, 64), 512
+VLM_SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=32)
+# recurrentgemma's teacher-forced decode against its flash forward in bf16:
+# the conv sums its bf16 products in another order on each side, the
+# flash kernel rounds P to bf16.  A 6-layer, d_model 1024 cut read 0.0116
+# and 0.0115 on the CPU (two weight draws), a 3-layer cut past a window of
+# 32 0.0098.  Only a third of the layers attend, so the off-by-one cache
+# control is weak (0.12-0.13 on the 6-layer cut, 0.098 on the 3-layer
+# one) and DECODE_BOUND would pass it: RG-LRU paths take this tighter bound.
+RG_DECODE_BOUND = 0.06
+# phase 3m-d/e: the smoke models (f32) card against CPU, loss and every
+# gradient; the card's flash runs split TF32 and its products sum in other
+# orders.  Controls on the CPU: the stub inputs (frames, patches) zeroed.
+SMOKE_BOUND = 1e-4
+# the kernel launches of every path, by phase (serving_path, train_step_path,
+# fed_lm_path and the 3m phases fill it), for the kernels line
+PATH_LAUNCHES: dict[str, dict[str, int]] = {}
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def rglru_serving_path(torch, build):
+    """Phase 3m-a: recurrentgemma-9b whole (38 layers, bf16): `serving_path`
+    (prefill 4 x 128, `serve_loop` 8 requests over 4 slots, prompt 16, 32
+    new tokens, decode against forward at RG_DECODE_BOUND beside a control
+    that forgets the state; 3m-b holds the off-by-one control), then
+    `make_train_step`, 3 steps of 1 x 512."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(RG_ARCH), use_flash=True)
+    what = (f"d_model {cfg.d_model}, LRU width {cfg.lru_width}, {cfg.num_heads}/"
+            f"{cfg.num_kv_heads} heads of {cfg.head_dim}, window {cfg.sliding_window}, d_ff "
+            f"{cfg.d_ff}, pattern {'/'.join(cfg.block_pattern)}")
+    params = serving_path(torch, build, "3m-a", cfg, what, RG_PREFILL, RG_SERVE, RG_PARITY,
+                          ("forget",), RG_DECODE_BOUND)
+    del params
+    torch.cuda.empty_cache()
+    train_step_path(torch, build, "3m-a", cfg, RG_TRAIN_SEQ, TRAIN_LR)
+
+
+def rglru_window_path(torch, build):
+    """Phase 3m-b: recurrentgemma-9b at full width cut to one pattern (rglru,
+    rglru, local), bf16: teacher-forced decode against the flash forward
+    over 2 x 2112 tokens, where the 2048-slot ring buffer wraps and the
+    kernel's window takes effect; held at RG_DECODE_BOUND over all positions
+    and over those past the window, beside a control that forgets the
+    state and an off-by-one cache control (read over the first 64
+    positions, where one key of the few visible ones is a large share)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_config(RG_ARCH), num_layers=RG_WRAP_LAYERS, use_flash=True)
+    params = tf.init_params(cfg, 0, "cuda")
+    B, T = RG_WRAP
+    W = cfg.sliding_window
+    b = moe_batch(torch, cfg, B, T, 4)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with torch.no_grad():
+        (fwd, _), fwd_ms = timed(torch, lambda: tf.forward(cfg, params, b,
+                                                           moe_method="dense_topk"))
+        launches = dict(build.LAUNCHES)
+        PATH_LAUNCHES["3m-b forward"] = launches
+        fwd = fwd.float()
+        dec, dec_ms = timed(torch, lambda: teacher_forced(torch, cfg, params, b))
+        forget = teacher_forced(torch, cfg, params, b, control="forget")
+        shifted = teacher_forced(torch, cfg, params, {"tokens": b["tokens"][:, :64]},
+                                 control="off_by_one")
+        unwindowed = dataclasses.replace(cfg, block_pattern=("rglru", "rglru", "attn"))
+        full = tf.forward(unwindowed, params, b, moe_method="dense_topk")[0].float()
+    want = dict.fromkeys(launches, 0) | {"flash_attention": flash_layers(cfg)}
+    check(launches == want, f"3m-b forward launches {launches}, expected {want}")
+    rel, past = rel_l2(dec, fwd), rel_l2(dec[:, W:], fwd[:, W:])
+    ctrl, shift = rel_l2(forget, fwd), rel_l2(shifted, fwd[:, :64])
+    window_effect = rel_l2(full[:, W:], fwd[:, W:])
+    print(f"phase 3m-b: {cfg.name} at full width, one pattern ({cfg.num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.2f}B params), {B} x {T} tokens, window {W}: the flash "
+          f"forward {fwd_ms:.1f} ms (flash {launches['flash_attention']} launch), "
+          f"{T} teacher-forced decode steps {dec_ms / 1e3:.2f} s ({dec_ms / T:.2f} ms a step); "
+          f"decode vs forward {rel:.4g} in relative L2 over all positions, {past:.4g} over the "
+          f"{T - W} past the window (bound {RG_DECODE_BOUND}), argmax equal at "
+          f"{100 * float((dec.argmax(-1) == fwd.argmax(-1)).float().mean()):.1f}%; "
+          f"forget control {ctrl:.4g}; off-by-one control {shift:.4g} over the first 64 "
+          f"positions; the forward without the window reads {window_effect:.4g} from the "
+          f"windowed one past it")
+    check(rel <= RG_DECODE_BOUND and past <= RG_DECODE_BOUND and bool(torch.isfinite(dec).all()),
+          "3m-b: teacher-forced decode strays from the windowed forward")
+    check(ctrl > RG_DECODE_BOUND and shift > RG_DECODE_BOUND,
+          "3m-b: the decode bound would pass a control")
+
+
+def rglru_fed_path(torch, build):
+    """Phase 3m-c: smoke recurrentgemma-9b under Fed-CHS QSGD(16), 2 rounds
+    (`fed_lm_path`): B1 and B2 on the RG-LRU leaves, the f32 `lambda` and
+    `conv_w` included, B5 on the local block; the grad-mode control halves
+    the window."""
+    from repro_torch.configs.registry import smoke_config
+
+    cfg = smoke_config(RG_ARCH)
+    fed_lm_path(torch, build, "3m-c", cfg, 2, (
+        "wrong-window control on the CPU (window halved)",
+        dataclasses.replace(cfg, sliding_window=cfg.sliding_window // 2), 0.3))
+
+
+def subtree_grads(torch, label, cfg, params, key):
+    """The gradient of `params[key]` (the encoder or the projector) alone,
+    on a 1 x 128 batch with remat: every leaf finite and nonzero."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils import tree_leaves
+
+    b = moe_batch(torch, cfg, 1, 128, 5)
+    g = torch.func.grad(lambda sub: tf.loss_fn(cfg, {**params, key: sub}, b, remat=True))(
+        params[key])
+    leaves = tree_leaves(g)
+    norms = [float(t.float().norm()) for t in leaves]
+    print(f"  {label}: the {key}'s gradient (1 x 128 tokens, remat on): {len(leaves)} leaves, "
+          f"L2 norms {min(norms):.4g} to {max(norms):.4g}")
+    check(all(math.isfinite(n) and n > 0 for n in norms),
+          f"{label}: the {key}'s gradient is zero or not finite")
+
+
+def launcher_path(torch, label, arch):
+    """`repro_torch.launch.train --execute` at the arch's smoke size on the
+    card, in this process: 3 rounds, each printed loss finite."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_launch
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_launch.main(["--arch", arch, "--execute", "--rounds", "3", "--batch", "2",
+                           "--seq", "16"])
+    losses = [float(line.split()[3]) for line in out.getvalue().splitlines()
+              if line.startswith("round ")]
+    print(f"  {label}: `launch.train --execute --arch {arch}` (smoke, 3 rounds, zero "
+          f"{'frames' if arch == ENC_ARCH else 'patches'}) losses {losses}")
+    check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+          f"{label}: train --execute printed {losses}")
+
+
+def smoke_vs_cpu(torch, label, arch, stub):
+    """The smoke model (f32) with its stub inputs drawn from a seed: loss and
+    every gradient on the card (flash on) against the CPU's plain path,
+    held to SMOKE_BOUND beside a CPU control with the stub input zeroed."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(smoke_config(arch), use_flash=True)
+    params = tf.init_params(cfg, 0, "cpu")
+    gen = torch.Generator().manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen, dtype=torch.int32)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    width = cfg.d_model if stub == "frames" else 1024
+    length = cfg.num_audio_frames if stub == "frames" else cfg.num_patches
+    b[stub] = torch.randn((2, length, width), generator=gen)
+
+    def grads_of(p, batch):
+        g, loss = torch.func.grad_and_value(lambda q: tf.loss_fn(cfg, q, batch))(p)
+        return torch.cat([t.reshape(-1).cpu() for t in tree_leaves(g)]), float(loss)
+
+    g_cpu, l_cpu = grads_of(params, b)
+    g_card, l_card = grads_of(tree_map(lambda t: t.cuda(), params),
+                              {k: v.cuda() for k, v in b.items()})
+    g_ctrl, _ = grads_of(params, dict(b, **{stub: torch.zeros_like(b[stub])}))
+    gap, ctrl = rel_l2(g_card, g_cpu), rel_l2(g_ctrl, g_cpu)
+    print(f"  {label}: smoke {arch} (f32, flash on the card) with {stub}, card vs CPU plain "
+          f"path: loss {l_card:.6f} vs {l_cpu:.6f}, gradients {gap:.3g} apart in relative L2 "
+          f"(bound {SMOKE_BOUND:g}); {stub}-zeroed control {ctrl:.3g}")
+    check(abs(l_card - l_cpu) <= SMOKE_BOUND * abs(l_cpu) and gap <= SMOKE_BOUND,
+          f"{label}: the smoke model on the card strays from the CPU")
+    check(ctrl > SMOKE_BOUND, f"{label}: the bound would pass the {stub}-zeroed control")
+
+
+def whisper_path(torch, build):
+    """Phase 3m-d: whisper-tiny whole (4 decoder and 4 encoder layers, bf16,
+    frames (B, 1500, 384) from a seed): `serving_path` (prefill 4 x 128 with
+    the cross caches filled, `serve_loop`, decode against forward at
+    DECODE_BOUND beside an off-by-one control and zeroed cross caches),
+    `serve_loop` batched equal to solo, the encoder's gradient, 3 SGD steps
+    of 1 x 256, `launch.train --execute` at smoke size, and the smoke model
+    card against CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve_loop
+
+    cfg = dataclasses.replace(get_config(ENC_ARCH), use_flash=True)
+    what = (f"d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, {cfg.encoder_layers} encoder layers over {cfg.num_audio_frames} "
+            f"frames")
+    params = serving_path(torch, build, "3m-d", cfg, what, ENC_PREFILL, ENC_SERVE, ENC_PARITY,
+                          ("off_by_one", "zero_cross"), DECODE_BOUND)
+    batched, _ = serve_loop(cfg, params, requests=6, slots=4, prompt_len=6, max_new=8)
+    solo, _ = serve_loop(cfg, params, requests=6, slots=1, prompt_len=6, max_new=8)
+    check(batched == solo and all(len(v) == 8 for v in solo.values()),
+          "3m-d: serve_loop batched differs from solo on the card")
+    print("  3m-d: serve_loop, 6 requests over 4 slots equal to 1 slot, token for token")
+    subtree_grads(torch, "3m-d", cfg, params, "encoder")
+    del params
+    torch.cuda.empty_cache()
+    train_step_path(torch, build, "3m-d", cfg, ENC_TRAIN_SEQ, TRAIN_LR)
+    launcher_path(torch, "3m-d", ENC_ARCH)
+    smoke_vs_cpu(torch, "3m-d", ENC_ARCH, "frames")
+
+
+def vlm_path(torch, build):
+    """Phase 3m-e: phi-3-vision-4.2b whole (32 layers, bf16, 576 patches of
+    width 1024 from a seed): `serving_path` (prefill 4 x 128 tokens after
+    the patches, the flash kernel over 704 positions; `serve_loop`; decode
+    against the backbone's forward without the patches at DECODE_BOUND
+    beside an off-by-one control), the projector's gradient, 3 SGD steps of
+    1 x 512 tokens plus the patches, `launch.train --execute` at smoke size,
+    and the smoke model card against CPU."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), use_flash=True)
+    what = (f"d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, {cfg.num_patches} patches")
+    params = serving_path(torch, build, "3m-e", cfg, what, VLM_PREFILL, VLM_SERVE, VLM_PARITY,
+                          ("off_by_one",), DECODE_BOUND)
+    subtree_grads(torch, "3m-e", cfg, params, "projector")
+    del params
+    torch.cuda.empty_cache()
+    train_step_path(torch, build, "3m-e", cfg, VLM_TRAIN_SEQ, TRAIN_LR)
+    launcher_path(torch, "3m-e", VLM_ARCH)
+    smoke_vs_cpu(torch, "3m-e", VLM_ARCH, "patches")
 
 
 def time_launches(torch, fn, reps, flush):
@@ -2924,11 +3244,12 @@ def message_decode_timings(torch, qsgd, ref, flush, lm_sizes):
         del wires
 
 
-def flash_work(B, T, S, H, Hkv, hd, itemsize):
+def flash_work(B, T, S, H, Hkv, hd, itemsize, window=None):
     """(bytes, operations) of causal flash attention: q, k, v read once and
     the output written once; 4 hd operations per unmasked (q, k) pair (two
-    products of 2 hd each), the softmax's exp and sums not counted."""
-    pairs = sum(min(q + 1, S) for q in range(T))
+    products of 2 hd each; a window keeps the last `window` keys), the
+    softmax's exp and sums not counted."""
+    pairs = sum(min(q + 1, S, window or S) for q in range(T))
     nbytes = itemsize * (2 * B * T * H * hd + 2 * B * S * Hkv * hd)
     return nbytes, 4 * B * H * hd * pairs
 
@@ -2980,6 +3301,33 @@ def flash_timings(torch, fa, flush):
         ops_per_s=BF16_OPS_PER_S)
     print(f"phase 4: flash_attention at dbrx-132b's prefill shape: "
           f"{dbrx['ms'] / dbrx['library_ms']:.3f}x SDPA's bf16 time")
+    # phase 3m's shapes, bf16; SDPA takes the window as a boolean mask
+    for name, shape, window in (("recurrentgemma-9b past its window", FLASH_RG,
+                                 FLASH_RG_WINDOW),
+                                ("phi-3-vision-4.2b prefill", FLASH_VLM, None),
+                                ("whisper-tiny prefill", FLASH_ENC, None)):
+        B, T, S, H, Hkv, hd = shape
+        q, k, v = flash_inputs(torch, gen, B, T, S, H, Hkv, hd, torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pos = torch.arange(T, device="cuda")
+        mask = pos[None, :] <= pos[:, None]
+        if window:
+            mask &= pos[None, :] > pos[:, None] - window
+
+        def sdpa(qt=qt, kt=kt, vt=vt, mask=mask):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        r = timed_row(
+            torch, flush, "flash_attention", f"{name} B={B} T=S={T} H={H} Hkv={Hkv} hd={hd} "
+            f"window={window} torch.bfloat16",
+            *flash_work(B, T, S, H, Hkv, hd, q.element_size(), window),
+            lambda q=q, k=k, v=v, window=window: fa.flash_attention(q, k, v, causal=True,
+                                                                    window=window),
+            lambda q=q, k=k, v=v, window=window: fa.flash_attention_plain(
+                q, k, v, causal=True, window=window),
+            library=sdpa, ops_per_s=BF16_OPS_PER_S)
+        print(f"phase 4: flash_attention at {name}: {r['ms'] / r['library_ms']:.3f}x SDPA's "
+              f"bf16 time (masked)")
     return row
 
 
@@ -3013,7 +3361,8 @@ def main() -> None:
     print(f"  ptxas: {len(kernels)} kernels, {len(spilling)} with spills")
     shown = ptxas_shown(ref)
     for name, regs, stores, loads in kernels:
-        if stores or loads or any(key in name for key in shown.values()):
+        if stores or loads or any(key in name for key in [*shown.values(),
+                                                          *PTXAS_NOTED.values()]):
             print(f"  ptxas: {name}: {regs} registers, {stores} bytes spill stores, "
                   f"{loads} bytes spill loads")
     for name, key in shown.items():
@@ -3062,6 +3411,7 @@ def main() -> None:
     del lenet_task, chs_arm, arms
     torch.cuda.empty_cache()
     lean_lm_path(torch, build, lm_peak_gb, round_s)
+    elapsed("3h's LM arms")
     lean_cross_check(torch)
     elapsed("3h")
     torch.cuda.empty_cache()
@@ -3088,6 +3438,18 @@ def main() -> None:
     ssd_path(torch, build)
     elapsed("3l-d")
     torch.cuda.empty_cache()
+    rglru_serving_path(torch, build)
+    torch.cuda.empty_cache()
+    rglru_window_path(torch, build)
+    torch.cuda.empty_cache()
+    rglru_fed_path(torch, build)
+    elapsed("3m-a, 3m-b, 3m-c")
+    torch.cuda.empty_cache()
+    whisper_path(torch, build)
+    torch.cuda.empty_cache()
+    vlm_path(torch, build)
+    elapsed("3m-d, 3m-e")
+    torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     rows = qsgd_timings(torch, qsgd, ref, flush, lm_sizes)
@@ -3102,6 +3464,8 @@ def main() -> None:
             "launches": launches[name], "max_abs_err": err[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "launches_on_paths": {path: counts.get(name, 0)
+                                  for path, counts in PATH_LAUNCHES.items()},
         })
     print(f"main path: {round_s:.3f} s per warm {LM_ARCH} Fed-CHS round on the card "
           f"(an eval included)")

@@ -40,6 +40,15 @@ def main():
     B = args.batch
     batch = {k: torch.from_numpy(v).to(device) for k, v in
              synthetic_lm_batch(cfg.vocab_size, B, args.prompt_len, seed=0).items()}
+    # the stub frontends' outputs: audio frames for an encoder-decoder (the
+    # prefill pins their encoder K/V in the caches), patch embeddings for a VLM
+    gen = torch.Generator().manual_seed(1)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = (torch.randn((B, cfg.num_audio_frames, cfg.d_model), generator=gen)
+                           * 0.1).to(device)
+    if cfg.num_patches:
+        batch["patches"] = (torch.randn((B, cfg.num_patches, tf.PATCH_DIM), generator=gen)
+                            * 0.1).to(device)
 
     with torch.no_grad():
         # prefill: the forward over the prompt, and the caches filled by

@@ -1,6 +1,6 @@
 """Architecture config schema for the assigned model pool (a copy of the
-reference package's `configs/base.py`; the port runs the blocks of these
-configs that `models/transformer.py::check_ported` accepts).
+reference package's `configs/base.py`; the port runs every config of
+`registry.py`).
 
 One frozen dataclass covers all six families (dense / moe / ssm / hybrid /
 audio / vlm); family-specific fields default to "off". Every concrete config in

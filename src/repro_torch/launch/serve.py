@@ -159,10 +159,15 @@ def serve_loop(cfg, params: dict, *, requests: int, slots: int, prompt_len: int,
     cache is restored from the snapshot taken before admission, so a
     request decodes the same tokens alone or beside others (with a dense
     FFN; expert-choice MoE routing depends on the whole batch by design).
+
+    As in the reference, the prompts are tokens only: an encoder-decoder's
+    cross caches (over `cfg.num_audio_frames` frames) stay zero, so it
+    decodes against zero encoder states, and a VLM decodes without patches.
     """
     device = tree_leaves(params)[0].device
     S = slots
-    fresh = tf.init_caches(cfg, S, prompt_len + max_new, device=device)
+    enc_len = cfg.num_audio_frames if cfg.is_encoder_decoder else 0
+    fresh = tf.init_caches(cfg, S, prompt_len + max_new, enc_len=enc_len, device=device)
     caches = fresh
 
     def step(tok: np.ndarray):

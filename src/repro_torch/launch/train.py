@@ -73,8 +73,16 @@ def _execute(args) -> None:
     def batch_for(t: int) -> dict:
         toks = np.stack([g.sample(np.random.default_rng((c + 1) * 100003 + t), args.batch,
                                   args.seq + 1) for c, g in enumerate(gens)])
-        return {"tokens": torch.from_numpy(toks[:, :, :-1].copy()).to(device),
-                "labels": torch.from_numpy(toks[:, :, 1:].copy()).to(device)}
+        batch = {"tokens": torch.from_numpy(toks[:, :, :-1].copy()).to(device),
+                 "labels": torch.from_numpy(toks[:, :, 1:].copy()).to(device)}
+        # the stub frontends' inputs, zeros as in the reference
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.zeros((C, args.batch, cfg.num_audio_frames, cfg.d_model),
+                                          device=device)
+        if cfg.num_patches:
+            batch["patches"] = torch.zeros((C, args.batch, cfg.num_patches, tf.PATCH_DIM),
+                                           device=device)
+        return batch
 
     t_start = 0
     pfile = mfile = None

@@ -14,8 +14,10 @@ import torch.nn.functional as F
 def dense_init(gen: torch.Generator, n_in: int, n_out: int, *, scale: float | None = None,
                lead: tuple = (), dtype=torch.float32) -> torch.Tensor:
     """Normal weights of shape (*lead, n_in, n_out) times `scale` (default
-    1/sqrt(n_in)), drawn in f32 on the generator's device."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(n_in)
+    1/sqrt(n_in)), drawn in f32 on the generator's device.  A matrix with
+    no rows (an FFN of width 0) is empty, as the reference's is."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(n_in) if n_in else math.inf
     w = torch.randn((*lead, n_in, n_out), generator=gen, device=gen.device, dtype=torch.float32)
     return (w * scale).to(dtype)
 
@@ -24,6 +26,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (the population variance), cast
+    back to x's dtype."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    return ((xf - mean) * torch.rsqrt(var + eps) * weight + bias).to(x.dtype)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):

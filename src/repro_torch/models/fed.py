@@ -92,8 +92,9 @@ class LMFedModel:
     `cfg.use_flash`); `remat` recomputes each superblock in the backward
     pass instead of keeping its activations (`transformer.RematBlock`).
     With both on, and the engine's `client_microbatch` and `precision`, this
-    is the memory-lean LM training configuration.  Not ported: the blocks
-    `transformer.check_ported` names, which raise NotImplementedError."""
+    is the memory-lean LM training configuration.  An encoder-decoder's
+    batches also carry "frames" (B, F, d), a VLM's "patches" (B, P, 1024),
+    as the reference's do."""
 
     cfg: ArchConfig
     remat: bool = False
@@ -101,9 +102,6 @@ class LMFedModel:
 
     metric_name: str = dataclasses.field(default="perplexity", init=False)
     metric_mode: str = dataclasses.field(default="min", init=False)
-
-    def __post_init__(self):
-        tf.check_ported(self.cfg)
 
     @property
     def name(self) -> str:

@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM: attention blocks with a dense or MoE FFN,
-training and serving (port of `repro/models/transformer.py`).
+"""The transformer LM of every configured family: attention, SSD and RG-LRU
+blocks with a dense or MoE FFN, an encoder with cross-attention, patch
+embeddings, training and serving (port of `repro/models/transformer.py`).
 
 Layout, as the reference's: the arch's `block_pattern` is stacked
 `num_layers // len(pattern)` times into "superblocks" whose params carry a
@@ -22,20 +23,28 @@ Entry points (all functional):
 
 `forward(..., remat=True)` recomputes each superblock in the backward pass
 instead of keeping its activations, as the reference's `jax.checkpoint`
-of the scanned superblock does: `RematBlock` keeps only the block's input
-and layer tensors, and its backward runs the block again under
+of the scanned superblock does: `RematBlock` keeps only the block's
+inputs (the activations, the encoder's output when there is one, and the
+layer tensors), and its backward runs the block again under
 `torch.func.vjp`.  (`torch.utils.checkpoint` cannot run under the
 engine's `vmap(grad_and_value(...))`: torch.func refuses its saved-tensor
 hooks, and its reentrant form has no `setup_context`.)
 
-Block kinds ported: "attn" and "local" (sliding window; MLA when
-`cfg.mla` is set), with a dense or MoE FFN, and "ssd" (Mamba-2, no FFN);
-DeepSeek's multi-token prediction head (`cfg.mtp_depth`, `_mtp_loss`).
-Not ported (`check_ported` raises NotImplementedError): RG-LRU blocks,
-the encoder and its cross-attention caches, patch embeddings.
+Block kinds (`KINDS`): "attn" and "local" (sliding window; MLA when
+`cfg.mla` is set), "ssd" (Mamba-2, no FFN) and "rglru" (Griffin), each but
+"ssd" with a dense or MoE FFN; another kind raises ValueError in
+`init_block`.  Whisper adds an encoder over stub frame embeddings
+(`batch["frames"]`) and cross-attention in every decoder block, with the
+encoder's K/V pinned in the decode caches; Phi-3-vision prepends projected
+stub patch embeddings (`batch["patches"]`, width 1024) to the tokens;
+DeepSeek adds a multi-token prediction head (`cfg.mtp_depth`, `_mtp_loss`).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -43,24 +52,14 @@ from torch.func import grad_and_value, vjp
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import ssd
+from repro_torch.models import rglru, ssd
 from repro_torch.models.common import cross_entropy_loss, dense_init, rms_norm
 from repro_torch.models.ffn import ffn_forward, init_ffn, init_moe, moe_forward
 from repro_torch.utils import (resolve_device, tree_flatten, tree_leaves, tree_map,
                                tree_unflatten)
 
-KINDS = ("attn", "local", "ssd")
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for the parts of `cfg` the port lacks."""
-    missing = [name for name, on in (
-        ("encoder", cfg.is_encoder_decoder), ("patch embeddings", bool(cfg.num_patches)),
-    ) if on]
-    missing += [f"{kind!r} blocks" for kind in dict.fromkeys(cfg.block_pattern)
-                if kind not in KINDS]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: not ported to repro_torch yet: {missing}")
+KINDS = ("attn", "local", "ssd", "rglru")
+PATCH_DIM = 1024  # width of the stub patch embeddings the projector maps to d_model
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -88,15 +87,22 @@ def _has_ffn(kind: str) -> bool:
 
 def init_block(cfg: ArchConfig, kind: str, gen: torch.Generator, dtype,
                lead: tuple = ()) -> dict:
-    """A block's params: the mixer (attention, MLA or SSD) drawn first, then
-    the FFN, the order that keeps every earlier config's weights."""
+    """A block's params: the mixer (attention, MLA, SSD or RG-LRU) drawn
+    first, then an encoder-decoder's cross-attention, then the FFN, the
+    order that keeps every earlier config's weights."""
     ones = torch.ones((*lead, cfg.d_model), dtype=dtype, device=gen.device)
     p: dict = {"ln1": ones}
     if kind == "ssd":
         p["mixer"] = ssd.init_ssd_block(cfg, gen, dtype, lead)
+    elif kind == "rglru":
+        p["mixer"] = rglru.init_rglru_block(cfg, gen, dtype, lead)
     elif kind in ("attn", "local"):
         init = attn.init_mla if cfg.mla is not None else attn.init_attention
         p["attn"] = init(cfg, gen, dtype, lead)
+        if cfg.is_encoder_decoder:
+            p["ln_x"] = ones.clone()
+            xcfg = dataclasses.replace(cfg, qkv_bias=False, qk_norm=False)
+            p["xattn"] = attn.init_attention(xcfg, gen, dtype, lead)
     else:
         raise ValueError(kind)
     if _has_ffn(kind):
@@ -118,46 +124,86 @@ def _ffn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, moe_method: str):
 
 
 def block_forward(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
+                  enc_out: torch.Tensor | None = None,
                   moe_method: str = "expert_choice") -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B,T,d) -> (x', aux). Causal training / prefill path."""
+    """x (B,T,d) -> (x', aux). Causal training / prefill path; an
+    encoder-decoder's attention blocks then attend to `enc_out` (B,F,d)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssd":
-        y = ssd.ssd_block_forward(cfg, p["mixer"], h)
-    elif cfg.mla is not None:
-        y = attn.mla_forward(cfg, p["attn"], h)
+        x = x + ssd.ssd_block_forward(cfg, p["mixer"], h)
+    elif kind == "rglru":
+        x = x + rglru.rglru_block_forward(cfg, p["mixer"], h)
     else:
-        window = cfg.sliding_window if kind == "local" else None
-        y = attn.attention_forward(cfg, p["attn"], h, window=window)
-    return _ffn(cfg, kind, p, x + y, moe_method)
+        if cfg.mla is not None:
+            y = attn.mla_forward(cfg, p["attn"], h)
+        else:
+            window = cfg.sliding_window if kind == "local" else None
+            y = attn.attention_forward(cfg, p["attn"], h, window=window)
+        x = x + y
+        if cfg.is_encoder_decoder and enc_out is not None:
+            hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+            x = x + _cross_attention(cfg, p["xattn"], hx, enc_out)
+    return _ffn(cfg, kind, p, x, moe_method)
+
+
+def _cross_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_out: torch.Tensor
+                     ) -> torch.Tensor:
+    """Decoder -> encoder attention: no RoPE, every frame visible, the
+    blockwise path (the reference's, never the flash kernel)."""
+    B, T, _ = x.shape
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, T, h, hd)
+    k = (enc_out @ p["wk"]).reshape(B, enc_out.shape[1], hkv, hd)
+    v = (enc_out @ p["wv"]).reshape(B, enc_out.shape[1], hkv, hd)
+    out = attn.blockwise_attention(q, k, v, causal=False)
+    return out.reshape(B, T, -1) @ p["wo"]
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, capacity: int, dtype,
-                     device) -> dict:
+                     device, enc_len: int = 0) -> dict:
     """A block's decode cache; a sliding-window block's is a ring buffer of
-    at most `sliding_window` entries, an SSD block's holds its conv
-    histories and state."""
+    at most `sliding_window` entries, an SSD or RG-LRU block's holds its
+    conv histories and state, and an encoder-decoder's attention block
+    also the encoder's K/V over `enc_len` frames (zeros until
+    `_fill_cross_caches`)."""
     if kind == "ssd":
         return {"mixer": ssd.init_ssd_cache(cfg, batch, dtype, device)}
+    if kind == "rglru":
+        return {"mixer": rglru.init_rglru_cache(cfg, batch, dtype, device)}
     cap = capacity if kind == "attn" else min(capacity, cfg.sliding_window)
     init = attn.init_mla_cache if cfg.mla is not None else attn.init_attn_cache
-    return {"self": init(cfg, batch, cap, dtype, device)}
+    c = {"self": init(cfg, batch, cap, dtype, device)}
+    if cfg.is_encoder_decoder:
+        shape = (batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+        c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
 
 
 def block_decode(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, cache: dict, *,
                  moe_method: str = "expert_choice") -> tuple[torch.Tensor, dict]:
     """x (B,1,d) against the block's cache -> (x', new cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == "ssd":
-        y, new = ssd.ssd_block_decode(cfg, p["mixer"], h, cache["mixer"])
-        cache = dict(cache, mixer=new)
+    if kind in ("ssd", "rglru"):
+        mixer = ssd.ssd_block_decode if kind == "ssd" else rglru.rglru_block_decode
+        y, new = mixer(cfg, p["mixer"], h, cache["mixer"])
+        x, cache = x + y, dict(cache, mixer=new)
     else:
         if cfg.mla is not None:
             y, new = attn.mla_decode(cfg, p["attn"], h, cache["self"])
         else:
             window = cfg.sliding_window if kind == "local" else None
             y, new = attn.attention_decode(cfg, p["attn"], h, cache["self"], window=window)
-        cache = dict(cache, self=new)
-    x, _ = _ffn(cfg, kind, p, x + y, moe_method)
+        x, cache = x + y, dict(cache, self=new)
+        if cfg.is_encoder_decoder:
+            # the pinned encoder K/V, every frame visible
+            hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+            B, F_enc = x.shape[0], cache["cross_k"].shape[1]
+            q = (hx @ p["xattn"]["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+            out = attn.decode_attention(q, cache["cross_k"], cache["cross_v"], torch.full(
+                (B,), F_enc, dtype=torch.int32, device=x.device))
+            x = x + out.reshape(B, 1, -1) @ p["xattn"]["wo"]
+    x, _ = _ffn(cfg, kind, p, x, moe_method)
     return x, cache
 
 
@@ -167,8 +213,10 @@ def block_decode(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, cache: di
 
 
 def init_params(cfg: ArchConfig, seed: int, device) -> dict:
-    """Random params from `seed`, drawn with a generator on `device`."""
-    check_ported(cfg)
+    """Random params from `seed`, drawn with a generator on `device`: the
+    embedding, the layers, the LM head, then what only some configs have
+    (the encoder, the patch projector, the MTP head), so a config without
+    them draws the weights it drew before they were ported."""
     dtype = _dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     n_super, n_tail = _layout(cfg)
@@ -183,6 +231,13 @@ def init_params(cfg: ArchConfig, seed: int, device) -> dict:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype=dtype)
+    if cfg.is_encoder_decoder:
+        p["encoder"] = {
+            "blocks": _init_encoder_block(_encoder_cfg(cfg), gen, dtype, (cfg.encoder_layers,)),
+            "norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        }
+    if cfg.num_patches:
+        p["projector"] = dense_init(gen, PATCH_DIM, cfg.d_model, dtype=dtype)
     if cfg.mtp_depth:  # drawn last, so the trunk's weights are those without it
         p["mtp"] = {
             "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype=dtype),
@@ -192,45 +247,119 @@ def init_params(cfg: ArchConfig, seed: int, device) -> dict:
     return p
 
 
-def super_block(cfg: ArchConfig, moe_method: str, treedefs: tuple, h: torch.Tensor,
-                *leaves) -> tuple[torch.Tensor, torch.Tensor]:
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The encoder's blocks: plain GeLU FFN, full attention, no bias, no
+    q/k norm, no MoE, no MLA."""
+    return dataclasses.replace(cfg, qkv_bias=False, qk_norm=False, num_experts=0, act="gelu",
+                               block_pattern=("attn",), mla=None)
+
+
+def _init_encoder_block(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()
+                        ) -> dict:
+    """An encoder block's params (attention, then FFN); `lead` = (layers,)
+    stacks that many."""
+    ones = torch.ones((*lead, cfg.d_model), dtype=dtype, device=gen.device)
+    return {"ln1": ones, "attn": attn.init_attention(cfg, gen, dtype, lead),
+            "ln2": ones.clone(), "ffn": init_ffn(cfg, gen, dtype, lead)}
+
+
+@functools.lru_cache(maxsize=4)
+def _sinusoids(d_model: int) -> np.ndarray:
+    """The encoder's position table (10,000 x d_model) in f64, built as the
+    reference builds it: sines of every even-indexed frequency, then cosines.
+    Read-only: every caller shares the cached array."""
+    pos = np.arange(10_000)[:, None] / (10_000 ** (np.arange(0, d_model, 2)[None, :] / d_model))
+    table = np.concatenate([np.sin(pos), np.cos(pos)], axis=-1)
+    table.setflags(write=False)
+    return table
+
+
+def _encoder_forward(cfg: ArchConfig, p: dict, frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, F, d), the stub frontend's output -> encoder states
+    (B, F, d): sinusoidal positions, then bidirectional blocks (blockwise
+    attention, as the reference's), then a final norm."""
+    dtype = _dtype(cfg)
+    x = frames.to(dtype)
+    F_enc = x.shape[1]
+    pe = torch.tensor(_sinusoids(cfg.d_model)[:F_enc, :cfg.d_model], device=x.device)
+    x = x + pe.to(dtype)
+    enc_cfg = _encoder_cfg(cfg)
+    leaves, treedef = tree_flatten(p["blocks"])
+    for layer in zip(*(leaf.unbind(0) for leaf in leaves)):
+        bp = tree_unflatten(treedef, list(layer))
+        y = attn.blockwise_attention(
+            *_enc_qkv(enc_cfg, bp["attn"], rms_norm(x, bp["ln1"], cfg.norm_eps)), causal=False)
+        x = x + y.reshape(x.shape[0], F_enc, -1) @ bp["attn"]["wo"]
+        x = x + ffn_forward(enc_cfg, bp["ffn"], rms_norm(x, bp["ln2"], cfg.norm_eps))
+    return rms_norm(x, p["norm"], cfg.norm_eps)
+
+
+def _enc_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor):
+    """The encoder's q, k, v (B, F, heads, hd): no bias, no RoPE."""
+    B, T, _ = x.shape
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return ((x @ p["wq"]).reshape(B, T, h, hd), (x @ p["wk"]).reshape(B, T, hkv, hd),
+            (x @ p["wv"]).reshape(B, T, hkv, hd))
+
+
+def _embed_inputs(cfg: ArchConfig, params: dict, batch: dict):
+    """-> (x (B, T', d), the encoder's output or None, n_prefix): the token
+    embeddings, after the projected patches of a VLM (T' = patches +
+    tokens, n_prefix = patches)."""
+    x = F.embedding(batch["tokens"].long(), params["embed"])
+    enc_out, n_prefix = None, 0
+    if cfg.is_encoder_decoder:
+        enc_out = _encoder_forward(cfg, params["encoder"], batch["frames"])
+    if cfg.num_patches:
+        patches = batch["patches"].to(_dtype(cfg)) @ params["projector"]
+        x = torch.cat([patches, x], dim=1)
+        n_prefix = patches.shape[1]
+    return x, enc_out, n_prefix
+
+
+def super_block(cfg: ArchConfig, moe_method: str, treedefs: tuple, cross: bool,
+                h: torch.Tensor, *tensors) -> tuple[torch.Tensor, torch.Tensor]:
     """One superblock: the layers of `cfg.block_pattern` in turn, and the
-    sum of their aux losses.  `leaves` are the layers' tensors in pattern
-    order, `treedefs` their structures."""
+    sum of their aux losses.  `tensors` are the encoder's output when
+    `cross`, then the layers' tensors in pattern order, `treedefs` their
+    structures."""
+    enc_out, leaves = (tensors[0], tensors[1:]) if cross else (None, tensors)
     i, aux = 0, torch.zeros((), dtype=torch.float32, device=h.device)
     for kind, (treedef, n) in zip(cfg.block_pattern, treedefs):
         h, a = block_forward(cfg, kind, tree_unflatten(treedef, list(leaves[i:i + n])), h,
-                             moe_method=moe_method)
+                             enc_out=enc_out, moe_method=moe_method)
         aux = aux + a
         i += n
     return h, aux
 
 
 class RematBlock(torch.autograd.Function):
-    """A superblock that keeps no activations: the forward saves its input
-    and layer tensors only, and the backward recomputes the block under
+    """A superblock that keeps no activations: the forward saves its
+    inputs only (the activations, the encoder's output when `cross`, and the
+    layer tensors), and the backward recomputes the block under
     `torch.func.vjp` and pulls both cotangents (activations and aux loss)
-    back through it.  The vmap rule is generated, so it runs under the
-    engine's vmap over clients; a flash attention call inside it runs its
-    kernel again in the recompute."""
+    back through it, to every input: the encoder's output gets its
+    cotangent, so the encoder's parameters get their gradient.  The vmap
+    rule is generated, so it runs under the engine's vmap over clients; a
+    flash attention call inside it runs its kernel again in the recompute."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(cfg, moe_method, treedefs, h, *leaves):
-        return super_block(cfg, moe_method, treedefs, h, *leaves)
+    def forward(cfg, moe_method, treedefs, cross, h, *tensors):
+        return super_block(cfg, moe_method, treedefs, cross, h, *tensors)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        cfg, moe_method, treedefs, h, *leaves = inputs
-        ctx.cfg, ctx.moe_method, ctx.treedefs = cfg, moe_method, treedefs
-        ctx.save_for_backward(h, *leaves)
+        cfg, moe_method, treedefs, cross, h, *tensors = inputs
+        ctx.cfg, ctx.moe_method, ctx.treedefs, ctx.cross = cfg, moe_method, treedefs, cross
+        ctx.save_for_backward(h, *tensors)
 
     @staticmethod
     def backward(ctx, ct_h, ct_aux):
-        _, pullback = vjp(lambda *xs: super_block(ctx.cfg, ctx.moe_method, ctx.treedefs, *xs),
-                          *ctx.saved_tensors)
-        return (None, None, None, *pullback((ct_h, ct_aux)))
+        _, pullback = vjp(lambda *xs: super_block(ctx.cfg, ctx.moe_method, ctx.treedefs,
+                                                  ctx.cross, *xs), *ctx.saved_tensors)
+        return (None, None, None, None, *pullback((ct_h, ct_aux)))
 
 
 def _stacked_layers(cfg: ArchConfig, params: dict) -> tuple[tuple, list[list]]:
@@ -251,25 +380,31 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
             moe_method: str = "expert_choice", last_only: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, T, V), or (B, 1, V) with `last_only`, aux loss).
-    `remat` recomputes each superblock in the backward pass (`RematBlock`);
-    `last_only` slices the hidden state to the last position before the
-    LM head, so a prefill never holds (B, T, V) logits."""
-    x = F.embedding(batch["tokens"].long(), params["embed"])
+    The logits are the tokens' only: a VLM's patch positions are sliced
+    off after the final norm.  `remat` recomputes each superblock in the
+    backward pass (`RematBlock`); `last_only` slices the hidden state to
+    the last position before the LM head, so a prefill never holds (B, T,
+    V) logits."""
+    x, enc_out, n_prefix = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_super, n_tail = _layout(cfg)
     treedefs, layers = _stacked_layers(cfg, params)
+    cross = enc_out is not None
+    enc = (enc_out,) if cross else ()
     for leaves in layers:
         if remat:
-            x, a = RematBlock.apply(cfg, moe_method, treedefs, x, *leaves)
+            x, a = RematBlock.apply(cfg, moe_method, treedefs, cross, x, *enc, *leaves)
         else:
-            x, a = super_block(cfg, moe_method, treedefs, x, *leaves)
+            x, a = super_block(cfg, moe_method, treedefs, cross, x, *enc, *leaves)
         aux = aux + a
     plen = len(cfg.block_pattern)
     for i in range(n_tail):
         x, a = block_forward(cfg, cfg.block_kind(n_super * plen + i), params["tail"][i], x,
-                             moe_method=moe_method)
+                             enc_out=enc_out, moe_method=moe_method)
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
     if last_only:
         x = x[:, -1:]
     return x @ _head(cfg, params), aux
@@ -338,22 +473,23 @@ def make_train_step(cfg: ArchConfig, *, remat: bool = True, moe_method: str = "e
 # ==========================================================================
 
 
-def init_caches(cfg: ArchConfig, batch: int, capacity: int, *, device=None) -> dict:
-    """Empty decode caches for `batch` sequences of up to `capacity` tokens,
-    on `device` (the card unless asked): {"super": per pattern position, the
+def init_caches(cfg: ArchConfig, batch: int, capacity: int, *, enc_len: int = 0,
+                device=None) -> dict:
+    """Empty decode caches for `batch` sequences of up to `capacity` tokens
+    (and an encoder-decoder's cross caches over `enc_len` frames), on
+    `device` (the card unless asked): {"super": per pattern position, the
     layers' caches stacked on axis 0; "tail": one per remainder layer}."""
-    check_ported(cfg)
     device = resolve_device(device)
     dtype = _dtype(cfg)
     n_super, n_tail = _layout(cfg)
     plen = len(cfg.block_pattern)
     super_caches = [
         tree_map(lambda *xs: torch.stack(xs),
-                 *[init_block_cache(cfg, kind, batch, capacity, dtype, device)
+                 *[init_block_cache(cfg, kind, batch, capacity, dtype, device, enc_len)
                    for _ in range(n_super)])
         for kind in cfg.block_pattern] if n_super else []
     tail = [init_block_cache(cfg, cfg.block_kind(n_super * plen + i), batch, capacity, dtype,
-                             device) for i in range(n_tail)]
+                             device, enc_len) for i in range(n_tail)]
     return {"super": super_caches, "tail": tail}
 
 
@@ -409,13 +545,41 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *, capacity: int | None 
     """Run the whole prompt: (last-position logits (B, V), caches filled
     with it, room for `capacity` tokens (default the prompt's length)).
     The LM head sees only the last position (`last_only`), so no (B, T, V)
-    logits are made."""
+    logits are made.  An encoder-decoder's cross caches hold the encoder's
+    K/V of `batch["frames"]`.  The replay feeds the tokens only, as the
+    reference's does: a VLM's caches never hold its patch positions."""
     tokens = batch["tokens"]
     B, T = tokens.shape
     logits, _ = forward(cfg, params, batch, moe_method=moe_method, last_only=True)
-    caches = init_caches(cfg, B, capacity or T, device=tokens.device)
+    enc_len = batch["frames"].shape[1] if cfg.is_encoder_decoder else 0
+    caches = init_caches(cfg, B, capacity or T, enc_len=enc_len, device=tokens.device)
+    if cfg.is_encoder_decoder:
+        caches = _fill_cross_caches(cfg, params, batch, caches)
     caches = _fill_caches_by_replay(cfg, params, batch, caches, moe_method=moe_method)
     return logits[:, -1], caches
+
+
+def _fill_cross_caches(cfg: ArchConfig, params: dict, batch: dict, caches: dict) -> dict:
+    """The caches with every attention block's cross_k/cross_v set to the
+    encoder's K/V of `batch["frames"]`, computed once per request."""
+    enc_out = _encoder_forward(cfg, params["encoder"], batch["frames"])
+    B, F_enc, _ = enc_out.shape
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def fill(pp: dict, cc: dict) -> dict:
+        if "xattn" not in pp:
+            return cc
+        wk, wv = pp["xattn"]["wk"], pp["xattn"]["wv"]
+        if wk.ndim == 3:  # stacked (L, d, hkv*hd)
+            ck = torch.einsum("bfd,ldk->lbfk", enc_out, wk).reshape(wk.shape[0], B, F_enc, hkv, hd)
+            cv = torch.einsum("bfd,ldk->lbfk", enc_out, wv).reshape(wv.shape[0], B, F_enc, hkv, hd)
+        else:
+            ck = (enc_out @ wk).reshape(B, F_enc, hkv, hd)
+            cv = (enc_out @ wv).reshape(B, F_enc, hkv, hd)
+        return dict(cc, cross_k=ck.to(cc["cross_k"].dtype), cross_v=cv.to(cc["cross_v"].dtype))
+
+    return {"super": [fill(pp, cc) for pp, cc in zip(params["super"], caches["super"])],
+            "tail": [fill(pp, cc) for pp, cc in zip(params["tail"], caches["tail"])]}
 
 
 def _fill_caches_by_replay(cfg: ArchConfig, params: dict, batch: dict, caches: dict, *,

@@ -62,15 +62,23 @@ def test_train_execute_and_resume_on_the_cpu(tmp_path):
     assert losses(resumed.stdout) == {t: v for t, v in losses(full.stdout).items() if t >= 3}
 
 
-@pytest.mark.parametrize("variant", ["fedchs", "hfl"])
-def test_train_execute_prints_the_reference_losses(variant, tmp_path):
+# the dbrx cases keep the ids they had before the arch was a parameter
+@pytest.mark.parametrize("arch,variant", [
+    pytest.param("dbrx-132b", "fedchs", id="fedchs"),
+    pytest.param("dbrx-132b", "hfl", id="hfl"),
+    pytest.param("recurrentgemma-9b", "fedchs", id="recurrentgemma-9b-fedchs"),
+    pytest.param("whisper-tiny", "fedchs", id="whisper-tiny-fedchs"),
+    pytest.param("phi-3-vision-4.2b", "hfl", id="phi-3-vision-4.2b-hfl"),
+])
+def test_train_execute_prints_the_reference_losses(arch, variant, tmp_path):
     """`train --execute` against `python -m repro.launch.train --execute` at
     the same flags.  The two draw their random weights from different
     generators, so both resume from one checkpoint that the reference wrote
     after its round 0 (the port reads the reference's npz format): the same
     rounds, and each printed loss within 2e-4 (one unit of the printed last
-    digit, plus the f32 gap)."""
-    args = ["--arch", "dbrx-132b", "--execute", "--variant", variant, "--batch", "2",
+    digit, plus the f32 gap).  Whisper's and phi-3-vision's batches carry
+    the reference's zero frames and patches."""
+    args = ["--arch", arch, "--execute", "--variant", variant, "--batch", "2",
             "--seq", "16"]
     xla = {"XLA_FLAGS": "--xla_force_host_platform_device_count=1"}
     ref_ck, our_ck = tmp_path / "ref", tmp_path / "ours"

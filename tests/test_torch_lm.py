@@ -43,6 +43,7 @@ from torch.func import grad_and_value, vmap
 from repro.comm.channels import DenseChannel as JaxDenseChannel
 from repro.comm.channels import QSGDChannel as JaxQSGDChannel
 from repro.configs.base import ArchConfig as JaxArchConfig
+from repro.configs.base import MLAConfig as JaxMLAConfig
 from repro.configs.registry import smoke_config as jax_smoke_config
 from repro.core import FedCHSConfig as JaxConfig
 from repro.core import run_fed_chs as jax_run_fed_chs
@@ -162,10 +163,16 @@ def test_token_source_draws_match_reference():
     np.testing.assert_array_equal(src.next_batch(0)["tokens"], jsrc.next_batch(0)["tokens"])
 
 
-# ids as the cases had them when the list also held remat=True and the MoE
-# case (make1), both ported since; make2 and make3 were deepseek-v3 (MLA,
-# MTP) and mamba2 (SSD blocks), ported since, and now hold RG-LRU blocks
-# beside those ported options
+# ids as the cases had them when they raised NotImplementedError (make1,
+# remat=True and the MoE case, went first): make2 and make3 were deepseek-v3
+# (MLA, MTP) and mamba2 (SSD blocks) beside RG-LRU blocks, make4-make6 the
+# configs with RG-LRU blocks, an encoder and patch embeddings.  Every one is
+# ported now, and each builds and takes the reference's loss at the rules of
+# `test_loss_and_grads_match_reference`; make7, a block kind neither
+# package knows, raises ValueError in both.
+UNKNOWN_KIND = dataclasses.replace(smoke_config(ARCH), block_pattern=("attn", "conv"))
+
+
 @pytest.mark.parametrize("make", [
     lambda: LMFedModel(dataclasses.replace(smoke_config("deepseek-v3-671b"),
                                            block_pattern=("attn", "rglru"))),
@@ -174,10 +181,35 @@ def test_token_source_draws_match_reference():
     lambda: LMFedModel(smoke_config("recurrentgemma-9b")),  # RG-LRU blocks
     lambda: LMFedModel(smoke_config("whisper-tiny")),       # encoder
     lambda: LMFedModel(smoke_config("phi-3-vision-4.2b")),  # patch embeddings
-], ids=["make2", "make3", "make4", "make5", "make6"])
+    lambda: LMFedModel(UNKNOWN_KIND),
+], ids=["make2", "make3", "make4", "make5", "make6", "make7"])
 def test_unported_model_options_raise(make):
-    with pytest.raises(NotImplementedError):
-        make()
+    model = make()
+    fields = {f.name: getattr(model.cfg, f.name) for f in dataclasses.fields(model.cfg)}
+    if model.cfg.mla is not None:
+        fields["mla"] = JaxMLAConfig(**dataclasses.asdict(model.cfg.mla))
+    jmodel = JaxLMFedModel(JaxArchConfig(**fields))
+    if model.cfg is UNKNOWN_KIND:
+        with pytest.raises(ValueError, match="conv"):
+            jmodel.init(jax.random.PRNGKey(0))
+        with pytest.raises(ValueError, match="conv"):
+            model.init(0, "cpu")
+        return
+    cfg = model.cfg
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    assert [tuple(t.shape) for t in tree_leaves(model.init(0, "cpu"))] == \
+        [a.shape for a in jax.tree.leaves(jparams)]
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 13)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = f32(rng, 2, cfg.num_audio_frames, cfg.d_model)
+    if cfg.num_patches:
+        batch["patches"] = f32(rng, 2, cfg.num_patches, 1024)
+    want = jmodel.loss(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = model.loss(params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
