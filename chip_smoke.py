@@ -103,7 +103,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
         `run_fed_chs(local_epochs=K)`, a kill after an activation's save
         and the resume bit-equal, and time to accuracy 0.70 in simulated
         seconds beside sync Fed-CHS replayed through the same networks
-        (3j-c);
+        (3j-c; 10 activations and 5 folds an arm);
      k. the MoE decoder and the serving path at dbrx-132b's full width
         (d_model 6144, 16 experts top-4, d_ff 10752, GQA 48/8, vocab
         100352, bf16, random weights): at 4 layers (14.27B params)
@@ -154,6 +154,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
         the projector's gradient; SGD steps over 1 x 512 tokens and the
         patches; `launch.train --execute`; the smoke model card against
         CPU) (3m-e);
+     n. the federation mesh (`repro_torch.sharding`, `launch/mesh.py`): 4
+        gloo ranks sharing the card (NCCL takes one rank per card), each
+        spawned process on cuda:0, a failure in any rank failing the
+        script.  The reference's tiny task (16 -> 32 -> 4 MLP, 20 clients,
+        4 ESs, and ragged 7/5/4/4 clusters): all four drivers, dense and
+        QSGD(16), on mesh (2, 2) against the same run in this process,
+        params bit for bit (or, where cuBLAS picks a product by the lane
+        count, within 1e-6 of the single run's update and twice a 1-ulp
+        control), ledgers equal, B1/B2 over the ranks = 4 x the
+        single run's (3n-a); the LeNet task of 3a, 2 rounds, Fed-CHS
+        QSGD(16) on (1, 4) and Hier-Local-QSGD QSGD(16) on (2, 2), params
+        held to one card's as in 3n-a, ledgers equal, B1 = B2 = 4 ranks x rounds x compressed hops a
+        round x 10 leaves, each rank's s/round and peak printed as 4 gloo
+        ranks sharing one H100, not a scale-out figure (3n-b);
+        `run_sweep(mesh=)` over 4 seeds, each lane bit-equal to its solo
+        run (3n-c);
   4. time each kernel at its path's shapes with CUDA events (L2 flushed
      before every launch, the card kept busy while the host enqueues it),
      beside its plain version, its bound and, for flash attention, torch's
@@ -166,7 +182,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
      phase 3m's (beside SDPA with a boolean mask).  Rows after a kernel's
      first do not enter the kernels line, which also lists each kernel's
      launches on the serving, SGD-step and federated paths of phases
-     3k-3m (`launches_on_paths`).
+     3k-3m and on 3n-b's mesh paths, summed over the ranks
+     (`launches_on_paths`).
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; exits non-zero without
 one, and outside a checkout of the repository.
@@ -1890,11 +1907,13 @@ def scanned_lm_path(torch, build):
 # phase 3j: the host services.  Telemetry taps and spans (obs/), run
 # checkpoints (checkpoint/) and the event-driven async drivers (async_fl/),
 # at the Appendix-A scale of 3a with QSGD(16) uplinks, plus one tapped
-# qwen3-0.6b run.
-ASYNC_ACTIVATIONS, ASYNC_FOLDS, ANCHOR_ACTIVATIONS, ASYNC_KILL_AT = 20, 10, 4, 10
+# qwen3-0.6b run.  The async arms' depth was halved (20 -> 10 activations,
+# 10 -> 5 folds, the kill at 5, profiled heads of 3/1/2 steps, not 5/2/3)
+# to make room for phase 3n.
+ASYNC_ACTIVATIONS, ASYNC_FOLDS, ANCHOR_ACTIVATIONS, ASYNC_KILL_AT = 10, 5, 4, 5
 ASYNC_GAMMA = 0.70  # benchmarks/fig_async.py's GAMMA
 # the steps of each async arm that are profiled for its kernel share
-ASYNC_PROFILED = {"Fed-CHS": 5, "FedAvg (FedBuff)": 2, "Hier (FedAsync)": 3}
+ASYNC_PROFILED = {"Fed-CHS": 3, "FedAvg (FedBuff)": 1, "Hier (FedAsync)": 2}
 TELE_KEYS = ("update_norm", "drift", "comp_err", "mass")
 
 
@@ -3113,6 +3132,321 @@ def vlm_path(torch, build):
     smoke_vs_cpu(torch, "3m-e", VLM_ARCH, "patches")
 
 
+# phase 3n: the federation mesh.  One card, so 4 gloo ranks share it
+# (NCCL refuses two ranks on one card): the sharded bodies, the padding,
+# the global-slot keys and B1/B2 per rank on CUDA tensors, not a scale-out
+# speed.  3n-a: the reference's tiny task (16 -> 32 -> 4 MLP, 20 clients, 4
+# ESs, and ragged 7/5/4/4 clusters), every driver on a (2, 2) mesh against
+# the same run in this process.  3n-b: the Appendix-A LeNet scale, Fed-CHS
+# on (1, 4) (10 clients pad to 12, 3 a rank) and Hier-Local-QSGD on (2, 2),
+# against single-card runs.  3n-c: `run_sweep(mesh=)`, 4 seeds on 4 ranks.
+MESH_RANKS = 4
+MESH_LENET_ROUNDS = 2
+TINY_CASES = [  # (name, driver, config fields, ragged clusters)
+    ("Fed-CHS grad", "fed_chs", dict(rounds=6, eval_every=3), False),
+    ("Fed-CHS dense", "fed_chs", dict(rounds=6, local_steps=4, local_epochs=2, eval_every=3),
+     False),
+    ("Fed-CHS QSGD(16)", "fed_chs", dict(rounds=6, local_steps=4, local_epochs=2,
+                                         qsgd_levels=16, eval_every=3), False),
+    ("FedAvg dense", "fedavg", dict(rounds=4, local_steps=4, eval_every=2), False),
+    ("FedAvg QSGD(16)", "fedavg", dict(rounds=4, local_steps=4, eval_every=2, qsgd_levels=16),
+     False),
+    ("WRWGD", "wrwgd", dict(rounds=6, local_steps=4, eval_every=3), False),
+    ("Hier dense", "hier", dict(rounds=4, local_steps=4, local_epochs=2, eval_every=2,
+                                qsgd_levels=None), False),
+    ("Hier QSGD(16)", "hier", dict(rounds=4, local_steps=4, local_epochs=2, eval_every=2,
+                                   qsgd_levels=16), False),
+    ("ragged Fed-CHS QSGD(16)", "fed_chs", dict(rounds=4, local_steps=4, local_epochs=2,
+                                                qsgd_levels=16, eval_every=2, seed=1), True),
+    ("ragged Hier QSGD(16)", "hier", dict(rounds=2, local_steps=4, local_epochs=2,
+                                          qsgd_levels=16, eval_every=1, seed=1), True),
+]
+SWEEP_SEEDS = (0, 5, 6, 9)
+
+
+def driver(name):
+    from repro_torch.core.baselines import (
+        FedAvgConfig,
+        HierLocalQSGDConfig,
+        WRWGDConfig,
+        run_fedavg,
+        run_hier_local_qsgd,
+        run_wrwgd,
+    )
+    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+
+    return {"fed_chs": (run_fed_chs, FedCHSConfig), "fedavg": (run_fedavg, FedAvgConfig),
+            "wrwgd": (run_wrwgd, WRWGDConfig),
+            "hier": (run_hier_local_qsgd, HierLocalQSGDConfig)}[name]
+
+
+def tiny_task(torch, ragged=False, ulp=False):
+    """tests/test_torch_sharding.py's tiny task on the card (data and
+    weights from numpy seeds); `ulp` nudges every weight one ulp up."""
+    import numpy as np
+
+    from repro_torch.core.simulation import FLTask
+    from repro_torch.data import Dataset, assign_clusters, dirichlet_partition
+    from repro_torch.data.synthetic import DatasetSpec
+    from repro_torch.models.classifier import Classifier
+
+    rng = np.random.default_rng(0)
+    train_y = rng.integers(0, 4, 400).astype(np.int32)
+    test_y = rng.integers(0, 4, 80).astype(np.int32)
+    protos = rng.normal(size=(4, 4, 4, 1)).astype(np.float32)
+    train_x = (protos[train_y] + 0.3 * rng.normal(size=(400, 4, 4, 1))).astype(np.float32)
+    test_x = (protos[test_y] + 0.3 * rng.normal(size=(80, 4, 4, 1))).astype(np.float32)
+    w = np.random.default_rng(1)
+    weights = {"fc1": {"w": (w.normal(size=(16, 32)) * np.sqrt(2 / 16)).astype(np.float32),
+                       "b": np.zeros(32, np.float32)},
+               "out": {"w": (w.normal(size=(32, 4)) * np.sqrt(2 / 32)).astype(np.float32),
+                       "b": np.zeros(4, np.float32)}}
+    if ulp:
+        weights = {k: {n: np.nextafter(a, np.float32(np.inf)) for n, a in v.items()}
+                   for k, v in weights.items()}
+
+    def init(seed=0, device=None):
+        return {k: {n: torch.from_numpy(a.copy()).to(device) for n, a in v.items()}
+                for k, v in weights.items()}
+
+    def apply(p, x):
+        x = x.reshape(x.shape[0], -1)
+        x = torch.relu(x @ p["fc1"]["w"] + p["fc1"]["b"])
+        return x @ p["out"]["w"] + p["out"]["b"]
+
+    ds = Dataset(DatasetSpec("tiny", (4, 4, 1), 4, 400, 80), train_x, train_y, test_x, test_y)
+    clients = dirichlet_partition(train_y, 20, 0.6, seed=0)
+    clusters = ([list(range(0, 7)), list(range(7, 12)), list(range(12, 16)), list(range(16, 20))]
+                if ragged else assign_clusters(20, 4, seed=0))
+    return FLTask(Classifier("tiny-mlp", init, apply, 4), ds, clients, clusters, batch_size=8,
+                  seed=0)
+
+
+def lenet_appendix_task(torch, ulp=False):
+    """Phase 3a's task: LeNet-MNIST, 100 clients in 10 ESs, batch 32."""
+    from repro_torch.core.simulation import FLTask
+    from repro_torch.data.partition import assign_clusters, dirichlet_partition
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.models.classifier import make_classifier
+
+    ds = make_dataset("mnist", seed=0)
+    model = make_classifier("lenet", "mnist", ds.spec.image_shape, 10)
+    if ulp:
+        init0 = model.init
+
+        def init(seed=0, device=None):
+            p = init0(seed, device)
+            return {k: {n: torch.nextafter(a, torch.full_like(a, math.inf)) for n, a in v.items()}
+                    for k, v in p.items()}
+
+        model = dataclasses.replace(model, init=init)
+    return FLTask(model, ds, dirichlet_partition(ds.train_y, 100, 0.6, seed=0),
+                  assign_clusters(100, 10, seed=0), batch_size=32, seed=0)
+
+
+def lenet_mesh_cases():
+    """3n-b: (name, driver, config fields, mesh shape, uplink hops a round)."""
+    base = dict(rounds=MESH_LENET_ROUNDS, local_steps=MAIN_K, local_epochs=MAIN_E,
+                qsgd_levels=16, eval_every=10**6, seed=0)
+    return [("Fed-CHS QSGD(16)", "fed_chs", base, (1, 4), MAIN_K // MAIN_E),
+            ("Hier-Local-QSGD QSGD(16)", "hier", base, (2, 2), MAIN_K // MAIN_E + 1)]
+
+
+def run_summary(torch, res) -> dict:
+    """A run's params (host copies), logs and ledger."""
+    from repro_torch.utils import tree_leaves
+
+    led = res.ledger
+    return {"params": [a.detach().cpu() for a in tree_leaves(res.final_params)],
+            "rounds": list(res.rounds), "test_acc": list(res.test_acc),
+            "train_loss": list(res.train_loss), "bits": dict(led.bits),
+            "messages": dict(led.messages), "events": list(led.events),
+            "history": led.history, "total_bits": led.total_bits()}
+
+
+def summary_gap(a, b) -> float:
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(a["params"], b["params"]))
+
+
+def mesh_rank(rank: int, part: str) -> dict:
+    """One rank of phase 3n, in its own process on the card."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.core.sweep import run_sweep
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_federation_mesh
+    from repro_torch.utils import resolve_device
+
+    torch.cuda.set_device(0)
+    resolve_device("cuda")  # full f32 products, as the parent runs them
+    out = {}
+    if part == "tiny":
+        mesh = make_federation_mesh(2, 2)
+        check(mesh.size == MESH_RANKS and mesh.device == torch.device("cuda", 0),
+              f"rank {rank}: mesh {mesh.shape} on {mesh.device}")
+        tasks = {False: tiny_task(torch), True: tiny_task(torch, ragged=True)}
+        for name, drv, fields, ragged in TINY_CASES:
+            run, cls = driver(drv)
+            build.reset_launches()
+            res = run(tasks[ragged], cls(**fields, mesh=mesh))
+            out[name] = dict(run_summary(torch, res), launches=dict(build.LAUNCHES),
+                             executor=engine.LAST_STATS["executor"])
+        run, cls = driver("fedavg")
+        build.reset_launches()
+        swept = run_sweep(tasks[False], cls(rounds=3, local_steps=4, qsgd_levels=16,
+                                            eval_every=1), SWEEP_SEEDS, mesh=mesh)
+        out["sweep"] = [run_summary(torch, r) for r in swept]
+        out["sweep_launches"] = dict(build.LAUNCHES)
+        return out
+    task = lenet_appendix_task(torch)
+    for name, drv, fields, shape, _ in lenet_mesh_cases():
+        mesh = make_federation_mesh(*shape)
+        run, cls = driver(drv)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = run(task, cls(**fields, mesh=mesh))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[name] = dict(run_summary(torch, res), launches=dict(build.LAUNCHES),
+                         s_per_round=secs / fields["rounds"],
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         executor=engine.LAST_STATS["executor"])
+    return out
+
+
+def spawn_mesh(torch, part: str) -> list:
+    """`mesh_rank(part)` on MESH_RANKS gloo ranks sharing the card; a
+    failure in any rank fails the phase."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the parent's cached blocks go back to the card
+    t0 = time.perf_counter()
+    try:
+        out = spawn_ranks(mesh_rank, MESH_RANKS, part)
+    except RuntimeError as e:
+        fail(f"phase 3n ({part}): a rank failed:\n{e}")
+    print(f"  [3n: {MESH_RANKS} ranks of '{part}' in {time.perf_counter() - t0:.1f} s, "
+          f"process start included]")
+    return out
+
+
+def hold_mesh_gap(label, gap, single, p0, control) -> str:
+    """A mesh run's params against the single card's run: bit-equal, or
+    else within 1e-6 of the single run's update (max |params - p0|), as
+    the CPU and card tests hold them, and within twice the 1-ulp control
+    `control()`.  Returns the note to print."""
+    if gap == 0.0:
+        return "params bit-equal"
+    update = max(float((w.double() - p.double()).abs().max()) for w, p in zip(single["params"], p0))
+    ctl = control()
+    check(gap <= 1e-6 * update and gap <= 2 * ctl,
+          f"{label}: mesh params {gap:.3g} from the single run's, above 1e-6 of its update "
+          f"{update:.3g} or twice the 1-ulp control {ctl:.3g}")
+    return f"params within {gap:.3g} = {gap / update:.3g} of the update (1-ulp control {ctl:.3g})"
+
+
+def same_ledger(a, b) -> bool:
+    return all(a[k] == b[k] for k in ("bits", "messages", "events", "history", "total_bits",
+                                      "rounds"))
+
+
+def mesh_path(torch, build):
+    """Phase 3n: the federation mesh on 4 gloo ranks sharing the card."""
+    from repro_torch.utils import tree_leaves
+
+    # 3n-a: every driver, dense and QSGD(16), on the tiny task
+    singles = {}
+    tasks = {False: tiny_task(torch), True: tiny_task(torch, ragged=True)}
+    for name, drv, fields, ragged in TINY_CASES:
+        run, cls = driver(drv)
+        build.reset_launches()
+        singles[name] = dict(run_summary(torch, run(tasks[ragged], cls(**fields))),
+                             launches=dict(build.LAUNCHES))
+    ranks = spawn_mesh(torch, "tiny")
+    for name, drv, fields, ragged in TINY_CASES:
+        single = singles[name]
+        for r, out in enumerate(ranks):
+            got = out[name]
+            check(got["executor"] == "chunk_fn", f"3n-a {name}: rank {r} ran {got['executor']}")
+            check(same_ledger(got, single), f"3n-a {name}: rank {r}'s ledger differs")
+            check(summary_gap(got, ranks[0][name]) == 0.0,
+                  f"3n-a {name}: rank {r}'s params differ from rank 0's")
+        run, cls = driver(drv)
+        note = hold_mesh_gap(
+            f"3n-a {name}", summary_gap(ranks[0][name], single), single,
+            [a.detach().cpu() for a in tree_leaves(tasks[ragged].init_params())],
+            lambda: summary_gap(run_summary(torch, run(tiny_task(torch, ragged, ulp=True),
+                                                       cls(**fields))), single))
+        packed = {k: sum(o[name]["launches"][k] for o in ranks)
+                  for k in ("qsgd_quantize_pack", "qsgd_unpack_dequantize")}
+        if "qsgd_levels" in fields and fields["qsgd_levels"]:
+            want = {k: MESH_RANKS * v for k, v in single["launches"].items() if k in packed}
+            check(packed == want, f"3n-a {name}: B1/B2 {packed} over the ranks, expected "
+                                  f"{want} (each rank a launch per leaf per interaction)")
+        print(f"phase 3n-a: {name} on mesh (2, 2) against one card: {note}, ledger equal, "
+              f"acc {ranks[0][name]['test_acc']}; B1/B2 over the ranks {packed}")
+
+    # 3n-c: seed lanes over the ranks, each lane its solo run
+    run, cls = driver("fedavg")
+    cfg = cls(rounds=3, local_steps=4, qsgd_levels=16, eval_every=1)
+    for i, s in enumerate(SWEEP_SEEDS):
+        solo = run_summary(torch, run(tasks[False], dataclasses.replace(cfg, seed=s)))
+        for r, out in enumerate(ranks):
+            lane = out["sweep"][i]
+            check(summary_gap(lane, solo) == 0.0 and lane["test_acc"] == solo["test_acc"]
+                  and lane["train_loss"] == solo["train_loss"] and same_ledger(lane, solo),
+                  f"3n-c: rank {r}'s lane of seed {s} differs from its solo run")
+    print(f"phase 3n-c: run_sweep(mesh=(2, 2)) of FedAvg QSGD(16), seeds {SWEEP_SEEDS}, one "
+          f"lane a rank: every lane bit-equal to its solo run on every rank; B1 over the ranks "
+          f"{sum(o['sweep_launches']['qsgd_quantize_pack'] for o in ranks)}")
+
+    # 3n-b: the Appendix-A LeNet scale against single-card runs
+    task = lenet_appendix_task(torch)
+    singles = {}
+    for name, drv, fields, shape, hops in lenet_mesh_cases():
+        run, cls = driver(drv)
+        arm = comparison_arm(torch, build, name, lambda: run(task, cls(**fields)),
+                             fields["rounds"])
+        control = run_summary(torch, run(lenet_appendix_task(torch, ulp=True), cls(**fields)))
+        singles[name] = (arm, run_summary(torch, arm["res"]), control)
+    p0 = [a.detach().cpu() for a in tree_leaves(task.init_params())]
+    del task
+    ranks = spawn_mesh(torch, "lenet")
+    leaves = 10
+    for name, drv, fields, shape, hops in lenet_mesh_cases():
+        arm, single, control = singles[name]
+        ctl = summary_gap(control, single)
+        gap = summary_gap(ranks[0][name], single)
+        for r, out in enumerate(ranks):
+            got = out[name]
+            check(same_ledger(got, single), f"3n-b {name}: rank {r}'s ledger differs")
+            check(summary_gap(got, ranks[0][name]) == 0.0,
+                  f"3n-b {name}: rank {r}'s params differ from rank 0's")
+        note = hold_mesh_gap(f"3n-b {name}", gap, single, p0, lambda: ctl)
+        packed = {k: sum(o[name]["launches"][k] for o in ranks)
+                  for k in ("qsgd_quantize_pack", "qsgd_unpack_dequantize")}
+        want = MESH_RANKS * fields["rounds"] * hops * leaves
+        check(all(v == want for v in packed.values()),
+              f"3n-b {name}: B1/B2 {packed} over the ranks, expected {want} = {MESH_RANKS} "
+              f"ranks x {fields['rounds']} rounds x {hops} compressed hops x {leaves} leaves")
+        PATH_LAUNCHES[f"3n-b {name} mesh {shape}"] = {
+            k: sum(o[name]["launches"][k] for o in ranks) for k in ranks[0][name]["launches"]}
+        print(f"phase 3n-b: LeNet-MNIST {name}, {fields['rounds']} rounds on mesh {shape} "
+              f"against one card: {note}, mesh gap {gap:.3g} beside the single card's 1-ulp "
+              f"control {ctl:.3g}, ledger equal; B1 = B2 = {want} = {MESH_RANKS} ranks x "
+              f"{fields['rounds']} rounds x {hops} compressed hops x {leaves} leaves; "
+              f"single card {arm['s_per_round']:.3f} s/round, peak {arm['peak_gb']:.2f} GB")
+        print(f"  4 gloo ranks sharing one H100, not a scale-out figure: s/round "
+              f"{[round(o[name]['s_per_round'], 3) for o in ranks]}, peak GB "
+              f"{[round(o[name]['peak_gb'], 2) for o in ranks]} (evals included)")
+
+
 def time_launches(torch, fn, reps, flush):
     """Median of per-launch CUDA-event times (ms), L2 flushed before each.
     A spin of about a millisecond on the card comes first, so the host has
@@ -3449,6 +3783,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     vlm_path(torch, build)
     elapsed("3m-d, 3m-e")
+    torch.cuda.empty_cache()
+    mesh_path(torch, build)
+    elapsed("3n")
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2

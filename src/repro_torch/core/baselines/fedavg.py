@@ -45,10 +45,8 @@ from repro_torch.part import (
     schedule_participants,
     stack_masks,
 )
+from repro_torch.sharding.fed import resolve_mesh, shard_plan
 from repro_torch.utils import tree_leaves
-
-# reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("mesh",)
 
 
 @dataclasses.dataclass
@@ -72,13 +70,9 @@ class FedAvgConfig:
     precision: Precision | None = None    # mixed-precision policy
                                           # (core/precision.py)
     obs: Any = None                       # repro_torch.obs.RunTelemetry
-    mesh: Any = None                      # not ported (see _NOT_PORTED)
-
-    def __post_init__(self):
-        unset = [f for f in _NOT_PORTED if getattr(self, f) is not None]
-        if unset:
-            raise NotImplementedError(
-                f"FedAvgConfig fields not ported to repro_torch yet: {unset}")
+    mesh: Any = None                      # launch.mesh.FederationMesh: the client
+                                          # axis over its ranks (sharding.fed);
+                                          # None adopts an ambient one
 
 
 def run_fedavg(task: FLTask, config: FedAvgConfig) -> RunResult:
@@ -228,6 +222,12 @@ def _fedavg_scan_plan(task: FLTask, source, config: FedAvgConfig):
         stage=stage, trained=trained, rounds=R, eval_every=config.eval_every,
         chunk_rounds=config.chunk_rounds, obs=config.obs,
     )
+    mesh = resolve_mesh(config.mesh)
+    if mesh is not None:
+        assert config.client_microbatch is None, \
+            "client_microbatch and a federation mesh are mutually exclusive"
+        plan = shard_plan(plan, mesh, "delta", model=engine.model, channel=channel,
+                          opt=engine.local_opt, clients=n, lrs=lrs)
 
     down_bits = DenseChannel(
         downlink_bits_per_param(config.precision, config.bits_per_param)).message_bits(d)

@@ -53,10 +53,8 @@ from repro_torch.data.sources import scatter_put, stage_chunk
 from repro_torch.obs.trace import maybe_span
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
 from repro_torch.part import is_full_participation, participation_mask
+from repro_torch.sharding.fed import resolve_mesh, shard_plan
 from repro_torch.utils import tree_leaves
-
-# reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("mesh",)
 
 
 @dataclasses.dataclass
@@ -82,13 +80,10 @@ class HierLocalQSGDConfig:
     precision: Precision | None = None    # mixed-precision policy
                                           # (core/precision.py)
     obs: Any = None                       # repro_torch.obs.RunTelemetry
-    mesh: Any = None                      # not ported (see _NOT_PORTED)
-
-    def __post_init__(self):
-        unset = [f for f in _NOT_PORTED if getattr(self, f) is not None]
-        if unset:
-            raise NotImplementedError(
-                f"HierLocalQSGDConfig fields not ported to repro_torch yet: {unset}")
+    mesh: Any = None                      # launch.mesh.FederationMesh: clusters
+                                          # over "clusters", clients over
+                                          # "clients" (sharding.fed); None
+                                          # adopts an ambient one
 
 
 def _participation_arrays(task: FLTask, parts_t, M: int, n_max: int):
@@ -329,6 +324,13 @@ def _hier_scan_plan(task: FLTask, source, config: HierLocalQSGDConfig):
         stage=stage, trained=trained, rounds=R, eval_every=config.eval_every,
         chunk_rounds=config.chunk_rounds, obs=config.obs,
     )
+    mesh = resolve_mesh(config.mesh)
+    if mesh is not None:
+        assert config.client_microbatch is None, \
+            "client_microbatch and a federation mesh are mutually exclusive"
+        plan = shard_plan(plan, mesh, "multi", model=engine.model, channel=channel,
+                          es_channel=es_channel, opt=engine.local_opt, clusters=M, clients=n_max,
+                          lrs=lrs.reshape(interactions, E))
 
     down_bits = DenseChannel(
         downlink_bits_per_param(config.precision, config.bits_per_param)).message_bits(d)

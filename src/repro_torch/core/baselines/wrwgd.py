@@ -39,10 +39,8 @@ from repro_torch.data.sources import scatter_put, stage_chunk
 from repro_torch.obs.trace import maybe_span
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
 from repro_torch.part import is_full_participation
+from repro_torch.sharding.fed import resolve_mesh, shard_plan
 from repro_torch.utils import tree_leaves, tree_map
-
-# reference config fields this port does not implement yet: setting one raises
-_NOT_PORTED = ("mesh",)
 
 
 @dataclasses.dataclass
@@ -66,13 +64,10 @@ class WRWGDConfig:
                                           # visits one client per round, so any
                                           # value trains that one client
     obs: Any = None                       # repro_torch.obs.RunTelemetry
-    mesh: Any = None                      # not ported (see _NOT_PORTED)
-
-    def __post_init__(self):
-        unset = [f for f in _NOT_PORTED if getattr(self, f) is not None]
-        if unset:
-            raise NotImplementedError(
-                f"WRWGDConfig fields not ported to repro_torch yet: {unset}")
+    mesh: Any = None                      # launch.mesh.FederationMesh: the walk's
+                                          # one client padded to the mesh width
+                                          # with zero-gamma slots (sharding.fed);
+                                          # None adopts an ambient one
 
 
 def _precompute_walk(task: FLTask, config: WRWGDConfig):
@@ -191,6 +186,9 @@ def _wrwgd_scan_plan(task: FLTask, source, config: WRWGDConfig):
         carry=params, consts={}, stage=stage, trained=trains, rounds=config.rounds,
         eval_every=config.eval_every, chunk_rounds=config.chunk_rounds, obs=config.obs,
     )
+    mesh = resolve_mesh(config.mesh)
+    if mesh is not None:
+        plan = shard_plan(plan, mesh, "grad", model=engine.model, clients=1)
     hop_bits = channel_wire_bits(channel, sum(leaf_sizes), leaf_sizes)
 
     def traffic(track_events: bool):

@@ -56,7 +56,11 @@ chunk of rounds at a time, and a scan body advances the carry one round.
 On the CPU a chunk runs its rounds eagerly; on the card the first trained
 round runs eagerly on a side stream, one round of the body is captured in a
 `torch.cuda.CUDAGraph`, and every later round is a replay (see
-`_GraphRounds`).
+`_GraphRounds`).  A plan rewritten for a federation mesh
+(`repro_torch.sharding.fed.shard_plan`) runs the same bodies with the
+mesh's splits (`RoundEngine.client_split`, `cluster_split`), through its
+own chunk and per-rank put (`ScanPlan.chunk_fn`, `xs_put`), eagerly on any
+device (`_ChunkRounds`): its all-gathers pass through the host.
 
 Telemetry (`repro_torch.obs`): `taps=True` on a round returns its tele dict
 as one more output, a snapshot of the round's last interaction, as in the
@@ -72,6 +76,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import time
 from typing import Any
 
@@ -92,6 +97,7 @@ from repro_torch.optim.local import AdamWOpt, PlainSGD
 from repro_torch.utils import tree_add, tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 Tree = Any
+_log = logging.getLogger(__name__)
 
 
 def uplink_keys(subs: np.ndarray, width: int, n_leaves: int) -> np.ndarray:
@@ -169,6 +175,38 @@ def _zero_pad(t: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([t, t.new_zeros(t.shape[:-1] + (pad,))], -1) if pad else t
 
 
+def _same_dtypes(old: Tree, new: Tree) -> None:
+    """A round hands the client-held optimizer state back in the dtypes it
+    took, as the reference's scan carry must; a state the round promotes
+    (made in a policy's compute dtype, stepped in the master dtype) raises
+    the TypeError the reference's scan raises."""
+    for a, b in zip(tree_leaves(old), tree_leaves(new)):
+        if a.dtype != b.dtype:
+            raise TypeError(
+                "scan body function carry input and carry output must have equal types: "
+                f"an optimizer state leaf of {a.dtype} comes back as {b.dtype} (a federation "
+                "mesh runs the round without the Precision policy's compute casts, as the "
+                "reference's sharded bodies do)")
+
+
+class _Whole:
+    """The slot axis of a round on one device: every sender trains here and
+    every reduction sees the stack as it is (the split of a federation mesh
+    is `repro_torch.sharding.fed.Split`)."""
+
+    def window(self, a, dim=0):
+        return a
+
+    def true(self, a, dim=0):
+        return a
+
+    def gather(self, tree, dim=0):
+        return tree
+
+
+_WHOLE = _Whole()
+
+
 @dataclasses.dataclass(frozen=True)
 class RoundEngine:
     """Per-run facade over the round functions.  `channel` compresses
@@ -181,7 +219,14 @@ class RoundEngine:
     mixed-precision policy (`core/precision.py`); grad mode ignores it.
     `AdamWOpt` under a policy raises TypeError, as the reference's round
     does: its compute-dtype moments divided by f32 bias corrections come
-    back f32, which its scan carry refuses."""
+    back f32, which its scan carry refuses.
+
+    `client_split` and `cluster_split` lay a round's client and cluster
+    axes over a federation mesh (`repro_torch.sharding.fed.Split`): the
+    round takes gammas, mask and ES weights whole, trains this rank's
+    window of the senders (batch, optimizer rows and keys come windowed),
+    and gathers every rank's compressed deltas and losses, cut to the true
+    width, before each reduction.  None is the whole axis on one device."""
 
     model: Any
     channel: Channel = DenseChannel()
@@ -189,6 +234,8 @@ class RoundEngine:
     local_opt: Any = None
     client_microbatch: int | None = None
     precision: Precision | None = None
+    client_split: Any = None
+    cluster_split: Any = None
 
     def __post_init__(self):
         object.__setattr__(self, "model", as_fed_model(self.model))
@@ -196,11 +243,21 @@ class RoundEngine:
             object.__setattr__(self, "local_opt", PlainSGD())
         if self.client_microbatch is not None and self.client_microbatch < 1:
             raise ValueError(f"client_microbatch must be >= 1, got {self.client_microbatch}")
+        if self.client_microbatch is not None and (self.client_split or self.cluster_split):
+            raise ValueError("client_microbatch is unsupported on a federation mesh")
         if self.precision is not None and isinstance(self.local_opt, AdamWOpt):
             raise TypeError(
                 "AdamWOpt under a Precision policy: its compute-dtype moments come back "
                 "in the master dtype, and the reference's round refuses the promoted "
                 "carry with a TypeError; use MomentumSGD or PlainSGD, or no policy")
+
+    @property
+    def _clients(self):
+        return self.client_split or _WHOLE
+
+    @property
+    def _clusters(self):
+        return self.cluster_split or _WHOLE
 
     def init_opt_state(self, params: Tree, *lead: int) -> Tree:
         """Fresh per-client optimizer state with leading axes `lead`.  Under
@@ -247,8 +304,9 @@ class RoundEngine:
         Returns (params, per-step gamma-weighted losses (K,)); with `taps`
         also the grad-mode tele dict."""
         device = tree_leaves(batch)[0].device
-        gammas = _as_device(gammas, device)
-        new_params, losses = grad_phase(self.model, self.client_microbatch)(
+        gammas = self._clients.true(_as_device(gammas, device))
+        gather = None if self.client_split is None else self.client_split.gather
+        new_params, losses = grad_phase(self.model, self.client_microbatch, gather)(
             params, batch, gammas, _as_device(lrs, device))
         if taps:
             return new_params, losses, grad_taps(params, new_params, gammas)
@@ -261,6 +319,7 @@ class RoundEngine:
         master.  Masked slots keep their optimizer state.  Returns (deltas,
         state, losses (senders,), the raw deltas if `keep_raw` else None)."""
         new_p, new_state, losses = local(base, state, batch, lrs)
+        _same_dtypes(state, new_state)
         if mask is None:
             raw = tree_map(torch.sub, new_p, base)
         else:
@@ -282,26 +341,30 @@ class RoundEngine:
         their slot all the same), keep their optimizer state frozen and
         leave the loss average; `gammas` must already be renormalized over
         the participants.  With `mask=None` the round is the unmasked
-        computation.  Returns (params, opt_state, per-interaction mean
-        losses (J,)); with `taps` also the tele dict of the last
-        interaction."""
+        computation.  On a `client_split` the batch, `subs` and `opt_state`
+        hold this rank's window of the n slots, gammas and mask all of
+        them.  Returns (params, opt_state, per-interaction mean losses
+        (J,)); with `taps` also the tele dict of the last interaction."""
         if taps:
             self._no_microbatch_taps()
         first = tree_leaves(batch)[0]
-        J, n = first.shape[:2]
+        J, n = first.shape[:2]  # the senders trained here
         device = first.device
         if opt_state is None:
             opt_state = self.init_opt_state(params, n)
-        gammas = _as_device(gammas, device)
+        split = self._clients
+        gammas = split.true(_as_device(gammas, device))
+        mask_here = None
         if mask is not None:
             mask = _as_device(mask, device)
+            mask_here, mask = split.window(mask), split.true(mask)
         lrs = self.step_sizes(lrs, device)
         keys = self._uplink_keys(subs, self.key_width(n), len(tree_leaves(params)), device)
         local = local_opt_steps(self.model, self.local_opt)
         losses = []
         for j in range(J):
             params, opt_state, client_losses, tele = self._cluster_step(
-                local, params, opt_state, tree_map(lambda a: a[j], batch), gammas, mask,
+                local, params, opt_state, tree_map(lambda a: a[j], batch), gammas, mask_here,
                 lrs[j], None if keys is None else keys[j], tap=taps and j == J - 1)
             if mask is None:
                 losses.append(client_losses.mean())
@@ -318,11 +381,15 @@ class RoundEngine:
         summed into the update, which is added to the master-dtype params.
         The tail group is padded with slot-0 replicas that carry zero gamma
         and a zero mask.  `keys` (key_width(n), leaves, 2): slot i's keys.
+        `gammas` (n,) are every sender's; batch, state, mask and keys hold
+        the senders trained here (on a `client_split`, this rank's window,
+        one group whose deltas and losses the split gathers to all n).
         Returns (params, state, per-client losses (n,), the interaction's
         tele dict if `tap` (one group only) else None)."""
         n = gammas.shape[0]
-        mb = self.client_microbatch or n
-        pad = (-n) % mb
+        n_here = tree_leaves(batch)[0].shape[0]
+        mb = self.client_microbatch or n_here
+        pad = (-n_here) % mb
         if pad:
             mask = torch.ones_like(gammas) if mask is None else mask
             gammas, mask = _zero_pad(gammas, pad), _zero_pad(mask, pad)
@@ -331,17 +398,21 @@ class RoundEngine:
         batch = compute_cast(batch, self.precision)
         base = tree_map(lambda a: a.expand((mb,) + a.shape), p_c)
         acc, states, losses = None, [], []
-        for g in range(0, n + pad, mb):
+        for g in range(0, n_here + pad, mb):
             group = lambda a, g=g: a[g:g + mb]  # noqa: E731
             deltas, s_g, l_g, raw = self._train_group(
                 local, base, tree_map(group, state), tree_map(group, batch), lrs,
                 None if mask is None else group(mask), None if keys is None else group(keys),
                 keep_raw=tap)
-            agg = tree_map(lambda d: torch.tensordot(group(gammas).to(d.dtype), d, dims=1), deltas)
+            # the gammas of the senders in hand: the group's, or every
+            # rank's once the split has gathered them
+            deltas, l_g = self._clients.gather((deltas, l_g))
+            gam = gammas.narrow(0, g, l_g.shape[0])
+            agg = tree_map(lambda d: torch.tensordot(gam.to(d.dtype), d, dims=1), deltas)
             acc = agg if acc is None else tree_add(acc, agg)
             states.append(s_g)
             losses.append(l_g)
-        state = tree_map(lambda *parts: _cat(parts, 0)[:n], *states)
+        state = tree_map(lambda *parts: _cat(parts, 0)[:n_here], *states)
         new_params = tree_add(params, acc)
         tele = None
         if tap:
@@ -362,22 +433,33 @@ class RoundEngine:
         trains slots [g*mb, (g+1)*mb) of every cluster at once, M * mb
         senders per group.  Returns (params, opt_state, per-(interaction,
         cluster) losses (J, M)); with `taps` also the per-cluster (M,) tele
-        dict of the last interaction, plus "es_comp_err" of the ES->PS hop."""
+        dict of the last interaction, plus "es_comp_err" of the ES->PS hop.
+
+        On a `cluster_split` and `client_split` the batch, keys and
+        opt_state hold this rank's window of the (M, n_max) grid, gammas,
+        mask and es_weights all of it; the in-cluster aggregate gathers over
+        the client split, the ES->PS hop and the losses over the cluster
+        split."""
         if taps:
             self._no_microbatch_taps()
         first = tree_leaves(batch)[0]
-        J, M, n_max = first.shape[:3]
+        J, M, n_max = first.shape[:3]  # the clusters and client slots trained here
         device = first.device
         n_leaves = len(tree_leaves(params))
         if opt_state is None:
             opt_state = self.init_opt_state(params, M, n_max)
-        gammas, mask = _as_device(gammas, device), _as_device(mask, device)
-        es_weights = _as_device(es_weights, device)
+        clusters, clients = self._clusters, self._clients
+        es_weights = clusters.true(_as_device(es_weights, device))
+        gammas = clusters.window(_as_device(gammas, device))
+        mask = clusters.window(_as_device(mask, device))
+        mask_here = clients.window(mask, 1)
+        gammas, mask = clients.true(gammas, 1), clients.true(mask, 1)
+        n_all = gammas.shape[1]
         mb = self.client_microbatch or n_max
         pad = (-n_max) % mb
         width = n_max + pad
         keys = self._uplink_keys(subs, width, n_leaves, device)
-        gammas_p, mask_p = _zero_pad(gammas, pad), _zero_pad(mask, pad)
+        gammas_p, mask_p = _zero_pad(gammas, pad), _zero_pad(mask_here, pad)
         batch = _pad_slots(batch, 2, pad)
         state = _pad_slots(opt_state, 1, pad)
         lrs = self.step_sizes(lrs, device)
@@ -399,12 +481,15 @@ class RoundEngine:
                     local, base, tree_map(lambda a: grid(cols(a)), state),
                     tree_map(lambda a: grid(cols(a)), b_j), lrs[j], grid(cols(mask_p)),
                     None if keys is None else grid(cols(keys[j])), keep_raw=tap)
-                gam = cols(gammas_p)
-                agg = tree_map(lambda d: torch.einsum(
-                    "mn,mn...->m...", gam.to(d.dtype), d.reshape((M, mb) + d.shape[1:])), deltas)
+                deltas, l_g = clients.gather(
+                    (tree_map(lambda d: d.reshape((M, mb) + d.shape[1:]), deltas),
+                     l_g.reshape(M, mb)), 1)
+                gam = gammas_p.narrow(1, g, l_g.shape[1])  # as in `_cluster_step`
+                agg = tree_map(lambda d: torch.einsum("mn,mn...->m...", gam.to(d.dtype), d),
+                               deltas)
                 acc = agg if acc is None else tree_add(acc, agg)
                 states.append(tree_map(lambda a: a.reshape((M, mb) + a.shape[1:]), s_g))
-                client_losses.append(l_g.reshape(M, mb))
+                client_losses.append(l_g)
             if tap:  # one group: raw leaves (M * n_max, ...)
                 new_cp = tree_add(cparams, acc)
                 raw = tree_map(lambda a: a.reshape((M, n_max) + a.shape[1:]), raw)
@@ -418,7 +503,7 @@ class RoundEngine:
             else:
                 cparams = tree_add(cparams, acc)
             state = tree_map(lambda *parts: _cat(parts, 1), *states)
-            client_losses = _cat(client_losses, 1)[:, :n_max]
+            client_losses = _cat(client_losses, 1)[:, :n_all]
             losses.append((client_losses * mask).sum(dim=1)
                           / torch.clamp(mask.sum(dim=1), min=1.0))
 
@@ -431,13 +516,14 @@ class RoundEngine:
             es_keys = (es_subs if isinstance(es_subs, torch.Tensor)
                        else key_words(split_each(es_subs, n_leaves), device))
         es_deltas = compress_uplinks(es_channel, raw_es, es_keys)
-        agg = tree_map(lambda d: torch.tensordot(es_weights, d, dims=1), es_deltas)
+        agg = tree_map(lambda d: torch.tensordot(es_weights, d, dims=1), clusters.gather(es_deltas))
         params = tree_add(params, agg)
         state = tree_map(lambda a: a[:, :n_max], state)
+        losses = clusters.gather(torch.stack(losses), 1)
         if taps:
             tele["es_comp_err"] = tree_client_norms(tree_map(torch.sub, es_deltas, raw_es))
-            return params, state, torch.stack(losses), tele
-        return params, state, torch.stack(losses)
+            return params, state, losses, tele
+        return params, state, losses
 
     def end_round(self, ledger: CommLedger, round_idx: int) -> None:
         """Uniform end-of-round bookkeeping: snapshot the ledger."""
@@ -469,14 +555,16 @@ class RoundEngine:
 
 
 @functools.cache
-def scan_grad_body(model, microbatch: int | None = None, taps: bool = False):
+def scan_grad_body(model, microbatch: int | None = None, taps: bool = False,
+                   client_split=None):
     """Whole-run body, Eq. (5) grad mode.  carry: params.  x: {"batch":
     (K, n_max, B, ...), "gammas": (n_max,), "lrs": (K,)} (padded client
     slots carry zero gamma; the step sizes are staged per round so a
     decaying schedule can follow the global round, e.g. WRWGD's walk).
     Returns the per-step gamma-weighted losses (K,); with `taps` the
-    outputs are (losses, tele)."""
-    engine = RoundEngine(model, client_microbatch=microbatch)
+    outputs are (losses, tele).  The splits of every body are
+    `RoundEngine`'s (a federation mesh's, `sharding.fed.shard_plan`)."""
+    engine = RoundEngine(model, client_microbatch=microbatch, client_split=client_split)
 
     def body(params, x, consts):
         del consts
@@ -488,14 +576,15 @@ def scan_grad_body(model, microbatch: int | None = None, taps: bool = False):
 
 @functools.cache
 def scan_delta_body(model, channel: Channel, opt, microbatch: int | None = None,
-                    precision: Precision | None = None, taps: bool = False):
+                    precision: Precision | None = None, taps: bool = False,
+                    client_split=None):
     """Whole-run body, delta mode over one fixed client set (FedAvg).
     carry: (params, opt_state (n, ...)).  x: {"batch": (J, n, E, B, ...),
     "gammas"/"mask": (n,), "keys": (J, key_width(n), leaves, 2) int32 (a
     stochastic channel)}.  consts: {"lrs": (J, E)}.  Returns per-interaction
     masked mean losses (J,); with `taps` the outputs are (losses, tele)."""
     engine = RoundEngine(model, channel, local_opt=opt, client_microbatch=microbatch,
-                         precision=precision)
+                         precision=precision, client_split=client_split)
     if taps:
         engine._no_microbatch_taps()
 
@@ -511,7 +600,8 @@ def scan_delta_body(model, channel: Channel, opt, microbatch: int | None = None,
 
 @functools.cache
 def scan_cluster_delta_body(model, channel: Channel, opt, microbatch: int | None = None,
-                            precision: Precision | None = None, taps: bool = False):
+                            precision: Precision | None = None, taps: bool = False,
+                            client_split=None):
     """Whole-run body, delta mode with a per-round active cluster (Fed-CHS).
     carry: (params, opt_states (M, n_max, ...)): the active cluster's rows
     are gathered with `index_select` and written back with `index_copy_` at
@@ -519,7 +609,7 @@ def scan_cluster_delta_body(model, channel: Channel, opt, microbatch: int | None
     on the host.  x adds "m": () int32 to the `scan_delta_body` inputs (all
     padded to n_max).  With `taps` the outputs are (losses, tele)."""
     engine = RoundEngine(model, channel, local_opt=opt, client_microbatch=microbatch,
-                         precision=precision)
+                         precision=precision, client_split=client_split)
     if taps:
         engine._no_microbatch_taps()
 
@@ -540,7 +630,7 @@ def scan_cluster_delta_body(model, channel: Channel, opt, microbatch: int | None
 @functools.cache
 def scan_multi_body(model, channel: Channel, es_channel: Channel, opt,
                     microbatch: int | None = None, precision: Precision | None = None,
-                    taps: bool = False):
+                    taps: bool = False, client_split=None, cluster_split=None):
     """Whole-run body, 3-tier HFL global rounds (Hier-Local-QSGD).
     carry: (params, opt_state (M, n_max, ...)).  x: {"batch": (J, M, n_max,
     E, B, ...), "gammas"/"mask": (M, n_max), "es_weights": (M,), "keys":
@@ -548,7 +638,8 @@ def scan_multi_body(model, channel: Channel, es_channel: Channel, opt,
     Returns losses (J, M); with `taps` the outputs are (losses, tele), tele
     leaves (M,)."""
     engine = RoundEngine(model, channel, es_channel, local_opt=opt,
-                         client_microbatch=microbatch, precision=precision)
+                         client_microbatch=microbatch, precision=precision,
+                         client_split=client_split, cluster_split=cluster_split)
     if taps:
         engine._no_microbatch_taps()
 
@@ -596,8 +687,14 @@ class ScanPlan:
     `obs` is the run's `RunTelemetry` (or None): the executor opens its
     "stage" and "scan_chunk" spans, and when its taps are on, `body` must be
     the tapped variant (outputs (losses, tele)); the plan builders pair
-    them.  The reference's `chunk_fn` and `xs_put` fields serve its
-    device-mesh package, which is not ported."""
+    them.
+
+    `chunk_fn(carry, xs, consts) -> (carry, losses)` runs a chunk of
+    rounds on inputs that `xs_put(staged)` has put on the device, and
+    returns the last round's losses: a plan that sets them runs them,
+    eagerly, in place of the executor over `body`.  The federation mesh
+    (`repro_torch.sharding.fed.shard_plan`) installs its sharded chunk and
+    its per-rank put here, so `run_scan` never branches on sharding."""
 
     body: Any                 # a scan_*_body: (carry, x, consts) -> (carry, losses)
     carry: Any
@@ -608,6 +705,8 @@ class ScanPlan:
     eval_every: int
     chunk_rounds: int = 32
     obs: Any = None           # repro_torch.obs.RunTelemetry | None
+    chunk_fn: Any = None      # (carry, xs, consts) -> (carry, losses), or None
+    xs_put: Any = None        # staged xs -> device xs for `chunk_fn`
 
 
 def run_scan(plan: ScanPlan, record) -> Any:
@@ -634,21 +733,44 @@ def run_scan_sweep(plans: list[ScanPlan], record, *, mesh=None) -> Any:
     `record(t, carry, losses, t_l)` sees the tuple of lane carries and
     losses stacked (lanes, ...).  Returns the final tuple of lane carries.
 
-    The reference's `mesh` (the seed axis over a device mesh) is not
-    ported: passing one raises."""
-    if mesh is not None:
-        raise NotImplementedError("run_scan_sweep(mesh=...) is not ported to repro_torch yet")
+    `mesh` (a `launch.mesh.FederationMesh`) splits the seed lanes over its
+    ranks: each rank runs one contiguous block of them with the executor
+    it would use alone, and at every eval round the blocks' carries and
+    losses are all-gathered in seed order, so `record` and the return see
+    every lane on every rank.  A sweep whose lanes the mesh does not divide
+    logs the reference's warning and runs unsharded."""
     p0 = plans[0]
     assert p0.obs is None, "telemetry is unsupported in sweeps"
     assert all(p.body is p0.body for p in plans), "sweep plans must share a body"
     assert all(np.array_equal(np.asarray(p.trained), np.asarray(p0.trained)) for p in plans), \
         "sweep plans must share the trained-round schedule (full participation)"
+    assert p0.chunk_fn is None, \
+        "mesh-sharded plans (sharding.fed.shard_plan) cannot be swept: the client axes " \
+        "are already mapped to ranks; shard the seed axis with run_scan_sweep(mesh=...)"
+    if mesh is not None and len(plans) % mesh.size != 0:
+        _log.warning("sweep of %d seeds does not divide mesh of %d devices — running "
+                     "unsharded", len(plans), mesh.size)
+        mesh = None
+    if mesh is not None and mesh.size > 1:
+        per = len(plans) // mesh.size
+        lo = mesh.rank * per
+        mine = plans[lo:lo + per]
+        gather = mesh.gather_lanes
+
+        def record_gathered(t, carry, losses, t_l):
+            record(t, gather(carry), None if losses is None else gather(losses, stacked=True), t_l)
+
+        return gather(_run_lanes(mine, record_gathered))
+    return _run_lanes(plans, record)
+
+
+def _run_lanes(plans: list[ScanPlan], record) -> Any:
     carry = tuple(p.carry for p in plans)
 
     def stage(idxs):
         return tree_map(lambda *ls: np.stack(ls, axis=1), *[p.stage(idxs) for p in plans])
 
-    return _run_chunks(_lanes_body(p0.body), carry, stage, p0, record)
+    return _run_chunks(_lanes_body(plans[0].body), carry, stage, plans[0], record)
 
 
 def _run_chunks(body, carry, stage, plan: ScanPlan, record) -> Any:
@@ -660,8 +782,11 @@ def _run_chunks(body, carry, stage, plan: ScanPlan, record) -> Any:
     obs = plan.obs
     tapped = obs is not None and obs.taps
     device = tree_leaves(carry)[0].device
-    rounds = (_GraphRounds if device.type == "cuda" else _EagerRounds)(
-        body, carry, plan.consts, device, tapped)
+    if plan.chunk_fn is not None:
+        rounds = _ChunkRounds(plan.chunk_fn, plan.xs_put, carry, plan.consts)
+    else:
+        rounds = (_GraphRounds if device.type == "cuda" else _EagerRounds)(
+            body, carry, plan.consts, device, tapped)
     trained_idx = np.flatnonzero(np.asarray(plan.trained))
     last_losses, last_t, pos = None, None, 0
     try:
@@ -774,14 +899,42 @@ class _EagerRounds:
         return losses
 
     def close(self) -> None:
-        pass
+        _set_stats("eager")
+
+
+class _ChunkRounds:
+    """A plan's own chunk (`ScanPlan.chunk_fn`), run eagerly on the plan's
+    device: each chunk's staged inputs go through `xs_put`, then
+    `chunk_fn` advances the carry over the chunk's rounds.  The federation
+    mesh runs here: its rounds all-gather over the host (gloo), which a
+    CUDA graph cannot capture."""
+
+    def __init__(self, chunk_fn, xs_put, carry, consts):
+        self.chunk_fn, self.xs_put, self.carry, self.consts = chunk_fn, xs_put, carry, consts
+        self.tele = None
+
+    def run(self, xs):
+        new, losses = self.chunk_fn(self.carry, self.xs_put(xs), self.consts)
+        _assign(self.carry, new)
+        return losses
+
+    def close(self) -> None:
+        _set_stats("chunk_fn")
 
 
 # graphs held by scans that are running (a finished scan leaves none), and
-# the stats of the last scan that ran on the card (`_GraphRounds.stats`)
+# the stats of the last scan that ran: "executor" ("graph", "eager" or
+# "chunk_fn", the plan's own chunk) and, on the card, the warm-up, capture
+# and replays of `_GraphRounds.stats`
 LIVE_GRAPHS: list = []
 LAST_STATS: dict = {}
 _SIDE_STREAMS: dict = {}
+
+
+def _set_stats(executor: str, **stats) -> None:
+    LAST_STATS.clear()
+    LAST_STATS.update({"executor": executor, "warmup_s": 0.0, "capture_s": 0.0, "replays": 0,
+                       **stats})
 
 
 def _side_stream(device) -> torch.cuda.Stream:
@@ -906,8 +1059,7 @@ class _GraphRounds:
         """Free the graph, its memory pool and the static inputs.  A run
         that captured nothing (one trained round) leaves the allocator's
         cache as eager rounds do."""
-        LAST_STATS.clear()
-        LAST_STATS.update(self.stats)
+        _set_stats("graph", **self.stats)
         if self.graph is not None:
             LIVE_GRAPHS.remove(self.graph)
             self.graph.reset()

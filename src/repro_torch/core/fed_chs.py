@@ -88,11 +88,8 @@ from repro_torch.obs.trace import maybe_span
 from repro_torch.optim.local import PlainSGD
 from repro_torch.optim.schedules import Schedule, paper_sqrt_schedule
 from repro_torch.part import is_full_participation, participation_mask
+from repro_torch.sharding.fed import resolve_mesh, shard_plan
 from repro_torch.utils import tree_leaves
-
-# reference config fields this port does not implement yet, with their
-# defaults: setting one away from its default raises
-_NOT_PORTED = {"mesh": None}
 
 
 @dataclasses.dataclass
@@ -130,16 +127,15 @@ class FedCHSConfig:
                                            # (core/precision.py): bf16 client
                                            # compute, f32 master, bf16 wire
     obs: Any = None                        # repro_torch.obs.RunTelemetry
-    mesh: Any = None                       # not ported (see _NOT_PORTED)
+    mesh: Any = None                       # launch.mesh.FederationMesh: split the
+                                           # scanned round's client axis over its
+                                           # ranks (repro_torch.sharding.fed, bit
+                                           # for bit); None adopts an ambient
+                                           # federation mesh (sharding.ctx).  The
+                                           # looped driver ignores it
     checkpoint: str | None = None          # path prefix of the looped run state
     checkpoint_every: int = 1              # rounds between saves
     resume: bool = False                   # continue from `checkpoint` if saved
-
-    def __post_init__(self):
-        unset = [f for f, default in _NOT_PORTED.items() if getattr(self, f) != default]
-        if unset:
-            raise NotImplementedError(
-                f"FedCHSConfig fields not ported to repro_torch yet: {unset}")
 
 
 def _make_scheduler(task: FLTask, config: FedCHSConfig, topo, m0: int):
@@ -507,6 +503,20 @@ def _fed_chs_scan_plan(task: FLTask, source, config: FedCHSConfig):
     plan = ScanPlan(body=body, carry=carry, consts=consts, stage=stage, trained=trained,
                     rounds=R, eval_every=config.eval_every, chunk_rounds=config.chunk_rounds,
                     obs=config.obs)
+
+    mesh = resolve_mesh(config.mesh)
+    if mesh is not None:
+        # two memory strategies that exclude each other: the mesh splits the
+        # client axis over ranks, client_microbatch folds it in time
+        assert config.client_microbatch is None, \
+            "client_microbatch and a federation mesh are mutually exclusive"
+        # one cluster trains a round: its client axis spreads over the whole mesh
+        if grad_mode:
+            plan = shard_plan(plan, mesh, "grad", model=engine.model, clients=n_max)
+        else:
+            plan = shard_plan(plan, mesh, "cluster_delta", model=engine.model,
+                              channel=channel, opt=engine.local_opt, clients=n_max,
+                              lrs=lrs.reshape(interactions, E))
 
     down_bits = DenseChannel(
         downlink_bits_per_param(config.precision, config.bits_per_param)).message_bits(d)

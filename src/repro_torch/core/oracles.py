@@ -57,9 +57,15 @@ def local_opt_steps(model, opt):
     return run
 
 
-def grad_phase(model, microbatch: int | None = None):
+def grad_phase(model, microbatch: int | None = None, gather=None):
     """Eq. (5) literal: batch leaves (K, n, B, ...); gammas (n,); lrs (K,).
     Returns (params, per-step gamma-weighted losses (K,)).
+
+    `gather((grads, losses)) -> (grads, losses)` widens each step's
+    per-client stacks before the aggregate: on a federation mesh the batch
+    holds this rank's clients and `gather` returns every client's, so the
+    tensordot runs over the full width `gammas` has
+    (`repro_torch.sharding.fed.Split.gather`).
 
     `microbatch` bounds how many clients' forward and backward passes are
     live at once: each step runs ceil(n / microbatch) groups of the vmap,
@@ -90,6 +96,8 @@ def grad_phase(model, microbatch: int | None = None):
         losses = []
         for k, lr in enumerate(_steps(lrs)):
             grads, loss = per_client(params, tree_map(lambda a: a[k], batch))
+            if gather is not None:
+                grads, loss = gather((grads, loss))
             agg = tree_map(lambda g: torch.tensordot(gammas, g, dims=1), grads)
             params = tree_map(lambda w, g: w - lr * g, params, agg)
             losses.append(torch.dot(gammas, loss))

@@ -48,13 +48,13 @@ def run_sweep(task: FLTask, config, seeds, *, mesh=None) -> list[RunResult]:
 
     `config` is any of the four driver configs; returns one `RunResult` per
     seed, in order, each equal to `run_*(task, dataclasses.replace(config,
-    seed=s))`.  The reference's `mesh` (seed lanes over a device mesh) is
-    not ported: passing one raises."""
+    seed=s))`.  `mesh` (a `launch.mesh.FederationMesh`) splits the seed
+    lanes over its ranks (`engine.run_scan_sweep`); it excludes
+    ``config.mesh``, which splits the client axes of one run."""
     name, planner = _PLANNERS[type(config)]
-    if mesh is not None:
-        raise NotImplementedError("run_sweep(mesh=...) is not ported to repro_torch yet")
     assert getattr(config, "mesh", None) is None, \
-        "run_sweep takes no config.mesh (client-axis sharding)"
+        "run_sweep shards the seed axis — a config.mesh (client-axis sharding) cannot be " \
+        "combined with a sweep; pass run_sweep(mesh=...) instead"
     assert config.scan_rounds, \
         "run_sweep is scanned by nature: a scan_rounds=False config asks for the " \
         "looped driver; run those seeds one by one through the driver instead"
@@ -81,7 +81,7 @@ def run_sweep(task: FLTask, config, seeds, *, mesh=None) -> list[RunResult]:
         for i, lane in enumerate(carry):
             recorders[i].record(t, params_of(lane), None if losses is None else losses[i])
 
-    carry = run_scan_sweep(plans, record)
+    carry = run_scan_sweep(plans, record, mesh=mesh)
     results = []
     for i, lane in enumerate(carry):
         ledger = CommLedger(track_events=config.track_events)

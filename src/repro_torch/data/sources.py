@@ -11,14 +11,15 @@ The scanned drivers stage a chunk of rounds at once: `stage_chunk` reads
 each client's draws of the chunk with one `bulk_batches` call (one dataset
 gather on an `ArraySource`) and scatters them into the chunk's arrays.  A
 bulk read equals the same number of `next_batch` calls, draw for draw, and
-leaves the stream where they would.  The reference's `put_sharded` (the
-device-mesh put) is not ported.
+leaves the stream where they would.  On a federation mesh `put_sharded`
+copies only the rank's window of a staged chunk to its device.
 """
 from __future__ import annotations
 
 from typing import Any, Protocol, runtime_checkable
 
 import numpy as np
+import torch
 
 from repro_torch.data.loader import ClientLoader
 from repro_torch.data.partition import ClientData
@@ -82,6 +83,26 @@ def stage_chunk(source, plan, alloc) -> Batch:
             batch = _leafwise(lambda a: np.zeros(alloc(a), a.dtype), draws)
         put(batch, draws)
     return batch
+
+
+def put_sharded(xs: dict, windows: dict, device) -> dict:
+    """Move a staged chunk (a dict of numpy trees) to this rank's device,
+    leaf by leaf: every leaf under ``xs[k]`` is cut to the index
+    ``windows[k]`` (a tuple of slices) before its copy, and a key without a
+    window goes whole.  So a rank copies only its client and cluster window
+    of the batches and keys, and the global stacked batch never reaches one
+    device.  uint32 key words travel as int32 of the same bits, as the
+    executor's own staging does."""
+
+    def put(a, index):
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        if index is not None:
+            a = a[index]
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return {k: _leafwise(lambda a, k=k: put(a, windows.get(k)), v) for k, v in xs.items()}
 
 
 def bulk_batches(source, client: int, count: int) -> Batch:

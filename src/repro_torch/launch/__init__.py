@@ -1,3 +1,4 @@
-"""Launchers (port of the non-mesh half of `repro/launch/`): the step
+"""Launchers (port of `repro/launch/` without its model meshes): the step
 builders (`steps.py`), the serving loop and the async federation service
-(`serve.py`), and the reduced-scale training loop (`train.py`)."""
+(`serve.py`), the reduced-scale training loop (`train.py`), and the
+federation mesh on `torch.distributed` (`mesh.py`)."""

@@ -13,8 +13,9 @@ Modes:
   stdout line is a JSON summary.
 
 * neither: the reference lowers the serve step for a production mesh.
-  That needs the port of `sharding/` and `launch/mesh.py`, which is not
-  done yet, so this mode exits non-zero and says so.
+  That needs a model mesh (`make_production_mesh` in `launch/mesh.py`,
+  `named_shardings` in `sharding/specs.py`), which the port does not build
+  yet, so this mode exits non-zero and says so.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --execute --requests 12
@@ -74,8 +75,8 @@ def main(argv: list[str] | None = None) -> None:
         _execute(args)
     else:
         sys.exit(f"lowering {args.arch} for a production mesh is not ported "
-                 "(it needs sharding/ and launch/mesh.py); run with --execute or "
-                 "--federation")
+                 "(it needs the model mesh of launch/mesh.py and sharding/specs.py); "
+                 "run with --execute or --federation")
 
 
 def _federation(args) -> None:

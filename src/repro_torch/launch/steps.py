@@ -12,8 +12,8 @@
 
 The reference's ahead-of-time lowering for a production mesh
 (`LoweringSpec`, `build_lowering`, `lower_spec`, `abstract_*`,
-`apply_optimizations`) is XLA's; it is not ported, and waits for the port
-of `sharding/` and `launch/mesh.py`.
+`apply_optimizations`) is XLA's; it is not ported, and waits for a model
+mesh (`make_production_mesh`, `named_shardings`).
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@
   ``--device cpu``.
 
 * without it: the reference lowers the Fed-CHS round for a production mesh.
-  That needs the port of `sharding/` and `launch/mesh.py`, which is not
-  done yet, so this mode exits non-zero and says so.
+  That needs a model mesh (`make_production_mesh` in `launch/mesh.py`,
+  `named_shardings` in `sharding/specs.py`), which the port does not build
+  yet, so this mode exits non-zero and says so.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b --execute --rounds 50
@@ -45,7 +46,8 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     if not args.execute:
         sys.exit(f"lowering {args.arch} for a production mesh is not ported "
-                 "(it needs sharding/ and launch/mesh.py); run with --execute")
+                 "(it needs the model mesh of launch/mesh.py and sharding/specs.py); "
+                 "run with --execute")
     _execute(args)
 
 

@@ -323,15 +323,6 @@ def test_fed_chs_channels_and_optimizers_match_reference(tasks, kw, tol):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("cls,field", [
-    (cls, field) for cls in (tb.FedAvgConfig, tb.WRWGDConfig, tb.HierLocalQSGDConfig)
-    for field in ("mesh",)  # obs runs now: tests/test_torch_obs.py
-], ids=lambda x: getattr(x, "__name__", x))
-def test_unported_baseline_fields_raise(cls, field):
-    with pytest.raises(NotImplementedError, match=field):
-        cls(**{field: object()})
-
-
 def test_baseline_configs_keep_the_reference_fields_and_defaults():
     for jcls, tcls in ((jb.FedAvgConfig, tb.FedAvgConfig), (jb.WRWGDConfig, tb.WRWGDConfig),
                        (jb.HierLocalQSGDConfig, tb.HierLocalQSGDConfig)):

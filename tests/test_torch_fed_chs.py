@@ -148,15 +148,6 @@ def test_qsgd_delta_run_matches_reference(tasks):
     assert np.linalg.norm(got - want) <= 0.03 * np.linalg.norm(want)
 
 
-# ids as the cases had them when the list also held the fields ported since
-# (obs, checkpoint, checkpoint_every and resume run now: tests/test_torch_obs.py,
-# tests/test_torch_checkpoint.py)
-@pytest.mark.parametrize("field,value", [("mesh", object())], ids=["mesh-value6"])
-def test_unported_config_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        FedCHSConfig(**{field: value})
-
-
 @pytest.mark.parametrize("kw", [dict(scan_rounds=False), dict(scan_rounds=True, chunk_rounds=1)],
                          ids=["looped", "chunked"])
 def test_scan_fields_are_accepted_and_run_the_looped_driver(tasks, kw):

@@ -48,3 +48,25 @@ def test_source_imports_no_jax_and_no_reference_module(path):
         for name in names:
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+# the federation mesh's modules (sharding/, launch/mesh.py), each imported
+# first in a fresh interpreter: torch.distributed and the port only
+MESH_MODULES = ["repro_torch.sharding", "repro_torch.sharding.ctx", "repro_torch.sharding.specs",
+                "repro_torch.sharding.fed", "repro_torch.launch.mesh"]
+IMPORT_ONE = """
+import importlib, sys
+importlib.import_module({module!r})
+print(sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro.")))
+"""
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_mesh_module_loads_no_jax_and_no_reference_module(module):
+    path = PORT.joinpath(*module.split(".")[1:])
+    assert path.with_suffix(".py") in SOURCES or path / "__init__.py" in SOURCES
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", IMPORT_ONE.format(module=module)],
+                         capture_output=True, text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"

@@ -450,11 +450,6 @@ def test_chunk_rounds_change_nothing(pair):
         assert res.ledger.events == ref.ledger.events
 
 
-def test_unported_sweep_mesh_raises():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tengine.run_scan_sweep([], None, mesh=object())
-
-
 # --------------------------------------------------------------------------
 # run_sweep
 # --------------------------------------------------------------------------
@@ -522,8 +517,8 @@ def test_sweep_guards_raise(pair):
                                           sampler=S["churn"]), (0, 1))
     with pytest.raises(AssertionError):
         run_sweep(task, tfed.FedCHSConfig(rounds=3, local_steps=4, scan_rounds=False), (0, 1))
-    with pytest.raises(NotImplementedError):
-        run_sweep(task, tfed.FedCHSConfig(rounds=3, local_steps=4), (0, 1), mesh=object())
+    with pytest.raises(AssertionError, match="run_sweep shards the seed axis"):
+        run_sweep(task, tfed.FedCHSConfig(rounds=3, local_steps=4, mesh=object()), (0, 1))
 
 
 def test_sweep_leaves_task_source_untouched(pair):
