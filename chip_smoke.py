@@ -170,6 +170,22 @@ Phases, each of which fails the script (non-zero exit, no result line):
         ranks sharing one H100, not a scale-out figure (3n-b);
         `run_sweep(mesh=)` over 4 seeds, each lane bit-equal to its solo
         run (3n-c);
+     o. the model mesh (`launch.steps`, `launch/mesh.py::make_debug_mesh`,
+        `models/moe_shardmap.py`), 4 gloo ranks sharing the card:
+        qwen3-0.6b whole in bf16 with flash (B5 on each rank's 8 query and
+        4 kv heads) on (2, 2): a train round (C = 1, 2 x 512), a prefill
+        (4 x 512) and 16 decode steps; on (pod 2, data 1, model 2): a
+        Fed-CHS and an HFL round (C = 2, chain c on pod c); each held to
+        the same step on one card in relative L2 at MESH_BOUND x the gap of
+        the one-card run from weights 1 bf16 ulp apart, beside controls
+        the bound must reject (one rank's wq shard zeroed; the chains not
+        passed on), flash launches exact a rank; dbrx-132b's MoE FFN at
+        full width (6144, 16 experts, d_ff 10752) through
+        `moe_routed_shardmap` on (2, 2) against the grouped oracle
+        (boundary flips beside a 1-ulp control) and on 1 rank against
+        global expert choice, bit for bit; then the dry run's roofline
+        terms (H100) for qwen3-0.6b's prefill and train round at (1, 1)
+        beside the card's time and peak (3o-d);
   4. time each kernel at its path's shapes with CUDA events (L2 flushed
      before every launch, the card kept busy while the host enqueues it),
      beside its plain version, its bound and, for flash attention, torch's
@@ -182,8 +198,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
      phase 3m's (beside SDPA with a boolean mask).  Rows after a kernel's
      first do not enter the kernels line, which also lists each kernel's
      launches on the serving, SGD-step and federated paths of phases
-     3k-3m and on 3n-b's mesh paths, summed over the ranks
-     (`launches_on_paths`).
+     3k-3m and on 3n-b's and 3o's mesh paths, summed over the ranks
+     (`launches_on_paths`); flash is also timed at 3o's per-rank heads.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; exits non-zero without
 one, and outside a checkout of the repository.
@@ -580,7 +596,9 @@ def flash_vs_plain(torch, fa):
                                 ("recurrentgemma-9b past its window", FLASH_RG,
                                  FLASH_RG_WINDOW),
                                 ("phi-3-vision-4.2b prefill", FLASH_VLM, None),
-                                ("whisper-tiny prefill", FLASH_ENC, None)):
+                                ("whisper-tiny prefill", FLASH_ENC, None),
+                                ("qwen3-0.6b prefill, a rank's heads on (2, 2)", FLASH_MESH,
+                                 None)):
         held(*flash_inputs(torch, gen, *shape, torch.bfloat16), True, window,
              f"{name} {shape}")
     print(f"phase 2: flash attention vs plain passed on {n_cases} cases (T,S in {FLASH_TS}, "
@@ -2292,9 +2310,10 @@ def async_path(torch, build, task):
                 check(v == want, f"3j-c {name}, {scen}: {k} launched {v} times, expected "
                                  f"{want} = {L} leaves x {cohorts} cohort computations")
             share = ""
-            # each driver's kernel share once: Fed-CHS under the straggler
-            # network, the PS drivers under churn
-            if (scen == "churn") != (name == "Fed-CHS"):
+            # a kernel share once, Fed-CHS's under the straggler network
+            # (the PS drivers' under churn went in PR 24 to make room for
+            # phase 3o: their CUPTI-profiled heads took 52 s)
+            if scen == "straggler" and name == "Fed-CHS":
                 # the kernel share of the run's first ASYNC_PROFILED steps: the
                 # kernel time of a profiled run of them over the wall of an
                 # unprofiled one (CUPTI makes a whole profiled run slow)
@@ -3141,7 +3160,7 @@ def vlm_path(torch, build):
 # on (1, 4) (10 clients pad to 12, 3 a rank) and Hier-Local-QSGD on (2, 2),
 # against single-card runs.  3n-c: `run_sweep(mesh=)`, 4 seeds on 4 ranks.
 MESH_RANKS = 4
-MESH_LENET_ROUNDS = 2
+MESH_LENET_ROUNDS = 1  # 2 until PR 24 (room for phase 3o)
 TINY_CASES = [  # (name, driver, config fields, ragged clusters)
     ("Fed-CHS grad", "fed_chs", dict(rounds=6, eval_every=3), False),
     ("Fed-CHS dense", "fed_chs", dict(rounds=6, local_steps=4, local_epochs=2, eval_every=3),
@@ -3447,6 +3466,378 @@ def mesh_path(torch, build):
               f"{[round(o[name]['peak_gb'], 2) for o in ranks]} (evals included)")
 
 
+# phase 3o: the model mesh.  qwen3-0.6b whole in bf16 with flash, and
+# dbrx-132b's MoE FFN at full width, on 4 gloo ranks sharing the card
+# (`launch.mesh.make_debug_mesh`, DTensors laid out by `launch.steps.place`),
+# each step held against one card in relative L2.  A model-mesh run adds
+# partial sums in another order (the row-parallel products, the gradient
+# sum over "data"), so it is not bit-equal: it is held at MESH_BOUND x the
+# gap of the one-card run from weights 1 bf16 ulp apart, and a control
+# (one rank's wq shard zeroed; the chains not passed on) must exceed that.
+MESH_LM_BATCH, MESH_SEQ, MESH_PREFILL, MESH_DECODE = 2, 512, 4, 16
+MESH_BOUND = 2.0
+FLASH_MESH = (MESH_PREFILL // 2, MESH_SEQ, MESH_SEQ, 8, 4, 128)  # a rank's prefill heads
+MESH_MOE_BATCH = 2
+
+
+def mesh_lm_cfg():
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(LM_ARCH), dtype="bfloat16", use_flash=True)
+
+
+def mesh_lm_inputs(torch):
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(0, 151936, (MESH_PREFILL, MESH_SEQ + MESH_DECODE + 1)))
+    return toks.to("cuda")
+
+
+def bf16_ulp(torch, tree):
+    from repro_torch.utils import tree_map
+
+    return tree_map(lambda t: torch.nextafter(t, torch.full_like(t, float("inf"))), tree)
+
+
+def full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def flat_full(torch, tree):
+    """The tree's leaves whole, flattened in bf16 (every rank gathers; rank
+    0 keeps them)."""
+    import torch.distributed as dist
+
+    from repro_torch.utils import tree_leaves
+
+    leaves = [full(t).reshape(-1) for t in tree_leaves(tree)]
+    if dist.is_initialized() and dist.get_rank():
+        return None
+    return torch.cat([t.to(torch.bfloat16) for t in leaves])
+
+
+def rel_l2_bf16(a, b) -> float:
+    """Relative L2 of two flat bf16 vectors, in f32 a chunk at a time."""
+    num = den = 0.0
+    for x, y in zip(a.split(1 << 26), b.split(1 << 26)):
+        x, y = x.float(), y.float()
+        num += float(((x - y) ** 2).sum())
+        den += float((y ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def mesh_lm_steps(torch, cfg, params, chain2, mesh):
+    """The steps of phase 3o on `mesh` (None: one card), timed: a train
+    round (C = 1, 2 x 512), a prefill (4 x 512) and 16 decode steps; with
+    `chain2` on a pod mesh (or one card), a Fed-CHS and an HFL round over
+    two chains of 1 x 512.  Returns flat results and the seconds of each."""
+    import contextlib
+
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.ctx import model_mesh
+    from repro_torch.utils import tree_map
+
+    toks = mesh_lm_inputs(torch)
+    on = mesh is not None
+    out, secs = {}, {}
+
+    def clock(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    with (model_mesh(mesh) if on else contextlib.nullcontext()), \
+            (steps._replicating() if on else contextlib.nullcontext()):
+        if not on or "pod" not in mesh.axis_names:
+            b = {"tokens": toks[:MESH_LM_BATCH, :MESH_SEQ][None],
+                 "labels": toks[:MESH_LM_BATCH, 1:MESH_SEQ + 1][None]}
+            stacked = tree_map(lambda t: t[None], params)
+            if on:
+                stacked, b = steps.place(cfg, mesh, stacked, b, chains=1)
+            new, loss = clock("train", lambda: steps.make_train_round(cfg)(stacked, b, 0.3))
+            out["train"] = flat_full(torch, new)
+            out["loss"] = float(full(loss))
+            del new, stacked
+            prompt = {"tokens": toks[:, :MESH_SEQ]}
+            caches = tf.init_caches(cfg, MESH_PREFILL, MESH_SEQ + MESH_DECODE, device="cuda")
+            pp, pr, cc = (params, prompt, caches) if not on else steps.place(
+                cfg, mesh, params, prompt, caches)
+            out["prefill"] = full(clock("prefill", lambda: steps.make_prefill_step(cfg)(pp, pr)
+                                        )).float()
+            logits = []
+
+            def decode():
+                nonlocal cc
+                for i in range(MESH_DECODE):
+                    tok = {"t": toks[:, MESH_SEQ + i:MESH_SEQ + i + 1]}
+                    tok = (tok if not on else steps.place(cfg, mesh, batch=tok))["t"]
+                    lg, cc = tf.decode_step(cfg, pp, cc, tok)
+                    logits.append(full(lg).float())
+
+            clock("decode", decode)
+            out["decode"] = torch.stack(logits)
+        if chain2 is not None and (not on or "pod" in mesh.axis_names):
+            for variant in ("fedchs", "hfl"):
+                b2 = {"tokens": toks[:2, :MESH_SEQ].reshape(2, 1, MESH_SEQ),
+                      "labels": toks[:2, 1:MESH_SEQ + 1].reshape(2, 1, MESH_SEQ)}
+                st2 = tree_map(lambda a, c: torch.stack([a, c]), params, chain2)
+                if on:
+                    st2, b2 = steps.place(cfg, mesh, st2, b2, chains=2)
+                new, loss = clock(variant, lambda: steps.make_train_round(
+                    cfg, variant=variant)(st2, b2, 0.3))
+                out[variant] = flat_full(torch, new)
+                del new, st2
+    return out, secs
+
+
+def mesh_moe_inputs(torch):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import ffn as F
+
+    cfg = get_config("dbrx-132b")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p = F.init_moe(cfg, gen, torch.bfloat16)
+    x = (torch.randn((MESH_MOE_BATCH, MESH_SEQ, cfg.d_model), generator=gen, device="cuda")
+         * 0.5).to(torch.bfloat16)
+    return cfg, p, x
+
+
+def model_mesh_rank(rank: int) -> dict:
+    """One rank of phase 3o, in its own process on the card: qwen3-0.6b on
+    (2, 2) and on (pod 2, data 1, model 2), and the MoE FFN on
+    (2, 2); rank 0 then runs the same steps on the card alone, their 1-ulp
+    controls and the controls the bound must reject, and returns the gaps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import ffn as F
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.moe_shardmap import moe_routed_shardmap
+    from repro_torch.sharding.specs import PartitionSpec as P
+    from repro_torch.sharding.specs import distribute, named_shardings
+    from repro_torch.utils import resolve_device
+
+    torch.cuda.set_device(0)
+    resolve_device("cuda")
+    out = {}
+    cfg = mesh_lm_cfg()
+    params = tf.init_params(cfg, 0, "cuda")
+    chain2 = tf.init_params(cfg, 1, "cuda")
+    mesh22 = make_debug_mesh(2, 2)
+    mesh_pod = make_debug_mesh(1, 2, pod=2)
+    check(mesh22.size == mesh_pod.size == MESH_RANKS, f"rank {rank}: mesh sizes")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    got22, secs22 = mesh_lm_steps(torch, cfg, params, None, mesh22)
+    out["launches22"] = dict(build.LAUNCHES)
+    out["peak22_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the control the bound must reject: one rank's wq shard zeroed
+    from repro_torch.sharding.ctx import model_mesh
+
+    wq0 = params["super"][0]["attn"]["wq"]
+    p_z = dict(params, super=[dict(params["super"][0], attn=dict(params["super"][0]["attn"],
+                                                                 wq=wq0.clone()))])
+    with model_mesh(mesh22), steps._replicating():
+        pp, pr = steps.place(cfg, mesh22, p_z, {"tokens": mesh_lm_inputs(torch)[:, :MESH_SEQ]})
+        wq = pp["super"][0]["attn"]["wq"]
+        if mesh22.axis_index("model") == 1:
+            wq.to_local().zero_()
+        zeroed = full(steps.make_prefill_step(cfg)(pp, pr)).float()
+        del pp, pr, wq, p_z
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    got_pod, secs_pod = mesh_lm_steps(torch, cfg, params, chain2, mesh_pod)
+    out["launches_pod"] = dict(build.LAUNCHES)
+    out["peak_pod_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["secs"] = {**secs22, **secs_pod}
+    if rank:
+        del got22, got_pod, zeroed
+    del chain2
+    torch.cuda.empty_cache()
+
+    mcfg, mp, mx = mesh_moe_inputs(torch)
+    specs = {"router": P(), "w_gate": P("model"), "w_in": P("model"), "w_out": P("model")}
+    dp = distribute(mp, named_shardings(mesh22, specs))
+    dx = distribute(mx, named_shardings(mesh22, P("data")))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_mesh, aux_mesh = moe_routed_shardmap(mcfg, dp, dx, mesh22)
+    y_mesh = full(y_mesh)
+    torch.cuda.synchronize()
+    out["secs"]["moe"] = time.perf_counter() - t0
+    del dp, dx
+    if rank:
+        del mp, mx, y_mesh, params
+        torch.cuda.empty_cache()
+        return out
+
+    # rank 0: the same steps on the card alone, and the controls
+    torch.cuda.empty_cache()
+    chain2 = tf.init_params(cfg, 1, "cuda")
+    ref, ref_secs = mesh_lm_steps(torch, cfg, params, chain2, None)
+    ulp, _ = mesh_lm_steps(torch, cfg, bf16_ulp(torch, params), bf16_ulp(torch, chain2), None)
+    del chain2
+    out["ref_secs"] = ref_secs
+    rows = {}
+    for k in ("train", "prefill", "decode", "fedchs", "hfl"):
+        got = got22[k] if k in got22 else got_pod[k]
+        rows[k] = (rel_l2_bf16(got, ref[k]), rel_l2_bf16(ulp[k], ref[k]))
+    rows["loss"] = (abs(got22["loss"] - ref["loss"]) / abs(ref["loss"]),
+                    abs(ulp["loss"] - ref["loss"]) / abs(ref["loss"]))
+    # the chains not passed on: each chain's leaves stay on their own pod
+    from repro_torch.utils import tree_leaves
+
+    sizes = [t.numel() for t in tree_leaves(params)]
+    parts = ref["fedchs"].split([2 * n for n in sizes])
+    unrolled = torch.cat([torch.cat([q.reshape(2, -1)[1], q.reshape(2, -1)[0]]) for q in parts])
+    out["rejected"] = {
+        "prefill, one rank's wq shard zeroed": rel_l2(zeroed, ref["prefill"]),
+        "fedchs, chains not passed on": rel_l2_bf16(got_pod["fedchs"], unrolled)}
+    out["lm"] = rows
+
+    # the MoE FFN: the grouped oracle on one card, one batch row a group
+    gcfg = dataclasses.replace(mcfg, moe_groups=2)
+    y_ref, aux_ref = F.moe_forward(gcfg, mp, mx)
+    y_ulp, _ = F.moe_forward(gcfg, mp, torch.nextafter(mx, torch.full_like(mx, float("inf"))))
+
+    def flipped(a, b):  # rows (tokens) whose output moved past 1% of the row's norm
+        a, b = a.float().reshape(-1, a.shape[-1]), b.float().reshape(-1, b.shape[-1])
+        return int(((a - b).norm(dim=1) > 0.01 * b.norm(dim=1)).sum())
+
+    out["moe"] = dict(gap=rel_l2(y_mesh.float(), y_ref.float()),
+                      control=rel_l2(y_ulp.float(), y_ref.float()),
+                      flips=flipped(y_mesh, y_ref), control_flips=flipped(y_ulp, y_ref),
+                      aux=(float(full(aux_mesh)) * mcfg.router_aux_coef, float(aux_ref)))
+    # and global expert choice against the 1-rank interior
+    y_glob, _ = F.moe_forward(mcfg, mp, mx)
+    y_one, _ = moe_routed_shardmap(mcfg, mp, mx, make_debug_mesh(1, 1))
+    out["moe"]["one_rank_equal"] = bool(torch.equal(y_one, y_glob))
+    return out
+
+
+def roofline_check(torch):
+    """Phase 3o-d: the dry run's terms (`launch.steps.lower_spec` on fake
+    tensors at (1, 1), priced on H100) for qwen3-0.6b's prefill 4 x 512 and
+    train round 2 x 512, beside the card's time and peak for the same steps."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline import analyze_trace, roofline_terms
+    from repro_torch.utils import tree_map
+
+    cfg = mesh_lm_cfg()
+    mesh = make_debug_mesh(1, 1, device="cpu")
+    params = tf.init_params(cfg, 0, "cuda")
+    toks = mesh_lm_inputs(torch)
+    shapes = dict(steps.SHAPES)
+    cases = {"prefill_32k": ("prefill", MESH_PREFILL), "train_4k": ("train", MESH_LM_BATCH)}
+    for shape, (label, batch) in cases.items():
+        steps.SHAPES = dict(shapes, **{shape: dict(shapes[shape], seq_len=MESH_SEQ,
+                                                   global_batch=batch)})
+        try:
+            t0 = time.perf_counter()
+            rec = analyze_trace(steps.lower_spec(steps.build_lowering(cfg, shape, mesh), mesh))
+            t_dry = time.perf_counter() - t0
+        finally:
+            steps.SHAPES = shapes
+        terms = roofline_terms(rec)
+        if label == "prefill":
+            fn = steps.make_prefill_step(cfg)
+            args = (params, {"tokens": toks[:, :MESH_SEQ]})
+        else:
+            fn = steps.make_train_round(cfg)
+            args = (tree_map(lambda t: t[None], params),
+                    {"tokens": toks[None, :batch, :MESH_SEQ],
+                     "labels": toks[None, :batch, 1:MESH_SEQ + 1]}, 0.3)
+        fn(*args)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        r = fn(*args)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del r
+        pred_s = max(terms["compute_s"], terms["memory_s"], terms["collective_s"])
+        print(f"phase 3o-d: {LM_ARCH} {label} ({batch} x {MESH_SEQ}, bf16, flash) at (1, 1): "
+              f"dry run (H100, {t_dry:.1f} s on the host) compute {terms['compute_s'] * 1e3:.3f} "
+              f"ms, memory {terms['memory_s'] * 1e3:.3f} ms, collective "
+              f"{terms['collective_s'] * 1e3:.3f} ms, bound {terms['bound']}, peak "
+              f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB; card {card_s * 1e3:.1f} ms "
+              f"({card_s / pred_s:.2f}x the dominant term), peak "
+              f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
+              f"{base / 1e9:.2f} GB held before it)")
+    del params
+
+
+def model_mesh_path(torch, build):
+    """Phase 3o: the model mesh on 4 gloo ranks sharing the card (one card:
+    not a scale-out figure), then the dry run against the card."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(model_mesh_rank, MESH_RANKS)
+    except RuntimeError as e:
+        fail(f"phase 3o: a rank failed:\n{e}")
+    r0 = ranks[0]
+    print(f"  [3o: {MESH_RANKS} ranks in {time.perf_counter() - t0:.1f} s, process start "
+          f"included]")
+    cfg = mesh_lm_cfg()
+    for k, (gap, control) in r0["lm"].items():
+        where = "(pod 2, data 1, model 2)" if k in ("fedchs", "hfl") else "(2, 2)"
+        print(f"phase 3o: {LM_ARCH} whole (bf16, flash) {k} on {where}: relative L2 gap "
+              f"{gap:.3e} to one card, 1-ulp control {control:.3e} ({gap / control:.2f}x)")
+        check(control > 0 and gap <= MESH_BOUND * control,
+              f"3o {k}: gap {gap:.3e} over {MESH_BOUND} x the 1-ulp control {control:.3e}")
+    worst = max(c for _, c in r0["lm"].values())
+    for k, gap in r0["rejected"].items():
+        print(f"phase 3o: control, {k}: {gap:.3e}")
+        check(gap > MESH_BOUND * worst, f"3o: the control '{k}' ({gap:.3e}) is not rejected")
+    sec = r0["secs"]
+    print(f"phase 3o: rank 0 s: train round {sec['train']:.2f}, prefill {sec['prefill']:.2f}, "
+          f"{MESH_DECODE} decode steps {sec['decode']:.2f}, Fed-CHS round {sec['fedchs']:.2f}, "
+          f"HFL round {sec['hfl']:.2f} (first calls: DTensor's sharding propagation "
+          f"included); one card: {', '.join(f'{k} {v:.2f}' for k, v in r0['ref_secs'].items())}")
+    print(f"phase 3o: peak a rank: {max(r['peak22_gb'] for r in ranks):.2f} GB on (2, 2), "
+          f"{max(r['peak_pod_gb'] for r in ranks):.2f} GB on (pod 2, 1, 2)")
+    n_local = cfg.num_layers
+    for label, key, want in (("(2, 2)", "launches22", 3 * n_local),
+                             ("(pod 2, 1, 2)", "launches_pod", 4 * n_local)):
+        per_rank = [r[key].get("flash_attention", 0) for r in ranks]
+        print(f"phase 3o: flash_attention launches a rank on {label}: {per_rank}")
+        check(all(n == want for n in per_rank),
+              f"3o {label}: flash launched {per_rank} times a rank, expected {want}")
+        PATH_LAUNCHES[f"3o {label}"] = {"flash_attention": sum(per_rank)}
+    m = r0["moe"]
+    print(f"phase 3o: dbrx-132b MoE FFN (d_model 6144, 16 experts, d_ff 10752, bf16), "
+          f"{MESH_MOE_BATCH} x {MESH_SEQ} on (2, 2) in {sec['moe']:.2f} s: relative L2 "
+          f"{m['gap']:.3e} to the grouped oracle on one card (1-ulp control of x "
+          f"{m['control']:.3e}); tokens moved past 1% of their norm (boundary flips) "
+          f"{m['flips']} of {MESH_MOE_BATCH * MESH_SEQ} (control {m['control_flips']}); aux "
+          f"{m['aux'][0]:.6f} vs {m['aux'][1]:.6f}; 1 rank = global expert choice bit for bit: "
+          f"{m['one_rank_equal']}")
+    check(m["one_rank_equal"], "3o: the 1-rank MoE interior differs from global expert choice")
+    check(m["gap"] <= MESH_BOUND * m["control"],
+          f"3o MoE: gap {m['gap']:.3e} over {MESH_BOUND} x the 1-ulp control {m['control']:.3e}")
+    torch.cuda.empty_cache()
+    roofline_check(torch)
+
+
 def time_launches(torch, fn, reps, flush):
     """Median of per-launch CUDA-event times (ms), L2 flushed before each.
     A spin of about a millisecond on the card comes first, so the host has
@@ -3639,7 +4030,9 @@ def flash_timings(torch, fa, flush):
     for name, shape, window in (("recurrentgemma-9b past its window", FLASH_RG,
                                  FLASH_RG_WINDOW),
                                 ("phi-3-vision-4.2b prefill", FLASH_VLM, None),
-                                ("whisper-tiny prefill", FLASH_ENC, None)):
+                                ("whisper-tiny prefill", FLASH_ENC, None),
+                                ("qwen3-0.6b prefill, a rank's heads on (2, 2)", FLASH_MESH,
+                                 None)):
         B, T, S, H, Hkv, hd = shape
         q, k, v = flash_inputs(torch, gen, B, T, S, H, Hkv, hd, torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -3786,6 +4179,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     mesh_path(torch, build)
     elapsed("3n")
+    torch.cuda.empty_cache()
+    model_mesh_path(torch, build)
+    elapsed("3o")
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2

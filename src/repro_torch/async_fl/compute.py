@@ -24,7 +24,7 @@ import torch
 from repro_torch.comm.channels import Channel
 from repro_torch.core.engine import compress_uplinks
 from repro_torch.core.oracles import local_opt_steps
-from repro_torch.utils import tree_add, tree_leaves, tree_map
+from repro_torch.utils import named_scope, tree_add, tree_leaves, tree_map
 
 Tree = Any
 
@@ -44,8 +44,10 @@ def client_updates_fn(model, channel: Channel, opt):
     def fn(params, opt_state, batch, lrs, sub):
         n = tree_leaves(batch)[0].shape[0]
         base = tree_map(lambda a: a.expand((n,) + a.shape), params)
-        new_params, new_opt, losses = local(base, opt_state, batch, lrs)
-        deltas = compress_uplinks(channel, tree_map(torch.sub, new_params, base), sub)
+        with named_scope("local_train"):
+            new_params, new_opt, losses = local(base, opt_state, batch, lrs)
+        with named_scope("uplink"):
+            deltas = compress_uplinks(channel, tree_map(torch.sub, new_params, base), sub)
         return deltas, new_opt, losses
 
     return fn

@@ -60,7 +60,7 @@ class ArchConfig:
     # mesh axis carrying the expert dim: "model" (baseline TP-style),
     # or "both" = (data, model) — one expert per chip, all-to-all dispatch
     expert_axis: str = "model"
-    # manual dispatch/combine interior on a device mesh (not ported)
+    # manual dispatch/combine interior on a model mesh (models/moe_shardmap.py)
     moe_shardmap: bool = False
 
     # MLA (deepseek)

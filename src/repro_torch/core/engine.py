@@ -94,7 +94,8 @@ from repro_torch.models.fed import as_fed_model
 from repro_torch.obs.taps import delta_taps, grad_taps, stack_taps, tree_client_norms
 from repro_torch.obs.trace import maybe_span
 from repro_torch.optim.local import AdamWOpt, PlainSGD
-from repro_torch.utils import tree_add, tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils import (named_scope, tree_add, tree_flatten, tree_leaves, tree_map,
+                               tree_unflatten)
 
 Tree = Any
 _log = logging.getLogger(__name__)
@@ -306,8 +307,9 @@ class RoundEngine:
         device = tree_leaves(batch)[0].device
         gammas = self._clients.true(_as_device(gammas, device))
         gather = None if self.client_split is None else self.client_split.gather
-        new_params, losses = grad_phase(self.model, self.client_microbatch, gather)(
-            params, batch, gammas, _as_device(lrs, device))
+        with named_scope("local_train"):
+            new_params, losses = grad_phase(self.model, self.client_microbatch, gather)(
+                params, batch, gammas, _as_device(lrs, device))
         if taps:
             return new_params, losses, grad_taps(params, new_params, gammas)
         return new_params, losses
@@ -318,7 +320,8 @@ class RoundEngine:
         mask), compressed under the senders' per-leaf `keys` and cast up to
         master.  Masked slots keep their optimizer state.  Returns (deltas,
         state, losses (senders,), the raw deltas if `keep_raw` else None)."""
-        new_p, new_state, losses = local(base, state, batch, lrs)
+        with named_scope("local_train"):
+            new_p, new_state, losses = local(base, state, batch, lrs)
         _same_dtypes(state, new_state)
         if mask is None:
             raw = tree_map(torch.sub, new_p, base)
@@ -327,7 +330,8 @@ class RoundEngine:
             raw = tree_map(
                 lambda a, b: (a - b) * mask.to(a.dtype).reshape((-1,) + (1,) * (a.ndim - 1)),
                 new_p, base)
-        deltas = compress_uplinks(self.channel, raw, keys)
+        with named_scope("uplink"):
+            deltas = compress_uplinks(self.channel, raw, keys)
         return master_cast(deltas, self.precision), new_state, losses, raw if keep_raw else None
 
     def cluster_round(self, params, batch, gammas, lrs, subs=None, opt_state=None,
@@ -406,10 +410,11 @@ class RoundEngine:
                 keep_raw=tap)
             # the gammas of the senders in hand: the group's, or every
             # rank's once the split has gathered them
-            deltas, l_g = self._clients.gather((deltas, l_g))
-            gam = gammas.narrow(0, g, l_g.shape[0])
-            agg = tree_map(lambda d: torch.tensordot(gam.to(d.dtype), d, dims=1), deltas)
-            acc = agg if acc is None else tree_add(acc, agg)
+            with named_scope("intra_agg"):
+                deltas, l_g = self._clients.gather((deltas, l_g))
+                gam = gammas.narrow(0, g, l_g.shape[0])
+                agg = tree_map(lambda d: torch.tensordot(gam.to(d.dtype), d, dims=1), deltas)
+                acc = agg if acc is None else tree_add(acc, agg)
             states.append(s_g)
             losses.append(l_g)
         state = tree_map(lambda *parts: _cat(parts, 0)[:n_here], *states)
@@ -481,13 +486,14 @@ class RoundEngine:
                     local, base, tree_map(lambda a: grid(cols(a)), state),
                     tree_map(lambda a: grid(cols(a)), b_j), lrs[j], grid(cols(mask_p)),
                     None if keys is None else grid(cols(keys[j])), keep_raw=tap)
-                deltas, l_g = clients.gather(
-                    (tree_map(lambda d: d.reshape((M, mb) + d.shape[1:]), deltas),
-                     l_g.reshape(M, mb)), 1)
-                gam = gammas_p.narrow(1, g, l_g.shape[1])  # as in `_cluster_step`
-                agg = tree_map(lambda d: torch.einsum("mn,mn...->m...", gam.to(d.dtype), d),
-                               deltas)
-                acc = agg if acc is None else tree_add(acc, agg)
+                with named_scope("intra_agg"):
+                    deltas, l_g = clients.gather(
+                        (tree_map(lambda d: d.reshape((M, mb) + d.shape[1:]), deltas),
+                         l_g.reshape(M, mb)), 1)
+                    gam = gammas_p.narrow(1, g, l_g.shape[1])  # as in `_cluster_step`
+                    agg = tree_map(lambda d: torch.einsum("mn,mn...->m...", gam.to(d.dtype), d),
+                                   deltas)
+                    acc = agg if acc is None else tree_add(acc, agg)
                 states.append(tree_map(lambda a: a.reshape((M, mb) + a.shape[1:]), s_g))
                 client_losses.append(l_g)
             if tap:  # one group: raw leaves (M * n_max, ...)

@@ -47,7 +47,7 @@ from repro_torch.kernels.ref import (
     signsgd_dequantize_codes_ref,
     signsgd_quantize_codes_ref,
 )
-from repro_torch.utils import tree_flatten, tree_unflatten
+from repro_torch.utils import named_scope, tree_flatten, tree_unflatten
 
 Tree = Any
 DEFAULT_BLOCK = 1024
@@ -144,24 +144,26 @@ def qsgd_encode(v: torch.Tensor, keys, *, s: int = 16,
     v's device); v has the leading axes ``...``.  Returns {'payload': int32
     (..., nb, bits*block/32), 'norms': f32 (..., nb)} with nb = ceil(entries
     per message / block) blocks per leaf."""
-    lead = tuple(keys.shape[:-1])
-    blocks = _message_blocks(v, lead, block)
-    nb = blocks.shape[1]
-    payload, norms = qsgd_quantize_pack(blocks, _key_tensor(keys.reshape(-1, 2), v.device), s)
-    return {"payload": payload.reshape(*lead, nb, -1), "norms": norms.reshape(*lead, nb)}
+    with named_scope('qsgd_encode'):
+        lead = tuple(keys.shape[:-1])
+        blocks = _message_blocks(v, lead, block)
+        nb = blocks.shape[1]
+        payload, norms = qsgd_quantize_pack(blocks, _key_tensor(keys.reshape(-1, 2), v.device), s)
+        return {"payload": payload.reshape(*lead, nb, -1), "norms": norms.reshape(*lead, nb)}
 
 
 def qsgd_decode(wire: dict, *, s: int = 16, shape: tuple = (),
                 block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """Receiver side: unpack + dequantize a wire dict back to an f32 leaf of
     `shape` (the leading message axes included)."""
-    payload, norms = wire["payload"], wire["norms"]
-    lead = payload.shape[:-2]
-    senders = math.prod(lead)
-    rows = qsgd_unpack_dequantize(payload.reshape(-1, payload.shape[-1]).contiguous(),
-                                  norms.reshape(-1).contiguous(), s, block)
-    n = math.prod(shape) // senders
-    return rows.reshape(senders, -1)[:, :n].reshape(shape)
+    with named_scope('qsgd_decode'):
+        payload, norms = wire["payload"], wire["norms"]
+        lead = payload.shape[:-2]
+        senders = math.prod(lead)
+        rows = qsgd_unpack_dequantize(payload.reshape(-1, payload.shape[-1]).contiguous(),
+                                      norms.reshape(-1).contiguous(), s, block)
+        n = math.prod(shape) // senders
+        return rows.reshape(senders, -1)[:, :n].reshape(shape)
 
 
 def qsgd_encode_tree(tree: Tree, keys, *, s: int = 16,
@@ -204,22 +206,24 @@ def signsgd_encode(v: torch.Tensor, *, block: int = DEFAULT_BLOCK, lead: tuple =
     message (v has the leading message axes `lead`), all senders in one
     pass.  Deterministic (no key).  Returns {'payload': int32 (..., nb,
     block/32), 'norms': f32 (..., nb)}."""
-    blocks = _message_blocks(v, tuple(lead), block)
-    senders, nb, _ = blocks.shape
-    codes, scales = signsgd_quantize_codes_ref(blocks)
-    payload = _pack_words(codes.reshape(senders * nb, block), 1)
-    return {"payload": payload.reshape(*lead, nb, -1), "norms": scales.reshape(*lead, nb)}
+    with named_scope('signsgd_encode'):
+        blocks = _message_blocks(v, tuple(lead), block)
+        senders, nb, _ = blocks.shape
+        codes, scales = signsgd_quantize_codes_ref(blocks)
+        payload = _pack_words(codes.reshape(senders * nb, block), 1)
+        return {"payload": payload.reshape(*lead, nb, -1), "norms": scales.reshape(*lead, nb)}
 
 
 def signsgd_decode(wire: dict, *, shape: tuple = (), block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """±scale per entry back to an f32 leaf of `shape` (the leading message
     axes included); the padding is cut off."""
-    payload, norms = wire["payload"], wire["norms"]
-    senders = math.prod(payload.shape[:-2])
-    codes = _unpack_words(payload.reshape(-1, payload.shape[-1]), 1)
-    rows = signsgd_dequantize_codes_ref(codes, norms.reshape(-1))
-    n = math.prod(shape) // senders
-    return rows.reshape(senders, -1)[:, :n].reshape(shape)
+    with named_scope('signsgd_decode'):
+        payload, norms = wire["payload"], wire["norms"]
+        senders = math.prod(payload.shape[:-2])
+        codes = _unpack_words(payload.reshape(-1, payload.shape[-1]), 1)
+        rows = signsgd_dequantize_codes_ref(codes, norms.reshape(-1))
+        n = math.prod(shape) // senders
+        return rows.reshape(senders, -1)[:, :n].reshape(shape)
 
 
 def signsgd_compress_tree(tree: Tree, *, block: int = DEFAULT_BLOCK, lead: tuple = ()) -> Tree:

@@ -1,4 +1,5 @@
-"""Launchers (port of `repro/launch/` without its model meshes): the step
-builders (`steps.py`), the serving loop and the async federation service
-(`serve.py`), the reduced-scale training loop (`train.py`), and the
-federation mesh on `torch.distributed` (`mesh.py`)."""
+"""Launchers (port of `repro/launch/`): the step builders and the lowering
+for a mesh (`steps.py`), the serving loop and the async federation service
+(`serve.py`), the reduced-scale training loop (`train.py`), the federation
+and model meshes on `torch.distributed` (`mesh.py`), and the dry run over
+the production meshes (`dryrun.py`)."""

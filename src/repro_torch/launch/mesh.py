@@ -17,11 +17,19 @@ rank's result: a way to drive a mesh from one process, as the tests and the
 card's smoke script do.  On one card every rank uses that card (NCCL takes
 one rank per card; gloo serves CUDA tensors through the host).
 
-The production meshes (`make_production_mesh`, `make_debug_mesh`) need a
-model mesh, which the port does not build yet.
+The model meshes lay a model, not a federation, over the ranks:
+`make_debug_mesh(data, model, pod)` and `make_production_mesh(multi_pod=)`
+return a `ModelMesh` with the reference's axes ``("data", "model")`` or
+``("pod", "data", "model")`` over a `DeviceMesh`, on which the step
+builders (`launch.steps`) lay params and batches out as DTensors
+(`sharding.specs.named_shardings`).  The production meshes need 256 or 512
+ranks: outside a cluster they exist only inside `fake_world`, a fake
+process group of that many ranks in one process, which is what the dry
+run (`launch.dryrun`) lowers under.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -222,3 +230,145 @@ def spawn_ranks(fn: Callable, world: int, *args, threads: int | None = None,
                 raise RuntimeError(payload)
             results.append(payload)
         return results
+
+
+# --------------------------------------------------------------------------
+# model meshes
+# --------------------------------------------------------------------------
+
+POD_CHIPS = 256
+MULTI_POD_CHIPS = 512
+
+
+@dataclasses.dataclass(eq=False)
+class ModelMesh:
+    """A model mesh: `shape` maps axis name to size as the reference's
+    `Mesh.shape` does, `axis_names` in mesh order, `device` this rank's
+    device, `device_mesh` the `DeviceMesh` the DTensors live on (None on a
+    1-rank mesh, whose runs are the single-device runs on plain tensors)."""
+
+    shape: dict
+    axis_names: tuple
+    device: torch.device
+    device_mesh: Any = None
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for a in self.axis_names:
+            n *= self.shape[a]
+        return n
+
+    def group(self, axis: str):
+        """The process group along `axis` (the ranks that share every other
+        coordinate)."""
+        return self.device_mesh.get_group(axis)
+
+    def axis_index(self, axis: str) -> int:
+        return 0 if self.device_mesh is None else self.device_mesh.get_local_rank(axis)
+
+    def submesh(self, axes: tuple) -> "ModelMesh":
+        """The mesh over `axes` that holds this rank (a pod's (data, model)
+        mesh inside a multi-pod one)."""
+        dm = None if self.device_mesh is None else self.device_mesh[tuple(axes)]
+        return ModelMesh({a: self.shape[a] for a in axes}, tuple(axes), self.device, dm)
+
+
+_LIST_GATHER: list = []
+
+
+def _route_gloo_cuda_gathers() -> None:
+    """gloo's `all_gather_into_tensor` kills the process on CUDA tensors
+    (SIGSEGV; an H100 with torch 2.11), while its list-form `all_gather`,
+    all-reduce and reduce-scatter serve them.  DTensor gathers shards with
+    the former, so on gloo ranks on the card the functional op's CUDA
+    kernel is replaced, once a process, by one over the list form."""
+    if _LIST_GATHER:
+        return
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def gather(input, group_size, group_name):
+        parts = [torch.empty_like(input) for _ in range(group_size)]
+        dist.all_gather(parts, input.contiguous(), group=_resolve_process_group(group_name))
+        return torch.cat(parts)
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", gather, "CUDA")
+    _LIST_GATHER.append(lib)  # the override lives as long as the library object
+
+
+def _model_mesh(shape: tuple, axes: tuple, device) -> ModelMesh:
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    n = 1
+    for s in shape:
+        n *= s
+    if n == 1:
+        return ModelMesh(dict(zip(axes, shape)), axes, device)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if device.type == "cuda" and dist.get_backend() == "gloo":
+        _route_gloo_cuda_gathers()
+    dm = init_device_mesh(device.type, shape, mesh_dim_names=axes)
+    return ModelMesh(dict(zip(axes, shape)), axes, device, dm)
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def make_debug_mesh(data: int = 1, model: int = 1, pod: int | None = None, *,
+                    device=None) -> ModelMesh:
+    """A small model mesh over the ranks of the default process group
+    (tests, the card's smoke script): axes ``("data", "model")``, with
+    ``"pod"`` in front when `pod` is given.  With fewer ranks than the
+    shape needs it falls back to a 1-rank mesh with a logged warning, not
+    an error, as the reference's does; a 1-rank mesh (plain tensors) is
+    always made, and a wider one that leaves ranks out raises.  `device`
+    is this rank's (the card unless the caller asks for the CPU)."""
+    shape = (pod, data, model) if pod else (data, model)
+    axes = ("pod", "data", "model") if pod else ("data", "model")
+    device = resolve_device(device)
+    n, world = 1, _world()
+    for s in shape:
+        n *= s
+    if n > world:
+        _log.warning("debug mesh %s needs %d devices but only %d exist — falling back to a "
+                     "single-device mesh", dict(zip(axes, shape)), n, world)
+        shape = tuple(1 for _ in shape)
+    elif 1 < n < world:
+        raise ValueError(f"a debug mesh spans every rank (or one): {dict(zip(axes, shape))} "
+                         f"covers {n} of {world}")
+    return _model_mesh(shape, axes, device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> ModelMesh:
+    """16 x 16 = 256 ranks ``("data", "model")`` a pod; `multi_pod` stacks
+    2 pods = 512 ranks ``("pod", "data", "model")``.  It needs that many
+    ranks in the default process group: a cluster, or `fake_world`."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = MULTI_POD_CHIPS if multi_pod else POD_CHIPS
+    if _world() != n:
+        raise RuntimeError(f"mesh {shape} needs {n} ranks, found {_world()} — run the dry run "
+                           "(launch/dryrun.py), which lowers inside fake_world")
+    return _model_mesh(shape, axes, resolve_device(device))
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """A fake process group of `world` ranks in this one process (this
+    process is rank 0; no collective moves data), for lowering onto the
+    production meshes with no cluster.  It refuses to start beside another
+    default process group, and destroys its own on exit, so no later mesh
+    in the process reads a world of `world`."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs the process to have no default process group; "
+                           f"one of {dist.get_world_size()} ranks is initialized")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", world_size=world, rank=0, store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -12,21 +12,21 @@ Modes:
   checkpoints; ``--resume`` continues a killed run bit for bit.  Its last
   stdout line is a JSON summary.
 
-* neither: the reference lowers the serve step for a production mesh.
-  That needs a model mesh (`make_production_mesh` in `launch/mesh.py`,
-  `named_shardings` in `sharding/specs.py`), which the port does not build
-  yet, so this mode exits non-zero and says so.
+* neither: lower the decode step (``--shape``) for the production mesh
+  (16 x 16, or 2 x 16 x 16 with ``--multi-pod``) inside a fake world of
+  that many ranks, as the dry run does (`launch.dryrun`), and print its
+  per-device bytes and FLOPs from the counted trace.  No card needed.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --execute --requests 12
   PYTHONPATH=src python -m repro_torch.launch.serve --federation --rounds 8 --checkpoint ck
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --shape decode_32k
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-import sys
 import time
 
 import numpy as np
@@ -42,6 +42,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--arch", default=None,
                     help="model architecture (required except --federation)")
     ap.add_argument("--execute", action="store_true")
+    ap.add_argument("--shape", default="decode_32k", choices=["decode_32k", "long_500k"])
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     ap.add_argument("--requests", type=int, default=8, help="execute: total requests")
     ap.add_argument("--slots", type=int, default=4, help="execute: concurrent batch slots")
@@ -74,9 +76,28 @@ def main(argv: list[str] | None = None) -> None:
     elif args.execute:
         _execute(args)
     else:
-        sys.exit(f"lowering {args.arch} for a production mesh is not ported "
-                 "(it needs the model mesh of launch/mesh.py and sharding/specs.py); "
-                 "run with --execute or --federation")
+        _lower(args)
+
+
+def _lower(args) -> None:
+    from repro_torch.configs.registry import get_config, long_context_config
+    from repro_torch.launch.mesh import (MULTI_POD_CHIPS, POD_CHIPS, fake_world,
+                                         make_production_mesh)
+    from repro_torch.launch.steps import build_lowering, lower_spec
+    from repro_torch.roofline.analysis import analyze_trace
+
+    cfg = (long_context_config(args.arch) if args.shape == "long_500k"
+           else get_config(args.arch))
+    with fake_world(MULTI_POD_CHIPS if args.multi_pod else POD_CHIPS):
+        mesh = make_production_mesh(multi_pod=args.multi_pod, device="cpu")
+        spec = build_lowering(cfg, args.shape, mesh)
+        t0 = time.time()
+        rec = analyze_trace(lower_spec(spec, mesh))
+    mem = rec["memory"]
+    print(f"{spec.name} on {'2x16x16' if args.multi_pod else '16x16'} mesh: "
+          f"lowered in {time.time() - t0:.1f}s")
+    print("  bytes/device (argument+output+temp): "
+          f"{(mem['argument_bytes'] + mem['output_bytes'] + mem['temp_bytes']) / 2**30:.2f} GiB")
 
 
 def _federation(args) -> None:

@@ -6,19 +6,20 @@
   and with ``--ckpt`` a round-resumable checkpoint.  On the card unless
   ``--device cpu``.
 
-* without it: the reference lowers the Fed-CHS round for a production mesh.
-  That needs a model mesh (`make_production_mesh` in `launch/mesh.py`,
-  `named_shardings` in `sharding/specs.py`), which the port does not build
-  yet, so this mode exits non-zero and says so.
+* without it: lower the Fed-CHS round (``--shape train_4k``) for the
+  production mesh (16 x 16, or 2 x 16 x 16 with ``--multi-pod``, a chain a
+  pod) inside a fake world of that many ranks, as the dry run does
+  (`launch.dryrun`; ``--opt`` its perf config), and print its per-device
+  bytes and FLOPs from the counted trace.  No card needed.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b --execute --rounds 50
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --multi-pod --opt
 """
 from __future__ import annotations
 
 import argparse
 import os
-import sys
 import time
 
 import numpy as np
@@ -31,6 +32,11 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--variant", default="fedchs", choices=["fedchs", "hfl"])
+    ap.add_argument("--shape", default="train_4k", choices=["train_4k"])
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--opt", action="store_true",
+                    help="lower with the beyond-paper perf config "
+                         "(launch.steps.apply_optimizations)")
     ap.add_argument("--execute", action="store_true",
                     help="run a real reduced-scale training loop")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
@@ -44,11 +50,32 @@ def main(argv: list[str] | None = None) -> None:
                     help="execute: checkpoint dir (resumes if one exists)")
     ap.add_argument("--ckpt-every", type=int, default=10)
     args = ap.parse_args(argv)
-    if not args.execute:
-        sys.exit(f"lowering {args.arch} for a production mesh is not ported "
-                 "(it needs the model mesh of launch/mesh.py and sharding/specs.py); "
-                 "run with --execute")
-    _execute(args)
+    if args.execute:
+        _execute(args)
+    else:
+        _lower(args)
+
+
+def _lower(args) -> None:
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import (MULTI_POD_CHIPS, POD_CHIPS, fake_world,
+                                         make_production_mesh)
+    from repro_torch.launch.steps import build_lowering, lower_spec
+    from repro_torch.roofline.analysis import analyze_trace
+
+    cfg = get_config(args.arch)
+    with fake_world(MULTI_POD_CHIPS if args.multi_pod else POD_CHIPS):
+        mesh = make_production_mesh(multi_pod=args.multi_pod, device="cpu")
+        spec = build_lowering(cfg, args.shape, mesh, variant=args.variant, optimized=args.opt)
+        t0 = time.time()
+        rec = analyze_trace(lower_spec(spec, mesh))
+    mem = rec["memory"]
+    print(f"{spec.name} on {'2x16x16' if args.multi_pod else '16x16'} mesh: "
+          f"lowered in {time.time() - t0:.1f}s")
+    print("  bytes/device (argument+output+temp): "
+          f"{(mem['argument_bytes'] + mem['output_bytes'] + mem['temp_bytes']) / 2**30:.2f} GiB")
+    print(f"  dot flops/device: {rec['dot_flops_per_device']:.3e}")
+    print("  (roofline terms: python -m repro_torch.launch.dryrun --arch ...)")
 
 
 def _execute(args) -> None:

@@ -40,7 +40,8 @@ from torch.func import vjp
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import apply_rope, dense_init, rms_norm, rope_angles
+from repro_torch.models.common import (ContiguousGrad, apply_rope, dense_init, rms_norm,
+                                      rope_angles)
 
 NEG_INF = -1e30
 
@@ -169,6 +170,20 @@ class FlashAttention(torch.autograd.Function):
         return out.reshape(n, -1, *out.shape[1:]), 0
 
 
+def split_heads(t, B: int, T: int, n: int, hd: int):
+    """(B, T, n * hd) -> (B, T, n, hd).  On a model mesh a feature split that
+    the n heads do not divide (8 kv heads over 16 ranks) is gathered first:
+    DTensor cannot split heads unevenly."""
+    if hasattr(t, "device_mesh"):
+        from torch.distributed.tensor import Replicate
+
+        pl = [Replicate() if p.is_shard(t.ndim - 1) and n % size else p
+              for p, size in zip(t.placements, t.device_mesh.shape)]
+        if pl != list(t.placements):
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(B, T, n, hd)
+
+
 def _project_qkv(cfg: ArchConfig, p, x, positions):
     B, T, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -177,14 +192,58 @@ def _project_qkv(cfg: ArchConfig, p, x, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, T, h, hd)
-    k = k.reshape(B, T, hkv, hd)
-    v = v.reshape(B, T, hkv, hd)
+    q, k, v = (split_heads(q, B, T, h, hd), split_heads(k, B, T, hkv, hd),
+               split_heads(v, B, T, hkv, hd))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def local_heads(attend, q, *kv, batch: tuple = (), n_out: int = 1, repeat_kv: bool = True):
+    """`attend(q, *kv, *batch)` on each rank's heads: q (B, T, H, ...), the
+    tensors of `kv` (k, v, caches: (B, S, Hkv, ...)), `batch` tensors with
+    the batch on their first axis; it returns `n_out` tensors in q's layout.
+    On plain tensors it is the call itself.  On DTensors (a model mesh) it
+    runs through `local_map`: the batch split as q's is, the heads split
+    over "model" where they divide (where only the query heads do, the kv
+    heads are repeated to them first with `repeat_kv`, else nothing is
+    split over "model"), every other mesh dim whole.  Attention mixes no
+    heads, so each rank's share is the one-device computation on its
+    heads; left to DTensor's sharding propagation, GQA's head grouping
+    gathers q, k and v whole, and the flash op has no sharding rule."""
+    if not hasattr(q, "device_mesh"):
+        return attend(q, *kv, *batch)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], kv[0].shape[2]
+    pl = []
+    for name, n, cur in zip(mesh.mesh_dim_names, mesh.shape, q.placements):
+        if cur.is_shard(0):
+            pl.append(Shard(0))
+        elif name == "model" and H % n == 0 and (repeat_kv or Hkv % n == 0):
+            pl.append(Shard(2))
+            if Hkv % n:
+                kv = tuple(t.repeat_interleave(H // Hkv, dim=2) for t in kv)
+        else:
+            pl.append(Replicate())
+    pl = tuple(pl)
+    batch_pl = tuple(p if p.is_shard(0) else Replicate() for p in pl)
+    # a plain batch tensor (made inside the step) is whole on every rank
+    batch = tuple(b if hasattr(b, "device_mesh") else DTensor.from_local(
+        b, mesh, [Replicate()] * len(pl), run_check=False) for b in batch)
+
+    def local(*args):
+        heads = args[:1 + len(kv)]
+        return attend(*(ContiguousGrad.apply(t) for t in heads), *args[1 + len(kv):])
+
+    out_pl = list(pl) if n_out == 1 else (pl,) * n_out
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(pl,) * (1 + len(kv)) + (batch_pl,) * len(batch),
+                     device_mesh=mesh, redistribute_inputs=True)(q, *kv, *batch)
 
 
 def attention_forward(cfg: ArchConfig, p, x, *, window: int | None = None):
@@ -193,9 +252,10 @@ def attention_forward(cfg: ArchConfig, p, x, *, window: int | None = None):
     positions = torch.arange(T, device=x.device).expand(B, T)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if cfg.use_flash:
-        out = FlashAttention.apply(q, k, v, True, window)
+        out = local_heads(lambda q, k, v: FlashAttention.apply(q, k, v, True, window), q, k, v)
     else:
-        out = blockwise_attention(q, k, v, causal=True, window=window)
+        out = local_heads(
+            lambda q, k, v: blockwise_attention(q, k, v, causal=True, window=window), q, k, v)
     return out.reshape(B, T, -1) @ p["wo"]
 
 
@@ -225,14 +285,83 @@ def attention_decode(cfg: ArchConfig, p, x, cache: dict, *, window: int | None =
         raise ValueError(f"decode takes one token per sequence, got {T}")
     q, k, v = _project_qkv(cfg, p, x, cache["len"][:, None])
     S = cache["k"].shape[1]
-    slot = cache["len"] % S if window is not None else torch.clamp(cache["len"], max=S - 1)
-    at = (torch.arange(B, device=x.device), slot.long())
-    k_cache = cache["k"].index_put(at, k[:, 0])
-    v_cache = cache["v"].index_put(at, v[:, 0])
+
+    def step(q, k, v, k_cache, v_cache, lens):
+        # the cache write and the attention, per rank on a model mesh
+        slot = lens % S if window is not None else torch.clamp(lens, max=S - 1)
+        at = (torch.arange(q.shape[0], device=q.device), slot.long())
+        k_cache = k_cache.index_put(at, k[:, 0])
+        v_cache = v_cache.index_put(at, v[:, 0])
+        eff_len = torch.clamp(lens + 1, max=S) if window is not None else lens + 1
+        return decode_attention(q, k_cache, v_cache, eff_len, window=window), k_cache, v_cache
+
+    if _seq_split(cache["k"]) is not None:
+        out, k_cache, v_cache = _decode_seq_split(q, k, v, cache, window)
+    else:
+        out, k_cache, v_cache = local_heads(step, q, k, v, cache["k"], cache["v"],
+                                            batch=(cache["len"],), n_out=3, repeat_kv=False)
     new_len = cache["len"] + 1
-    eff_len = torch.clamp(new_len, max=S) if window is not None else new_len
-    out = decode_attention(q, k_cache, v_cache, eff_len, window=window)
     return out.reshape(B, T, -1) @ p["wo"], {"k": k_cache, "v": v_cache, "len": new_len}
+
+
+def _seq_split(k_cache):
+    """The mesh dim splitting a DTensor cache's sequence axis (the
+    sequence-parallel layout `cache_pspecs` gives kv heads that do not
+    divide "model"), or None."""
+    if not hasattr(k_cache, "device_mesh"):
+        return None
+    hits = [i for i, p in enumerate(k_cache.placements) if p.is_shard(1)]
+    return hits[0] if hits else None
+
+
+def _decode_seq_split(q, k, v, cache: dict, window: int | None):
+    """Decode against a cache whose sequence axis is split over the ranks of
+    one mesh dim (flash-decode style): each rank writes the new token only
+    where it owns the slot, scores its share of the positions, and the
+    softmax's max, sum and weighted values are reduced over that dim, so no
+    rank gathers the cache.  The same softmax as `decode_attention`, its
+    sums in another order."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.models.common import all_reduce
+
+    mesh, dim = cache["k"].device_mesh, _seq_split(cache["k"])
+    group, r = mesh.get_group(dim), mesh.get_local_rank(dim)
+    S = cache["k"].shape[1]
+    batch_pl = tuple(p if p.is_shard(0) else Replicate() for p in cache["len"].placements)
+    cache_pl = tuple(Shard(1) if i == dim else p for i, p in enumerate(batch_pl))
+
+    def local(q, k, v, k_cache, v_cache, lens):
+        B, S_loc = k_cache.shape[:2]
+        slot = (lens % S if window is not None else torch.clamp(lens, max=S - 1)).long()
+        mine = (slot // S_loc) == r
+        at = (torch.arange(B, device=q.device), (slot - r * S_loc).clamp(0, S_loc - 1))
+        keep = mine[:, None, None]
+        k_cache = k_cache.index_put(at, torch.where(keep, k[:, 0], k_cache[at]))
+        v_cache = v_cache.index_put(at, torch.where(keep, v[:, 0], v_cache[at]))
+        eff_len = torch.clamp(lens + 1, max=S) if window is not None else lens + 1
+        H, hd = q.shape[2], q.shape[3]
+        Hkv = k_cache.shape[2]
+        qf = (q * (1.0 / math.sqrt(hd))).float().reshape(B, 1, Hkv, H // Hkv, hd)
+        sc = torch.einsum("bthgd,bshd->bthgs", qf, k_cache.float())
+        pos = r * S_loc + torch.arange(S_loc, device=q.device)
+        valid = pos[None, :] < eff_len[:, None]
+        sc = torch.where(valid[:, None, None, None, :], sc, torch.full_like(sc, NEG_INF))
+        m = all_reduce(sc.amax(dim=-1, keepdim=True), group, "max")
+        pr = torch.exp(sc - m)
+        den = all_reduce(pr.sum(dim=-1, keepdim=True), group)
+        num = all_reduce(torch.einsum("bthgs,bshd->bthgd", pr, v_cache.float()), group)
+        out = (num / den[..., 0][..., None]).reshape(B, 1, H, hd).to(q.dtype)
+        return out, k_cache, v_cache
+
+    whole = tuple(batch_pl)
+    args = [t if hasattr(t, "device_mesh") else DTensor.from_local(
+        t, mesh, [Replicate()] * len(batch_pl), run_check=False) for t in (q, k, v)]
+    return local_map(local, out_placements=(whole, cache_pl, cache_pl),
+                     in_placements=(whole, whole, whole, cache_pl, cache_pl, batch_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        *args, cache["k"], cache["v"], cache["len"])
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, capacity: int, dtype, device) -> dict:
@@ -286,7 +415,8 @@ def mla_forward(cfg: ArchConfig, p, x):
     kv = (c_kv @ p["wkv_b"]).reshape(B, T, h, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, T, h, m.qk_rope_head_dim)], dim=-1)
-    out = blockwise_attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True)
+    out = local_heads(lambda q, k, v: blockwise_attention(q, k, v, causal=True),
+                      torch.cat([q_nope, q_rope], dim=-1), k, v)
     return out.reshape(B, T, -1) @ p["wo"]
 
 

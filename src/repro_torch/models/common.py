@@ -54,6 +54,87 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+# collectives with their backward written out, for per-rank code on a model
+# mesh (`local_map` interiors)
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """`t` reduced over the ranks of `group` (a functional collective)."""
+    import torch.distributed._functional_collectives as funcol
+
+    out = funcol.all_reduce(t, op, group)
+    return out.wait() if hasattr(out, "wait") else out
+
+
+class Sum(torch.autograd.Function):
+    """Sum over the ranks of `group`; the cotangent, which every rank holds
+    whole, passes through."""
+
+    @staticmethod
+    def forward(t, group):
+        return all_reduce(t, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class SumGrad(torch.autograd.Function):
+    """Identity; the gradient is summed over the ranks of `group`, for an
+    input every rank of the group holds whole but uses on its own part."""
+
+    @staticmethod
+    def forward(t, group):
+        return t.view_as(t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return all_reduce(ct.contiguous(), ctx.group), None
+
+
+class ScaleGrad(torch.autograd.Function):
+    """Identity; the gradient times `s`."""
+
+    @staticmethod
+    def forward(t, s):
+        return t.view_as(t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.s = inputs[1]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct * ctx.s, None
+
+
+class ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient comes back contiguous.  A `local_map`'s
+    inputs take it: DTensor lays a local gradient out by its global
+    (contiguous) strides and views it so, which a permuted local gradient
+    (an einsum's) would not allow."""
+
+    @staticmethod
+    def forward(t):
+        return t.view_as(t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.contiguous()
+
+
 def activation(name: str):
     if name == "silu":
         return F.silu

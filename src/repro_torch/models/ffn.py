@@ -21,15 +21,18 @@ Ties and order, for the card:
   * Everything is out of place and shaped from static sizes, so it runs
     under `torch.func.vmap` over clients and inside a captured CUDA graph.
 
-`cfg.moe_shardmap` needs a device mesh; without one the reference falls
-through to this plain path, and so does the port (the manual-collective
-interior, `models/moe_shardmap.py`, is not ported).
+With `cfg.moe_shardmap` and a (data, model) model mesh published in
+`sharding.ctx` (the dry run's `--opt`), expert choice runs the
+manual-collective interior of `models/moe_shardmap.py` and adds the shared
+experts and the aux coefficient here, as the reference does; with no such
+mesh it falls through to the plain path.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import activation, dense_init
@@ -69,8 +72,11 @@ def _expert_weights(gen: torch.Generator, lead: tuple, E: int, n_in: int, n_out:
                     dtype) -> torch.Tensor:
     """(*lead, E, n_in, n_out) normal weights times 1/sqrt(n_in), drawn in f32
     one (n_in, n_out) matrix at a time, so a full-width stack never has an
-    f32 copy on the device."""
+    f32 copy on the device.  Built under `FakeTensorMode` (the dry run's
+    `abstract_params`), the stack holds no data and nothing is drawn."""
     w = torch.empty((*lead, E, n_in, n_out), dtype=dtype, device=gen.device)
+    if is_fake(w):
+        return w
     for mat in w.view(-1, n_in, n_out):
         mat.copy_(torch.randn((n_in, n_out), generator=gen, device=gen.device,
                               dtype=torch.float32) * (1.0 / math.sqrt(n_in)))
@@ -136,6 +142,21 @@ def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, *, method: str = "exp
     B, T, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     act = activation(cfg.act)
+    if method == "expert_choice" and cfg.moe_shardmap:
+        from repro_torch.models import moe_shardmap as msm
+        from repro_torch.sharding.ctx import current_mesh
+
+        mesh = current_mesh()
+        if mesh is not None and msm.shardmap_supported(cfg, mesh, B):
+            y, aux = msm.moe_routed_shardmap(cfg, p, x, mesh, capacity_factor=capacity_factor)
+            aux = aux * cfg.router_aux_coef
+            if cfg.num_shared_experts:
+                sp = p["shared"]
+                xf = x.reshape(B * T, d)
+                y = (y.reshape(B * T, d)
+                     + (act(xf @ sp["w_gate"]) * (xf @ sp["w_in"])) @ sp["w_out"]
+                     ).reshape(B, T, d)
+            return y, aux
     N = B * T
     xf = x.reshape(N, d)
     probs = _router_probs(cfg, p, xf)  # (N, E) f32

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.attention import local_heads
 from repro_torch.models.common import dense_init, rms_norm
 
 
@@ -167,7 +168,9 @@ def ssd_block_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor
     if pad_t:
         x_in = F.pad(x_in, (0, 0, 0, 0, 0, pad_t))
         log_a, Bm, Cm = (F.pad(t, (0, 0, 0, pad_t)) for t in (log_a, Bm, Cm))
-    y, _ = ssd_chunked(x_in, log_a, Bm, Cm, chunk=cfg.ssm_chunk)
+    # per rank on a model mesh: its heads, B and C whole (one group)
+    y = local_heads(lambda x, a, b, c: ssd_chunked(x, a, b, c, chunk=cfg.ssm_chunk)[0],
+                    x_in, log_a, batch=(Bm, Cm))
     y = y[:, :T] + p["D"][:, None] * xs
     y = rms_norm(y.reshape(B, T, d_in) * F.silu(z), p["norm"], cfg.norm_eps)
     return y @ p["w_out"]

@@ -28,7 +28,13 @@ inputs (the activations, the encoder's output when there is one, and the
 layer tensors), and its backward runs the block again under
 `torch.func.vjp`.  (`torch.utils.checkpoint` cannot run under the
 engine's `vmap(grad_and_value(...))`: torch.func refuses its saved-tensor
-hooks, and its reentrant form has no `setup_context`.)
+hooks, and its reentrant form has no `setup_context`.)  With
+`remat_policy=DOTS_SAVEABLE` (the reference's
+`jax.checkpoint_policies.dots_with_no_batch_dims_saveable`, the dry run's
+`--opt`) the block also keeps the outputs of its products with 2-D weights
+(`aten.mm`; attention's and the experts' batched products are `bmm`) and
+the recompute takes them instead of running them again: the gradients are
+bit for bit those of `remat=True` without a policy.
 
 Block kinds (`KINDS`): "attn" and "local" (sliding window; MLA when
 `cfg.mla` is set), "ssd" (Mamba-2, no FFN) and "rglru" (Griffin), each but
@@ -41,6 +47,7 @@ DeepSeek adds a multi-token prediction head (`cfg.mtp_depth`, `_mtp_loss`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -49,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from torch.func import grad_and_value, vjp
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -59,6 +67,7 @@ from repro_torch.utils import (resolve_device, tree_flatten, tree_leaves, tree_m
                                tree_unflatten)
 
 KINDS = ("attn", "local", "ssd", "rglru")
+DOTS_SAVEABLE = "dots_with_no_batch_dims_saveable"  # the one remat policy
 PATCH_DIM = 1024  # width of the stub patch embeddings the projector maps to d_model
 
 
@@ -73,7 +82,19 @@ def _layout(cfg: ArchConfig) -> tuple[int, int]:
 
 
 def _head(cfg: ArchConfig, params: dict) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if hasattr(head, "device_mesh"):
+        # vocab-split logits on a model mesh (a tied embedding is split on
+        # d_model): the head's bytes move, never the (B, T, V) logits'
+        from torch.distributed.tensor import Shard
+
+        names, n = head.device_mesh.mesh_dim_names, head.device_mesh.shape
+        pl = list(head.placements)
+        for i, name in enumerate(names):
+            if name == "model" and pl[i].is_shard(0) and head.shape[1] % n[i] == 0:
+                pl[i] = Shard(1)
+                head = head.redistribute(head.device_mesh, pl)
+    return head
 
 
 # ==========================================================================
@@ -111,6 +132,27 @@ def init_block(cfg: ArchConfig, kind: str, gen: torch.Generator, dtype,
     return p
 
 
+def _like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """On a model mesh, a block's output `y` laid out as the residual
+    stream `x` (batch split, whole over "model"): the sum of a
+    row-parallel product's partial outputs, as Megatron's layout and the
+    reference's GSPMD one do.  Plain tensors pass through."""
+    if hasattr(y, "device_mesh") and tuple(y.placements) != tuple(x.placements):
+        return y.redistribute(y.device_mesh, x.placements)
+    return y
+
+
+def _stream(x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """On a model mesh, the embedded stream split as the tokens' batch is
+    and whole along every other mesh axis."""
+    if not hasattr(x, "device_mesh"):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Shard(0) if p.is_shard(0) else Replicate() for p in tokens.placements]
+    return x.redistribute(x.device_mesh, pl)
+
+
 def _ffn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, moe_method: str):
     """x + FFN(norm(x)), and the block's aux loss (f32 zero without MoE);
     x itself for a block without an FFN."""
@@ -118,8 +160,8 @@ def _ffn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, moe_method: str):
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if cfg.is_moe:
             y, aux = moe_forward(cfg, p["ffn"], h, method=moe_method)
-            return x + y, aux
-        x = x + ffn_forward(cfg, p["ffn"], h)
+            return x + _like(y, x), aux
+        x = x + _like(ffn_forward(cfg, p["ffn"], h), x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -130,19 +172,19 @@ def block_forward(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
     encoder-decoder's attention blocks then attend to `enc_out` (B,F,d)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssd":
-        x = x + ssd.ssd_block_forward(cfg, p["mixer"], h)
+        x = x + _like(ssd.ssd_block_forward(cfg, p["mixer"], h), x)
     elif kind == "rglru":
-        x = x + rglru.rglru_block_forward(cfg, p["mixer"], h)
+        x = x + _like(rglru.rglru_block_forward(cfg, p["mixer"], h), x)
     else:
         if cfg.mla is not None:
             y = attn.mla_forward(cfg, p["attn"], h)
         else:
             window = cfg.sliding_window if kind == "local" else None
             y = attn.attention_forward(cfg, p["attn"], h, window=window)
-        x = x + y
+        x = x + _like(y, x)
         if cfg.is_encoder_decoder and enc_out is not None:
             hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
-            x = x + _cross_attention(cfg, p["xattn"], hx, enc_out)
+            x = x + _like(_cross_attention(cfg, p["xattn"], hx, enc_out), x)
     return _ffn(cfg, kind, p, x, moe_method)
 
 
@@ -152,10 +194,12 @@ def _cross_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_out: torch.T
     blockwise path (the reference's, never the flash kernel)."""
     B, T, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, T, h, hd)
-    k = (enc_out @ p["wk"]).reshape(B, enc_out.shape[1], hkv, hd)
-    v = (enc_out @ p["wv"]).reshape(B, enc_out.shape[1], hkv, hd)
-    out = attn.blockwise_attention(q, k, v, causal=False)
+    F_enc = enc_out.shape[1]
+    q = attn.split_heads(x @ p["wq"], B, T, h, hd)
+    k = attn.split_heads(enc_out @ p["wk"], B, F_enc, hkv, hd)
+    v = attn.split_heads(enc_out @ p["wv"], B, F_enc, hkv, hd)
+    out = attn.local_heads(lambda q, k, v: attn.blockwise_attention(q, k, v, causal=False),
+                           q, k, v)
     return out.reshape(B, T, -1) @ p["wo"]
 
 
@@ -199,9 +243,10 @@ def block_decode(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, cache: di
             # the pinned encoder K/V, every frame visible
             hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
             B, F_enc = x.shape[0], cache["cross_k"].shape[1]
-            q = (hx @ p["xattn"]["wq"]).reshape(B, 1, cfg.num_heads, cfg.head_dim)
-            out = attn.decode_attention(q, cache["cross_k"], cache["cross_v"], torch.full(
-                (B,), F_enc, dtype=torch.int32, device=x.device))
+            q = attn.split_heads(hx @ p["xattn"]["wq"], B, 1, cfg.num_heads, cfg.head_dim)
+            out = attn.local_heads(attn.decode_attention, q, cache["cross_k"], cache["cross_v"],
+                                   batch=(torch.full((B,), F_enc, dtype=torch.int32,
+                                                     device=x.device),), repeat_kv=False)
             x = x + out.reshape(B, 1, -1) @ p["xattn"]["wo"]
     x, _ = _ffn(cfg, kind, p, x, moe_method)
     return x, cache
@@ -287,10 +332,10 @@ def _encoder_forward(cfg: ArchConfig, p: dict, frames: torch.Tensor) -> torch.Te
     leaves, treedef = tree_flatten(p["blocks"])
     for layer in zip(*(leaf.unbind(0) for leaf in leaves)):
         bp = tree_unflatten(treedef, list(layer))
-        y = attn.blockwise_attention(
-            *_enc_qkv(enc_cfg, bp["attn"], rms_norm(x, bp["ln1"], cfg.norm_eps)), causal=False)
-        x = x + y.reshape(x.shape[0], F_enc, -1) @ bp["attn"]["wo"]
-        x = x + ffn_forward(enc_cfg, bp["ffn"], rms_norm(x, bp["ln2"], cfg.norm_eps))
+        y = attn.local_heads(lambda q, k, v: attn.blockwise_attention(q, k, v, causal=False),
+                             *_enc_qkv(enc_cfg, bp["attn"], rms_norm(x, bp["ln1"], cfg.norm_eps)))
+        x = x + _like(y.reshape(x.shape[0], F_enc, -1) @ bp["attn"]["wo"], x)
+        x = x + _like(ffn_forward(enc_cfg, bp["ffn"], rms_norm(x, bp["ln2"], cfg.norm_eps)), x)
     return rms_norm(x, p["norm"], cfg.norm_eps)
 
 
@@ -298,15 +343,16 @@ def _enc_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor):
     """The encoder's q, k, v (B, F, heads, hd): no bias, no RoPE."""
     B, T, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return ((x @ p["wq"]).reshape(B, T, h, hd), (x @ p["wk"]).reshape(B, T, hkv, hd),
-            (x @ p["wv"]).reshape(B, T, hkv, hd))
+    return (attn.split_heads(x @ p["wq"], B, T, h, hd),
+            attn.split_heads(x @ p["wk"], B, T, hkv, hd),
+            attn.split_heads(x @ p["wv"], B, T, hkv, hd))
 
 
 def _embed_inputs(cfg: ArchConfig, params: dict, batch: dict):
     """-> (x (B, T', d), the encoder's output or None, n_prefix): the token
     embeddings, after the projected patches of a VLM (T' = patches +
     tokens, n_prefix = patches)."""
-    x = F.embedding(batch["tokens"].long(), params["embed"])
+    x = _stream(F.embedding(batch["tokens"].long(), params["embed"]), batch["tokens"])
     enc_out, n_prefix = None, 0
     if cfg.is_encoder_decoder:
         enc_out = _encoder_forward(cfg, params["encoder"], batch["frames"])
@@ -333,6 +379,35 @@ def super_block(cfg: ArchConfig, moe_method: str, treedefs: tuple, cross: bool,
     return h, aux
 
 
+class _SaveDots(TorchDispatchMode):
+    """Appends the output of every `aten.mm` run inside it to `saved`."""
+
+    def __init__(self, saved: list):
+        super().__init__()
+        self.saved = saved
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.aten.mm.default:
+            self.saved.append(out)
+        return out
+
+
+class _ReplayDots(TorchDispatchMode):
+    """Answers the i-th `aten.mm` with the i-th kept output instead of
+    running it: the recompute runs the block's ops in the forward's order."""
+
+    def __init__(self, saved):
+        super().__init__()
+        self.saved, self.i = saved, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.mm.default and self.i < len(self.saved):
+            self.i += 1
+            return self.saved[self.i - 1].detach()
+        return func(*args, **(kwargs or {}))
+
+
 class RematBlock(torch.autograd.Function):
     """A superblock that keeps no activations: the forward saves its
     inputs only (the activations, the encoder's output when `cross`, and the
@@ -341,25 +416,47 @@ class RematBlock(torch.autograd.Function):
     back through it, to every input: the encoder's output gets its
     cotangent, so the encoder's parameters get their gradient.  The vmap
     rule is generated, so it runs under the engine's vmap over clients; a
-    flash attention call inside it runs its kernel again in the recompute."""
+    flash attention call inside it runs its kernel again in the recompute.
+    With `dots` (a fresh list, under `DOTS_SAVEABLE`) the forward also
+    keeps the outputs of its 2-D-weight products there, as the dispatch
+    mode below every transform sees them, for the recompute."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(cfg, moe_method, treedefs, cross, h, *tensors):
-        return super_block(cfg, moe_method, treedefs, cross, h, *tensors)
+    def forward(cfg, moe_method, treedefs, cross, dots, h, *tensors):
+        with _SaveDots(dots) if dots is not None else contextlib.nullcontext():
+            return super_block(cfg, moe_method, treedefs, cross, h, *tensors)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        cfg, moe_method, treedefs, cross, h, *tensors = inputs
+        cfg, moe_method, treedefs, cross, dots, h, *tensors = inputs
         ctx.cfg, ctx.moe_method, ctx.treedefs, ctx.cross = cfg, moe_method, treedefs, cross
+        ctx.dots = dots
         ctx.save_for_backward(h, *tensors)
 
     @staticmethod
     def backward(ctx, ct_h, ct_aux):
-        _, pullback = vjp(lambda *xs: super_block(ctx.cfg, ctx.moe_method, ctx.treedefs,
-                                                  ctx.cross, *xs), *ctx.saved_tensors)
-        return (None, None, None, None, *pullback((ct_h, ct_aux)))
+        saved = ctx.saved_tensors
+
+        def block(*xs):
+            return super_block(ctx.cfg, ctx.moe_method, ctx.treedefs, ctx.cross, *xs)
+
+        with _ReplayDots(ctx.dots) if ctx.dots else contextlib.nullcontext():
+            if hasattr(saved[0], "device_mesh"):
+                # DTensors (a model mesh): plain autograd, under which they
+                # stay DTensors and keep their layouts (torch.func would wrap
+                # them)
+                with torch.enable_grad():
+                    xs = [t.detach().requires_grad_() for t in saved]
+                    outs = [(o, ct) for o, ct in zip(block(*xs), (ct_h, ct_aux))
+                            if o.requires_grad]
+                    grads = torch.autograd.grad([o for o, _ in outs], xs,
+                                                [ct for _, ct in outs], allow_unused=True)
+            else:
+                _, pullback = vjp(block, *saved)
+                grads = pullback((ct_h, ct_aux))
+        return (None, None, None, None, None, *grads)
 
 
 def _stacked_layers(cfg: ArchConfig, params: dict) -> tuple[tuple, list[list]]:
@@ -377,14 +474,18 @@ def _stacked_layers(cfg: ArchConfig, params: dict) -> tuple[tuple, list[list]]:
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
-            moe_method: str = "expert_choice", last_only: bool = False
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+            moe_method: str = "expert_choice", remat_policy: str | None = None,
+            last_only: bool = False, hidden: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, T, V), or (B, 1, V) with `last_only`, aux loss).
     The logits are the tokens' only: a VLM's patch positions are sliced
     off after the final norm.  `remat` recomputes each superblock in the
-    backward pass (`RematBlock`); `last_only` slices the hidden state to
+    backward pass (`RematBlock`), keeping the 2-D-weight products with
+    `remat_policy=DOTS_SAVEABLE`; `last_only` slices the hidden state to
     the last position before the LM head, so a prefill never holds (B, T,
-    V) logits."""
+    V) logits; `hidden` returns the normed hidden state the LM head takes
+    instead of the logits."""
+    if remat_policy not in (None, DOTS_SAVEABLE):
+        raise ValueError(f"unknown remat policy {remat_policy!r}")
     x, enc_out, n_prefix = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_super, n_tail = _layout(cfg)
@@ -393,7 +494,8 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
     enc = (enc_out,) if cross else ()
     for leaves in layers:
         if remat:
-            x, a = RematBlock.apply(cfg, moe_method, treedefs, cross, x, *enc, *leaves)
+            dots = [] if remat_policy else None
+            x, a = RematBlock.apply(cfg, moe_method, treedefs, cross, dots, x, *enc, *leaves)
         else:
             x, a = super_block(cfg, moe_method, treedefs, cross, x, *enc, *leaves)
         aux = aux + a
@@ -407,15 +509,17 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
         x = x[:, n_prefix:]
     if last_only:
         x = x[:, -1:]
-    return x @ _head(cfg, params), aux
+    return (x if hidden else x @ _head(cfg, params)), aux
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
-            moe_method: str = "expert_choice") -> torch.Tensor:
+            moe_method: str = "expert_choice", remat_policy: str | None = None
+            ) -> torch.Tensor:
     """Mean next-token cross entropy, plus 0.3 x the multi-token prediction
     loss when `cfg.mtp_depth` is set, plus the MoE aux loss."""
-    logits, aux = forward(cfg, params, batch, remat=remat, moe_method=moe_method)
-    loss = cross_entropy_loss(logits, batch["labels"])
+    h, aux = forward(cfg, params, batch, remat=remat, moe_method=moe_method,
+                     remat_policy=remat_policy, hidden=True)
+    loss = _head_loss(cfg, params, h, batch["labels"])
     if cfg.mtp_depth:
         loss = loss + 0.3 * _mtp_loss(cfg, params, batch)
     return loss + aux
@@ -433,7 +537,68 @@ def _mtp_loss(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     nxt = rms_norm(F.embedding(labels.long(), params["embed"]), m["norm"], cfg.norm_eps)
     h, _ = block_forward(cfg, "attn", m["block"], torch.cat([x, nxt], dim=-1) @ m["proj"])
     l2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
-    return cross_entropy_loss(h @ _head(cfg, params), l2)
+    return _head_loss(cfg, params, h, l2)
+
+
+def _head_loss(cfg: ArchConfig, params: dict, h: torch.Tensor, labels: torch.Tensor
+               ) -> torch.Tensor:
+    """Mean cross entropy of the LM head's logits of `h`.  On a model mesh
+    (DTensors) it is the vocab-parallel loss, each rank's logits local."""
+    if hasattr(h, "device_mesh"):
+        return _vocab_parallel_loss(h, _head(cfg, params), labels)
+    return cross_entropy_loss(h @ _head(cfg, params), labels)
+
+
+def _vocab_parallel_loss(h, head, labels) -> torch.Tensor:
+    """Megatron's vocab-parallel cross entropy through `local_map`: each rank
+    computes its tokens' logits over its vocab slice (the head split on
+    "model" where the vocab divides), the max, the sum of exponentials and
+    the label's logit are reduced over "model", and the token sum over the
+    batch axes: no (B, T, V) tensor leaves its rank.  Left to DTensor's
+    sharding propagation, the logits' backward comes back in strided
+    layouts its propagation cannot take."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.models.common import ContiguousGrad, Sum, SumGrad, all_reduce
+
+    mesh = h.device_mesh
+    names, sizes = mesh.mesh_dim_names, mesh.shape
+    batch_dims = [i for i, p in enumerate(labels.placements) if p.is_shard(0)]
+    m_dim = names.index("model") if "model" in names else None
+    split = m_dim is not None and head.shape[1] % sizes[m_dim] == 0 and sizes[m_dim] > 1
+    rep = [Replicate()] * len(names)
+    h_pl = [Shard(0) if i in batch_dims else Replicate() for i in range(len(names))]
+    head_pl = [Shard(1) if split and i == m_dim else Replicate() for i in range(len(names))]
+    model = mesh.get_group(names[m_dim]) if split else None
+    batch_groups = [mesh.get_group(names[i]) for i in batch_dims]
+    V_loc = head.shape[1] // (sizes[m_dim] if split else 1)
+    v0 = mesh.get_local_rank(names[m_dim]) * V_loc if split else 0
+    n_tokens = labels.numel()
+
+    def local(h, head, labels):
+        h, head = ContiguousGrad.apply(h), ContiguousGrad.apply(head)
+        if split:  # every model rank scores these tokens on its own slice
+            h = SumGrad.apply(h, model)
+        for g in batch_groups:  # every batch shard uses the head on its tokens
+            head = SumGrad.apply(head, g)
+        logits = (h @ head).float()
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        if split:
+            m = all_reduce(m, model, "max")
+        se = torch.sum(torch.exp(logits - m), dim=-1, keepdim=True)
+        lab = labels.long()[..., None] - v0
+        inside = (lab >= 0) & (lab < V_loc)
+        ll = torch.gather(logits, -1, lab.clamp(0, V_loc - 1)) * inside
+        if split:
+            se, ll = Sum.apply(se, model), Sum.apply(ll, model)
+        total = torch.sum(m + torch.log(se) - ll)
+        for g in batch_groups:
+            total = Sum.apply(total, g)
+        return total / n_tokens
+
+    return local_map(local, out_placements=rep, in_placements=(h_pl, head_pl, h_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(h, head, labels)
 
 
 def sgd_update(params: dict, grads, lr: float) -> dict:

@@ -17,6 +17,11 @@ axis):
 Leaves with extra leading dims (stacked superblocks, a Fed-CHS chain dim)
 get Nones in front.  A mesh is anything with `axis_names` and a `shape`
 mapping of axis name to size.
+
+`named_shardings(mesh, specs)` turns a spec tree into `NamedSharding`s on
+a model mesh (`launch.mesh.ModelMesh`), whose `placements` are DTensor's;
+`distribute(tree, shardings)` lays a tree of tensors out as DTensors by
+them.
 """
 from __future__ import annotations
 
@@ -158,6 +163,71 @@ def cache_pspecs(caches: Tree, batch_size: int, mesh) -> Tree:
         return P(*dims)
 
     return _map_with_path(spec, caches)
+
+
+class NamedSharding:
+    """A spec on a model mesh (the port's `jax.sharding.NamedSharding`).
+    `placements` has one DTensor placement per mesh dim, in the mesh's
+    axis order: a spec entry naming axis `a` at tensor dim `i` is `Shard(i)`
+    on `a`; a tuple entry ``("data", "model")`` is `Shard(i)` on both, which
+    splits dim `i` data-major, model-minor as JAX does (device (d, m) holds
+    chunk d * n_model + m), so its axes must come in mesh order; every
+    other mesh dim is `Replicate()`."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh, self.spec = mesh, PartitionSpec(*spec)
+
+    @property
+    def placements(self) -> tuple:
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = tuple(self.mesh.axis_names)
+        out = [Replicate()] * len(names)
+        for i, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            dims = [names.index(a) for a in axes]
+            if dims != sorted(dims):
+                raise ValueError(f"{entry!r} splits dim {i} in another order than the mesh's "
+                                 f"axes {names}")
+            for d in dims:
+                out[d] = Shard(i)
+        return tuple(out)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec!r}, {self.placements})"
+
+
+def named_shardings(mesh, pspecs: Tree) -> Tree:
+    """`NamedSharding(mesh, spec)` for every spec of the tree."""
+    if isinstance(pspecs, PartitionSpec):
+        return NamedSharding(mesh, pspecs)
+    if isinstance(pspecs, dict):
+        return {k: named_shardings(mesh, v) for k, v in pspecs.items()}
+    if isinstance(pspecs, (list, tuple)):
+        return type(pspecs)(named_shardings(mesh, v) for v in pspecs)
+    raise TypeError(f"not a spec tree: {pspecs!r}")
+
+
+def distribute(tree: Tree, shardings: Tree) -> Tree:
+    """Every tensor of `tree` laid out on its sharding's mesh as a DTensor
+    (`torch.distributed.tensor.distribute_tensor` with no source rank: each
+    rank keeps its shard of the tensor it passes, so every rank must pass
+    the same whole tensor, as ranks that draw from one seed do).  On a
+    1-rank mesh the tree comes back as it is."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(t, sh):
+        if sh.mesh.device_mesh is None:
+            return t
+        return distribute_tensor(t, sh.mesh.device_mesh, sh.placements, src_data_rank=None)
+
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(distribute(v, sh) for v, sh in zip(tree, shardings))
+    return one(tree, shardings)
 
 
 # --------------------------------------------------------------------------

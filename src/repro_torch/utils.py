@@ -9,6 +9,7 @@ per-leaf message sizes depend on that order, so every helper here keeps it.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable
 
 import numpy as np
@@ -142,3 +143,23 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
     return device
+
+
+# --------------------------------------------------------------------------
+# named scopes: the phases that the roofline's counting mode bills ops to
+# --------------------------------------------------------------------------
+
+SCOPES: list[str] = []
+
+
+@contextlib.contextmanager
+def named_scope(name: str):
+    """Tag the ops run inside the block with `name` (the port's
+    `jax.named_scope`): a plain Python name stack, read only by
+    `repro_torch.roofline`'s counting mode (`phase_bytes`).  It launches
+    nothing and changes no result."""
+    SCOPES.append(name)
+    try:
+        yield
+    finally:
+        SCOPES.pop()

@@ -8,8 +8,8 @@ run as a user runs them, in subprocesses on the CPU.
   smoke dbrx-132b); a run
   stopped after 3 rounds and resumed from its `--ckpt` prints the losses
   of the uninterrupted run, digit for digit; `--variant hfl` runs;
-* either launcher without `--execute` (the production-mesh lowering, not
-  ported) exits non-zero and says why;
+* either launcher without `--execute` (the production-mesh lowering)
+  refuses an arch or shape it cannot lower, non-zero and saying why;
 * `examples/torch_serve_decode.py --device cpu` prefills and decodes;
 * `serve --federation`: a run killed right after the checkpoint of
   activation 3 (the hidden `--kill-after-activation`) and resumed with
@@ -105,9 +105,13 @@ def test_train_execute_hfl_variant_on_the_cpu():
 
 
 def test_lowering_modes_exit_nonzero():
-    for module in ("repro_torch.launch.serve", "repro_torch.launch.train"):
-        r = run(module, "--arch", "qwen3-0.6b")
-        assert r.returncode != 0 and "not ported" in r.stderr and "sharding/" in r.stderr
+    """The lowering mode (no --execute) refuses what it cannot lower before
+    it builds anything: a full-attention arch at long_500k, an unknown
+    arch.  (Lowering itself: tests/test_torch_dryrun.py.)"""
+    r = run("repro_torch.launch.serve", "--arch", "qwen3-0.6b", "--shape", "long_500k")
+    assert r.returncode != 0 and "does not support long_500k" in r.stderr
+    r = run("repro_torch.launch.train", "--arch", "no-such-arch")
+    assert r.returncode != 0 and "unknown arch" in r.stderr
 
 
 def service(*extra):
