@@ -361,14 +361,33 @@ def fake_world(world: int):
     process is rank 0; no collective moves data), for lowering onto the
     production meshes with no cluster.  It refuses to start beside another
     default process group, and destroys its own on exit, so no later mesh
-    in the process reads a world of `world`."""
+    in the process reads a world of `world`.  Inside it DTensor re-splits a
+    sharded dim by one all-to-all, as on the card (`_shard_dim_alltoall`)."""
     if dist.is_initialized():
         raise RuntimeError("fake_world needs the process to have no default process group; "
                            f"one of {dist.get_world_size()} ranks is initialized")
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
+    from torch.distributed.tensor import placement_types
+
+    cpu_alltoall = placement_types.shard_dim_alltoall
     dist.init_process_group("fake", world_size=world, rank=0, store=FakeStore())
+    placement_types.shard_dim_alltoall = _shard_dim_alltoall
     try:
         yield
     finally:
+        placement_types.shard_dim_alltoall = cpu_alltoall
         dist.destroy_process_group()
+
+
+def _shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's re-split of a sharded dim, as the card's ranks run it: one
+    all-to-all (`_dtensor::shard_dim_alltoall`, which the fake group
+    serves), where on CPU ranks DTensor would gather the whole tensor and
+    keep a chunk (gloo has no all-to-all).  The dry run's meshes are CPU
+    meshes in a fake world, so this is its route."""
+    import torch.distributed._functional_collectives as funcol
+
+    group = funcol._resolve_group((mesh, mesh_dim))
+    return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim,
+                                                 funcol._group_or_group_name(group))

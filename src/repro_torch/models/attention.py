@@ -40,8 +40,8 @@ from torch.func import vjp
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import (ContiguousGrad, apply_rope, dense_init, rms_norm,
-                                      rope_angles)
+from repro_torch.models.common import (ContiguousGrad, SumGrad, apply_rope, dense_init,
+                                      layout_grad, rms_norm, rope_angles)
 
 NEG_INF = -1e30
 
@@ -208,8 +208,9 @@ def local_heads(attend, q, *kv, batch: tuple = (), n_out: int = 1, repeat_kv: bo
     On plain tensors it is the call itself.  On DTensors (a model mesh) it
     runs through `local_map`: the batch split as q's is, the heads split
     over "model" where they divide (where only the query heads do, the kv
-    heads are repeated to them first with `repeat_kv`, else nothing is
-    split over "model"), every other mesh dim whole.  Attention mixes no
+    heads are repeated to them first with `repeat_kv`; where the heads do
+    not divide, the batch is split over "model" too if it divides, else
+    nothing is split over "model"), every other mesh dim whole.  Attention mixes no
     heads, so each rank's share is the one-device computation on its
     heads; left to DTensor's sharding propagation, GQA's head grouping
     gathers q, k and v whole, and the flash op has no sharding rule."""
@@ -220,14 +221,21 @@ def local_heads(attend, q, *kv, batch: tuple = (), n_out: int = 1, repeat_kv: bo
 
     mesh = q.device_mesh
     H, Hkv = q.shape[2], kv[0].shape[2]
-    pl = []
+    pl, n_batch = [], 1
     for name, n, cur in zip(mesh.mesh_dim_names, mesh.shape, q.placements):
         if cur.is_shard(0):
             pl.append(Shard(0))
+            n_batch *= n
         elif name == "model" and H % n == 0 and (repeat_kv or Hkv % n == 0):
             pl.append(Shard(2))
             if Hkv % n:
                 kv = tuple(t.repeat_interleave(H // Hkv, dim=2) for t in kv)
+        elif name == "model" and q.shape[0] % (n_batch * n) == 0:
+            # heads that do not divide "model": the rank's share of the
+            # batch, all heads (an all-to-all in, one out), rather than every
+            # rank attending over every head
+            pl.append(Shard(0))
+            n_batch *= n
         else:
             pl.append(Replicate())
     pl = tuple(pl)
@@ -236,9 +244,16 @@ def local_heads(attend, q, *kv, batch: tuple = (), n_out: int = 1, repeat_kv: bo
     batch = tuple(b if hasattr(b, "device_mesh") else DTensor.from_local(
         b, mesh, [Replicate()] * len(pl), run_check=False) for b in batch)
 
+    # each rank uses a batch tensor on its own heads only: its gradient is
+    # summed over the mesh dims that split the heads
+    head_groups = [mesh.get_group(name) for name, p in zip(mesh.mesh_dim_names, pl)
+                   if p.is_shard(2)]
+
     def local(*args):
-        heads = args[:1 + len(kv)]
-        return attend(*(ContiguousGrad.apply(t) for t in heads), *args[1 + len(kv):])
+        heads, rest = args[:1 + len(kv)], args[1 + len(kv):]
+        for group in head_groups:
+            rest = tuple(SumGrad.apply(t, group) for t in rest)
+        return attend(*(ContiguousGrad.apply(t) for t in heads), *rest)
 
     out_pl = list(pl) if n_out == 1 else (pl,) * n_out
     return local_map(local, out_placements=out_pl,
@@ -256,7 +271,7 @@ def attention_forward(cfg: ArchConfig, p, x, *, window: int | None = None):
     else:
         out = local_heads(
             lambda q, k, v: blockwise_attention(q, k, v, causal=True, window=window), q, k, v)
-    return out.reshape(B, T, -1) @ p["wo"]
+    return layout_grad(out.reshape(B, T, -1)) @ p["wo"]
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int | None = None):
@@ -417,7 +432,7 @@ def mla_forward(cfg: ArchConfig, p, x):
     k = torch.cat([k_nope, k_rope.expand(B, T, h, m.qk_rope_head_dim)], dim=-1)
     out = local_heads(lambda q, k, v: blockwise_attention(q, k, v, causal=True),
                       torch.cat([q_nope, q_rope], dim=-1), k, v)
-    return out.reshape(B, T, -1) @ p["wo"]
+    return layout_grad(out.reshape(B, T, -1)) @ p["wo"]
 
 
 def mla_decode(cfg: ArchConfig, p, x, cache: dict):

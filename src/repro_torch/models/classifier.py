@@ -9,11 +9,14 @@ Parameters are nested dicts of tensors in the reference package's layout:
 dense weights (in, out), conv weights (H, W, I, O), images NHWC.  QSGD cuts
 its blocks from each leaf flattened row-major, so the layout is part of the
 wire format: the forward pass transposes only inside, and LeNet flattens
-its last feature map in NHWC order as the reference does.
+its last feature map in NHWC order as the reference does.  `init(seed)`
+draws the reference's `init(jax.random.PRNGKey(seed))` bit for bit (the
+port's threefry and `prng.normal`), on the host.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import grad_and_value
 
+from repro_torch.core import prng
 from repro_torch.utils import resolve_device
 
 
@@ -45,20 +49,33 @@ class Classifier:
         return torch.mean((pred == y.to(pred.device)).float())
 
 
-def _dense_init(gen, n_in, n_out):
-    scale = float(np.sqrt(2.0 / n_in))
-    return {"w": torch.randn((n_in, n_out), generator=gen) * scale,
-            "b": torch.zeros((n_out,))}
+@functools.lru_cache(maxsize=8)
+def _draw(layers: tuple, seed: int) -> dict:
+    """The host tree that the reference's `init(jax.random.PRNGKey(seed))`
+    draws for `layers`, ((name, weight shape), ...) in key order: layer i
+    takes `split(key, len(layers))[i]`, its weight the normal of that key's
+    first split times the He scale sqrt(2 / fan_in), its bias zeros.  A run
+    asks for its initial params more than once (sizes, then the run), and
+    arms of a comparison share a seed, so recent trees are kept."""
+    tree = {}
+    for (name, shape), key in zip(layers, prng.split(prng.PRNGKey(seed), len(layers))):
+        scale = np.float32(np.sqrt(2.0 / int(np.prod(shape[:-1]))))
+        tree[name] = {"w": prng.normal(prng.split(key)[0], shape) * scale,
+                      "b": np.zeros((shape[-1],), np.float32)}
+    return tree
 
 
-def _conv_init(gen, h, w, c_in, c_out):
-    scale = float(np.sqrt(2.0 / (h * w * c_in)))
-    return {"w": torch.randn((h, w, c_in, c_out), generator=gen) * scale,
-            "b": torch.zeros((c_out,))}
+def _host_init(layers: tuple) -> Callable[..., dict]:
+    def init(seed: int = 0, device=None):
+        """He-normal weights, zero biases: the reference's draw from
+        `jax.random.PRNGKey(seed)`, bit for bit, made on the host."""
+        return _to_device(_draw(layers, seed), resolve_device(device))
+
+    return init
 
 
 def _to_device(tree: dict, device) -> dict:
-    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
+    return {k: _to_device(v, device) if isinstance(v, dict) else torch.tensor(v, device=device)
             for k, v in tree.items()}
 
 
@@ -81,16 +98,7 @@ def make_mlp(dataset: str, image_shape: tuple[int, int, int], num_classes: int) 
     h1, h2 = _mlp_dims(dataset)
     d_in = int(np.prod(image_shape))
 
-    def init(seed: int = 0, device=None):
-        """He-normal weights, zero biases, drawn on the host from `seed`."""
-        device = resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
-        params = {
-            "fc1": _dense_init(gen, d_in, h1),
-            "fc2": _dense_init(gen, h1, h2),
-            "out": _dense_init(gen, h2, num_classes),
-        }
-        return _to_device(params, device)
+    init = _host_init((("fc1", (d_in, h1)), ("fc2", (h1, h2)), ("out", (h2, num_classes))))
 
     def apply(params, x):
         x = x.reshape(x.shape[0], -1)
@@ -114,18 +122,8 @@ def make_lenet(dataset: str, image_shape: tuple[int, int, int], num_classes: int
         c1, c2, f1, f2 = (max(8, int(v * width_scale)) for v in (c1, c2, f1, f2))
     flat = (h // 4) * (w // 4) * c2  # two 2x2 pools
 
-    def init(seed: int = 0, device=None):
-        """He-normal weights, zero biases, drawn on the host from `seed`."""
-        device = resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
-        params = {
-            "conv1": _conv_init(gen, 5, 5, c, c1),
-            "conv2": _conv_init(gen, 5, 5, c1, c2),
-            "fc1": _dense_init(gen, flat, f1),
-            "fc2": _dense_init(gen, f1, f2),
-            "out": _dense_init(gen, f2, num_classes),
-        }
-        return _to_device(params, device)
+    init = _host_init((("conv1", (5, 5, c, c1)), ("conv2", (5, 5, c1, c2)),
+                       ("fc1", (flat, f1)), ("fc2", (f1, f2)), ("out", (f2, num_classes))))
 
     def apply(params, x):
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW

@@ -66,6 +66,24 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     return out.wait() if hasattr(out, "wait") else out
 
 
+def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' `t` of `group` concatenated along dim 0 in rank order."""
+    import torch.distributed._functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    out = gather(t.contiguous(), 0, group)
+    return out.wait() if hasattr(out, "wait") else out
+
+
+def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` summed over the ranks of `group`, this rank's block of dim 0."""
+    import torch.distributed._functional_collectives as funcol
+
+    scatter = getattr(funcol, "reduce_scatter_single", None) or funcol.reduce_scatter_tensor
+    out = scatter(t.contiguous(), "sum", 0, group)
+    return out.wait() if hasattr(out, "wait") else out
+
+
 class Sum(torch.autograd.Function):
     """Sum over the ranks of `group`; the cotangent, which every rank holds
     whole, passes through."""
@@ -81,6 +99,42 @@ class Sum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         return ct, None
+
+
+class Gather(torch.autograd.Function):
+    """The ranks' `t` of `group` concatenated along dim 0 in rank order;
+    the cotangent, of which each rank holds a part, is summed over the
+    group and each rank gets back its own rows (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(t, group):
+        return all_gather(t, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return reduce_scatter(ct, ctx.group), None
+
+
+class SumScatter(torch.autograd.Function):
+    """`t` summed over the ranks of `group`, each rank keeping its own block
+    of rows (dim 0 in rank order; a reduce-scatter); the cotangent blocks
+    are gathered back (`Gather`'s transpose)."""
+
+    @staticmethod
+    def forward(t, group):
+        return reduce_scatter(t, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return all_gather(ct, ctx.group), None
 
 
 class SumGrad(torch.autograd.Function):
@@ -133,6 +187,35 @@ class ContiguousGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         return ct.contiguous()
+
+
+class LayoutGrad(torch.autograd.Function):
+    """Identity on a DTensor whose gradient comes back in the input's
+    layout.  A tensor-parallel block's input is whole over "model", and
+    the gradients that its column-parallel products send back to it are
+    partial sums: left so, every product of the backward that meets one
+    gathers its weight whole and repeats the whole product on each rank.
+    Megatron's f operator, which the reference's GSPMD layouts also
+    reach: one all-reduce of the block input's gradient."""
+
+    @staticmethod
+    def forward(t):
+        return t.view_as(t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.placements = inputs[0].device_mesh, tuple(inputs[0].placements)
+
+    @staticmethod
+    def backward(ctx, ct):
+        if tuple(ct.placements) != ctx.placements:
+            ct = ct.redistribute(ctx.mesh, ctx.placements)
+        return ct
+
+
+def layout_grad(t: torch.Tensor) -> torch.Tensor:
+    """`LayoutGrad` on a DTensor; a plain tensor passes through."""
+    return LayoutGrad.apply(t) if hasattr(t, "device_mesh") else t
 
 
 def activation(name: str):

@@ -68,6 +68,20 @@ def ffn_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def _constrain(t: torch.Tensor, *axes) -> torch.Tensor:
+    """`t` laid out as the spec `axes` says (a mesh axis name or None per
+    dim, the reference's `with_sharding_constraint(t, P(*axes))`): on a
+    DTensor, a redistribution over its mesh, an axis that the mesh does not
+    have left whole; a plain tensor (no mesh) passes through."""
+    if not hasattr(t, "device_mesh"):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Shard(axes.index(name)) if name in axes else Replicate()
+          for name in t.device_mesh.mesh_dim_names]
+    return t.redistribute(t.device_mesh, pl) if pl != list(t.placements) else t
+
+
 def _expert_weights(gen: torch.Generator, lead: tuple, E: int, n_in: int, n_out: int,
                     dtype) -> torch.Tensor:
     """(*lead, E, n_in, n_out) normal weights times 1/sqrt(n_in), drawn in f32
@@ -142,21 +156,29 @@ def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, *, method: str = "exp
     B, T, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     act = activation(cfg.act)
-    if method == "expert_choice" and cfg.moe_shardmap:
+    # groups are the batch rows when routing is group-limited (and every
+    # expert can fill its capacity within a row), else one global group
+    G = B if (cfg.moe_groups > 1 and T * k >= E) else 1
+    routed = None
+    if method == "expert_choice" and (cfg.moe_shardmap or G == 1):
         from repro_torch.models import moe_shardmap as msm
         from repro_torch.sharding.ctx import current_mesh
 
         mesh = current_mesh()
-        if mesh is not None and msm.shardmap_supported(cfg, mesh, B):
-            y, aux = msm.moe_routed_shardmap(cfg, p, x, mesh, capacity_factor=capacity_factor)
-            aux = aux * cfg.router_aux_coef
-            if cfg.num_shared_experts:
-                sp = p["shared"]
-                xf = x.reshape(B * T, d)
-                y = (y.reshape(B * T, d)
-                     + (act(xf @ sp["w_gate"]) * (xf @ sp["w_in"])) @ sp["w_out"]
-                     ).reshape(B, T, d)
-            return y, aux
+        if cfg.moe_shardmap and mesh is not None and msm.shardmap_supported(cfg, mesh, B):
+            routed = msm.moe_routed_shardmap(cfg, p, x, mesh, capacity_factor=capacity_factor)
+        elif G == 1 and msm.global_supported(cfg, x):
+            routed = msm.moe_routed_global(cfg, p, x, capacity_factor=capacity_factor)
+    if routed is not None:
+        y, aux = routed
+        aux = aux * cfg.router_aux_coef
+        if cfg.num_shared_experts:
+            sp = p["shared"]
+            xf = x.reshape(B * T, d)
+            y = (y.reshape(B * T, d)
+                 + (act(xf @ sp["w_gate"]) * (xf @ sp["w_in"])) @ sp["w_out"]
+                 ).reshape(B, T, d)
+        return y, aux
     N = B * T
     xf = x.reshape(N, d)
     probs = _router_probs(cfg, p, xf)  # (N, E) f32
@@ -169,9 +191,6 @@ def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, *, method: str = "exp
         y_e = _expert_mlp(act, xf, p, "n", "ne")  # (N, E, d)
         y = torch.einsum("ne,ned->nd", gates.to(x.dtype), y_e)
     elif method == "expert_choice":
-        # groups are the batch rows when routing is group-limited (and every
-        # expert can fill its capacity within a row), else one global group
-        G = B if (cfg.moe_groups > 1 and T * k >= E) else 1
         n = N // G
         cap = max(1, int(n * k * capacity_factor) // E)
         xg = xf.reshape(G, n, d)
@@ -180,8 +199,13 @@ def moe_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, *, method: str = "exp
         xe = torch.stack([torch.gather(xg, 1, idx[:, e, :, None].expand(G, cap, d))
                           for e in range(E)], dim=1)  # (G, E, C, d)
         ye = _expert_mlp(act, xe, p, "gec", "gec") * g[..., None].to(x.dtype)
-        y = torch.zeros((G, n, d), dtype=x.dtype, device=x.device)
-        mass = torch.zeros((G, n), dtype=torch.float32, device=x.device)
+        if G > 1:
+            # the expert outputs back on their tokens' home shards before the
+            # combine, as the reference pins them: no gather of the whole
+            # activation over "data", no all-reduce of a partial combine
+            ye, idx = _constrain(ye, "data", None, None, None), _constrain(idx, "data", None, None)
+        y = torch.zeros_like(xg)  # laid out as the tokens on a model mesh
+        mass = torch.zeros_like(xg[..., 0], dtype=torch.float32)
         for e in range(E):  # expert-major, as the reference's scatter-add
             y = y.scatter_add(1, idx[:, e, :, None].expand(G, cap, d), ye[:, e])
             mass = mass.scatter_add(1, idx[:, e], g[:, e])

@@ -140,11 +140,54 @@ def _causal_conv(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     return F.silu(out + b)
 
 
+def _split_cols(w: torch.Tensor) -> torch.Tensor:
+    """A weight that the reference's specs leave whole (the narrow B, C and
+    dt projections), split by columns over "model" on a model mesh where
+    they divide, so that no rank repeats its product; a plain tensor
+    passes through."""
+    if not hasattr(w, "device_mesh") or "model" not in w.device_mesh.mesh_dim_names:
+        return w
+    from torch.distributed.tensor import Shard
+
+    m = w.device_mesh.mesh_dim_names.index("model")
+    if not w.placements[m].is_replicate() or w.shape[-1] % w.device_mesh.size(m):
+        return w
+    pl = list(w.placements)
+    pl[m] = Shard(w.ndim - 1)
+    return w.redistribute(w.device_mesh, pl)
+
+
 def _streams(cfg: ArchConfig, p: dict, x: torch.Tensor):
     """x (..., d) -> (z, x stream, bc, dt)."""
     d_in = _dims(cfg)[0]
     z, xs = (x @ p["w_in"]).split([d_in, d_in], dim=-1)
-    return z, xs, x @ p["w_bc"], x @ p["w_dt"]
+    return z, xs, x @ _split_cols(p["w_bc"]), x @ _split_cols(p["w_dt"])
+
+
+def _keep_state_split(state, x, Bm, Cm):
+    """On a model mesh whose state cache is split on N over "model"
+    (`sharding.specs.cache_pspecs`), x whole and B, C split on N as the
+    state is, so that the step's update and read stay on each rank's N
+    columns (y a partial sum over "model", one all-reduce of (B, H, P)),
+    as the reference's program keeps them; left to DTensor, x's head split
+    would re-split the (B, H, P, N) state every step.  Plain tensors pass
+    through."""
+    dm = getattr(state, "device_mesh", None)
+    if dm is None or "model" not in dm.mesh_dim_names:
+        return x, Bm, Cm
+    from torch.distributed.tensor import Replicate, Shard
+
+    m = dm.mesh_dim_names.index("model")
+    if not state.placements[m].is_shard(state.ndim - 1):
+        return x, Bm, Cm
+
+    def on_model(t, placement):
+        pl = list(t.placements)
+        pl[m] = placement
+        return t.redistribute(dm, pl)
+
+    return (on_model(x, Replicate()), on_model(Bm, Shard(Bm.ndim - 1)),
+            on_model(Cm, Shard(Cm.ndim - 1)))
 
 
 def _decay(p: dict, dt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -202,8 +245,8 @@ def ssd_block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: dict
     Bm, Cm = bc_t.split([N, N], dim=-1)
     xs_t = xs_t.reshape(B, H, cfg.ssm_head_dim)
     dt, log_a = _decay(p, dt)
-    y, state = ssd_decode_step(xs_t * dt[..., None].to(xs_t.dtype), log_a, Bm, Cm,
-                               cache["state"])
+    x_in, Bm, Cm = _keep_state_split(cache["state"], xs_t * dt[..., None].to(xs_t.dtype), Bm, Cm)
+    y, state = ssd_decode_step(x_in, log_a, Bm, Cm, cache["state"])
     y = (y + p["D"][:, None] * xs_t).reshape(B, 1, d_in)
     y = rms_norm(y * F.silu(z)[:, None, :], p["norm"], cfg.norm_eps)
     return y @ p["w_out"], {"conv": hist[:, 1:], "conv_bc": hist_bc[:, 1:], "state": state}

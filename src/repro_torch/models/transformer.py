@@ -50,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -61,7 +62,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru, ssd
-from repro_torch.models.common import cross_entropy_loss, dense_init, rms_norm
+from repro_torch.models.common import cross_entropy_loss, dense_init, layout_grad, rms_norm
 from repro_torch.models.ffn import ffn_forward, init_ffn, init_moe, moe_forward
 from repro_torch.utils import (resolve_device, tree_flatten, tree_leaves, tree_map,
                                tree_unflatten)
@@ -142,6 +143,14 @@ def _like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """rms_norm at the entrance of a sub-layer (or the head) of a training
+    forward: on a model mesh its gradient comes back whole over "model"
+    (`common.layout_grad`), so no product of the backward repeats on
+    every rank."""
+    return layout_grad(rms_norm(x, w, eps))
+
+
 def _stream(x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """On a model mesh, the embedded stream split as the tokens' batch is
     and whole along every other mesh axis."""
@@ -157,7 +166,7 @@ def _ffn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, moe_method: str):
     """x + FFN(norm(x)), and the block's aux loss (f32 zero without MoE);
     x itself for a block without an FFN."""
     if _has_ffn(kind):
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = _norm(x, p["ln2"], cfg.norm_eps)
         if cfg.is_moe:
             y, aux = moe_forward(cfg, p["ffn"], h, method=moe_method)
             return x + _like(y, x), aux
@@ -170,7 +179,7 @@ def block_forward(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
                   moe_method: str = "expert_choice") -> tuple[torch.Tensor, torch.Tensor]:
     """x (B,T,d) -> (x', aux). Causal training / prefill path; an
     encoder-decoder's attention blocks then attend to `enc_out` (B,F,d)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssd":
         x = x + _like(ssd.ssd_block_forward(cfg, p["mixer"], h), x)
     elif kind == "rglru":
@@ -183,7 +192,7 @@ def block_forward(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
             y = attn.attention_forward(cfg, p["attn"], h, window=window)
         x = x + _like(y, x)
         if cfg.is_encoder_decoder and enc_out is not None:
-            hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+            hx = _norm(x, p["ln_x"], cfg.norm_eps)
             x = x + _like(_cross_attention(cfg, p["xattn"], hx, enc_out), x)
     return _ffn(cfg, kind, p, x, moe_method)
 
@@ -200,7 +209,7 @@ def _cross_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, enc_out: torch.T
     v = attn.split_heads(enc_out @ p["wv"], B, F_enc, hkv, hd)
     out = attn.local_heads(lambda q, k, v: attn.blockwise_attention(q, k, v, causal=False),
                            q, k, v)
-    return out.reshape(B, T, -1) @ p["wo"]
+    return layout_grad(out.reshape(B, T, -1)) @ p["wo"]
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, capacity: int, dtype,
@@ -333,10 +342,10 @@ def _encoder_forward(cfg: ArchConfig, p: dict, frames: torch.Tensor) -> torch.Te
     for layer in zip(*(leaf.unbind(0) for leaf in leaves)):
         bp = tree_unflatten(treedef, list(layer))
         y = attn.local_heads(lambda q, k, v: attn.blockwise_attention(q, k, v, causal=False),
-                             *_enc_qkv(enc_cfg, bp["attn"], rms_norm(x, bp["ln1"], cfg.norm_eps)))
-        x = x + _like(y.reshape(x.shape[0], F_enc, -1) @ bp["attn"]["wo"], x)
-        x = x + _like(ffn_forward(enc_cfg, bp["ffn"], rms_norm(x, bp["ln2"], cfg.norm_eps)), x)
-    return rms_norm(x, p["norm"], cfg.norm_eps)
+                             *_enc_qkv(enc_cfg, bp["attn"], _norm(x, bp["ln1"], cfg.norm_eps)))
+        x = x + _like(layout_grad(y.reshape(x.shape[0], F_enc, -1)) @ bp["attn"]["wo"], x)
+        x = x + _like(ffn_forward(enc_cfg, bp["ffn"], _norm(x, bp["ln2"], cfg.norm_eps)), x)
+    return _norm(x, p["norm"], cfg.norm_eps)
 
 
 def _enc_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor):
@@ -433,11 +442,16 @@ class RematBlock(torch.autograd.Function):
         cfg, moe_method, treedefs, cross, dots, h, *tensors = inputs
         ctx.cfg, ctx.moe_method, ctx.treedefs, ctx.cross = cfg, moe_method, treedefs, cross
         ctx.dots = dots
+        ctx.h_layout = None
+        if hasattr(h, "device_mesh") and "model" in h.device_mesh.mesh_dim_names:
+            h, ctx.h_layout = _split_saved(h)
         ctx.save_for_backward(h, *tensors)
 
     @staticmethod
     def backward(ctx, ct_h, ct_aux):
         saved = ctx.saved_tensors
+        if ctx.h_layout is not None:
+            saved = (saved[0].redistribute(saved[0].device_mesh, ctx.h_layout), *saved[1:])
 
         def block(*xs):
             return super_block(ctx.cfg, ctx.moe_method, ctx.treedefs, ctx.cross, *xs)
@@ -457,6 +471,25 @@ class RematBlock(torch.autograd.Function):
                 _, pullback = vjp(block, *saved)
                 grads = pullback((ct_h, ct_aux))
         return (None, None, None, None, None, *grads)
+
+
+def _split_saved(h):
+    """A remat block's saved input on a model mesh, kept split over "model"
+    on its last axis (a copy of this rank's slice, so the whole stream is
+    freed) where it is whole there and the axis divides; the backward
+    gathers it back.  Returns (what to save, the layout to restore, or None
+    to save `h` as it is)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = h.device_mesh
+    m = mesh.mesh_dim_names.index("model")
+    if not h.placements[m].is_replicate() or h.shape[-1] % mesh.size(m) or mesh.size(m) == 1:
+        return h, None
+    pl = list(h.placements)
+    pl[m] = Shard(h.ndim - 1)
+    part = h.detach().redistribute(mesh, pl)
+    return (DTensor.from_local(part.to_local().clone(), mesh, pl, run_check=False,
+                               shape=part.shape, stride=part.stride()), tuple(h.placements))
 
 
 def _stacked_layers(cfg: ArchConfig, params: dict) -> tuple[tuple, list[list]]:
@@ -504,7 +537,7 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, remat: bool = False,
         x, a = block_forward(cfg, cfg.block_kind(n_super * plen + i), params["tail"][i], x,
                              enc_out=enc_out, moe_method=moe_method)
         aux = aux + a
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _norm(x, params["final_norm"], cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
     if last_only:
@@ -533,8 +566,8 @@ def _mtp_loss(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     against the labels shifted left by one with the last label repeated."""
     tokens, labels = batch["tokens"], batch["labels"]
     m = params["mtp"]
-    x = rms_norm(F.embedding(tokens.long(), params["embed"]), m["norm"], cfg.norm_eps)
-    nxt = rms_norm(F.embedding(labels.long(), params["embed"]), m["norm"], cfg.norm_eps)
+    x = _norm(F.embedding(tokens.long(), params["embed"]), m["norm"], cfg.norm_eps)
+    nxt = _norm(F.embedding(labels.long(), params["embed"]), m["norm"], cfg.norm_eps)
     h, _ = block_forward(cfg, "attn", m["block"], torch.cat([x, nxt], dim=-1) @ m["proj"])
     l2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
     return _head_loss(cfg, params, h, l2)
@@ -552,7 +585,8 @@ def _head_loss(cfg: ArchConfig, params: dict, h: torch.Tensor, labels: torch.Ten
 def _vocab_parallel_loss(h, head, labels) -> torch.Tensor:
     """Megatron's vocab-parallel cross entropy through `local_map`: each rank
     computes its tokens' logits over its vocab slice (the head split on
-    "model" where the vocab divides), the max, the sum of exponentials and
+    "model" where the vocab divides; else the tokens are split over "model"
+    too, where the batch divides), the max, the sum of exponentials and
     the label's logit are reduced over "model", and the token sum over the
     batch axes: no (B, T, V) tensor leaves its rank.  Left to DTensor's
     sharding propagation, the logits' backward comes back in strided
@@ -567,6 +601,11 @@ def _vocab_parallel_loss(h, head, labels) -> torch.Tensor:
     batch_dims = [i for i, p in enumerate(labels.placements) if p.is_shard(0)]
     m_dim = names.index("model") if "model" in names else None
     split = m_dim is not None and head.shape[1] % sizes[m_dim] == 0 and sizes[m_dim] > 1
+    if (m_dim is not None and not split and sizes[m_dim] > 1
+            and labels.shape[0] % math.prod(sizes[i] for i in batch_dims + [m_dim]) == 0):
+        # a vocab that "model" does not divide: each model rank scores a
+        # share of the tokens over the whole vocab, not all of them
+        batch_dims.append(m_dim)
     rep = [Replicate()] * len(names)
     h_pl = [Shard(0) if i in batch_dims else Replicate() for i in range(len(names))]
     head_pl = [Shard(1) if split and i == m_dim else Replicate() for i in range(len(names))]

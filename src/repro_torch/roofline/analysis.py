@@ -86,7 +86,7 @@ _COLLECTIVE_OPS = {
     "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
     "all_to_all_single": "all-to-all", "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
-    "broadcast_": "all-gather",
+    "broadcast_": "all-gather", "shard_dim_alltoall": "all-to-all",
 }
 
 
@@ -175,7 +175,7 @@ class Trace:
             return
         ins = _tensors(args) + _tensors(kwargs)
         coll = _COLLECTIVE_OPS.get(name) if func.namespace in (
-            "_c10d_functional", "_c10d_functional_autograd", "c10d") else None
+            "_c10d_functional", "_c10d_functional_autograd", "c10d", "_dtensor") else None
         scope = "/".join(utils.SCOPES)
         if coll is not None:
             if _OVERRIDE:

@@ -15,6 +15,12 @@ process holds against the port's one-device runs and the reference:
   the batch split over (pod, data);
 * decode with one kv head on (2, 2): the caches split their sequence
   axis over "model" (flash-decode style), 4 steps against one device;
+* two heads on (data 1, model 4), which they do not divide: attention
+  splits the batch over "model" (a train round, prefill, decode);
+* `moe_forward` of smoke dbrx-132b on (2, 2) against the port's
+  one-device `moe_forward`, output, aux and gradients: global expert
+  choice (G = 1, `moe_shardmap.moe_routed_global`) and batch-row groups
+  (G = B, the reference's `_constrain` pins);
 * `moe_routed_shardmap` of smoke dbrx-132b on (2, 2) against the
   reference's grouped oracle (`moe_forward` with `moe_groups=2`) at its
   atol 1e-5, its gradients against the port's one-device oracle's
@@ -114,6 +120,16 @@ def mqa_cfg():
     return dataclasses.replace(qwen_cfg(), num_kv_heads=1)
 
 
+def uneven_cfg():
+    """Two heads over four "model" ranks: attention takes a share of the batch."""
+    return dataclasses.replace(qwen_cfg(), num_heads=2, num_kv_heads=2)
+
+
+def ssd_cfg():
+    """Mamba-2 SSD blocks: on (2, 2) the state cache splits its N axis."""
+    return smoke_config("mamba2-370m")
+
+
 def seq_split_decode(params, mesh=None):
     """DECODE + 2 decode steps against sequence-split caches on `mesh`."""
     cfg, toks = mqa_cfg(), torch.from_numpy(lm_inputs())
@@ -144,13 +160,26 @@ def moe_loss(y, aux):
     return (y * y).mean() + aux
 
 
-def moe_case(mesh):
+# the capacity factor of a `moe_forward` case where it is not 1: 7 slots an
+# expert, which do not divide over the 2 data shards
+MOE_CAPACITY = {"moe_global22_c7": 0.875}
+
+
+def moe_case(mesh, routed=True, groups=1, capacity_factor=1.0):
+    """`moe_routed_shardmap` (group-limited), or with `routed=False`
+    `ffn.moe_forward` on DTensors: global expert choice, or with `groups`
+    > 1 the batch-row groups with the reference's `_constrain` pins."""
     cfg, p, x = moe_setup()
+    cfg = dataclasses.replace(cfg, moe_groups=groups)
     specs = {"router": P(), "w_gate": P("model"), "w_in": P("model"), "w_out": P("model")}
     dp = distribute({k: torch.from_numpy(v) for k, v in p.items()}, named_shardings(mesh, specs))
     dx = distribute(torch.from_numpy(x), named_shardings(mesh, P("data")))
     dp = tree_map(lambda t: t.detach().requires_grad_(), dp)
-    y, aux = moe_routed_shardmap(cfg, dp, dx, mesh)
+    if routed:
+        y, aux = moe_routed_shardmap(cfg, dp, dx, mesh)
+    else:
+        y, aux = F.moe_forward(cfg, dp, dx, capacity_factor=capacity_factor)
+        aux = aux / cfg.router_aux_coef
     grads = torch.autograd.grad(moe_loss(y, aux), [dp["router"], dp["w_out"], dp["w_gate"]])
     return _full(y), float(_full(aux)), [_full(g) for g in grads]
 
@@ -161,9 +190,16 @@ def rank_cases(rank):
     chain2 = tf.init_params(cfg, 1, "cpu")
     mesh22 = make_debug_mesh(2, 2, device="cpu")
     res = {"lm22": lm_steps(cfg, params, None, mesh22), "moe22": moe_case(mesh22),
+           "moe_global22": moe_case(mesh22, routed=False),
+           "moe_rows22": moe_case(mesh22, routed=False, groups=2),
+           "moe_global22_c7": moe_case(mesh22, routed=False,
+                                       capacity_factor=MOE_CAPACITY["moe_global22_c7"]),
            "seq_split": {"decode": seq_split_decode(tf.init_params(mqa_cfg(), 0, "cpu"),
                                                     mesh22)}}
     res["lm_pod"] = lm_steps(cfg, params, chain2, make_debug_mesh(1, 2, pod=2, device="cpu"))
+    res["ssd22"] = lm_steps(ssd_cfg(), tf.init_params(ssd_cfg(), 0, "cpu"), None, mesh22)
+    res["lm_uneven"] = lm_steps(uneven_cfg(), tf.init_params(uneven_cfg(), 0, "cpu"), None,
+                                make_debug_mesh(1, 4, device="cpu"))
     return res
 
 
@@ -181,8 +217,16 @@ def single():
     ulp2 = tree_map(lambda t: torch.nextafter(t, torch.full_like(t, np.inf)), chain2)
     mqa = tf.init_params(mqa_cfg(), 0, "cpu")
     mqa_ulp = tree_map(lambda t: torch.nextafter(t, torch.full_like(t, np.inf)), mqa)
-    return ({**lm_steps(cfg, params, chain2), "seq_split": seq_split_decode(mqa)},
-            {**lm_steps(cfg, ulp, ulp2), "seq_split": seq_split_decode(mqa_ulp)})
+    uneven = tf.init_params(uneven_cfg(), 0, "cpu")
+    uneven_ulp = tree_map(lambda t: torch.nextafter(t, torch.full_like(t, np.inf)), uneven)
+    ssd = tf.init_params(ssd_cfg(), 0, "cpu")
+    ssd_ulp = tree_map(lambda t: torch.nextafter(t, torch.full_like(t, np.inf)), ssd)
+    return ({**lm_steps(cfg, params, chain2), "seq_split": seq_split_decode(mqa),
+             "lm_uneven": lm_steps(uneven_cfg(), uneven, None),
+             "ssd22": lm_steps(ssd_cfg(), ssd, None)},
+            {**lm_steps(cfg, ulp, ulp2), "seq_split": seq_split_decode(mqa_ulp),
+             "lm_uneven": lm_steps(uneven_cfg(), uneven_ulp, None),
+             "ssd22": lm_steps(ssd_cfg(), ssd_ulp, None)})
 
 
 def _rel(a, b) -> float:
@@ -193,7 +237,7 @@ def _rel(a, b) -> float:
 
 def test_ranks_hold_the_same_whole_results(ranks):
     for r in ranks[1:]:
-        for case in ("lm22", "lm_pod", "seq_split"):
+        for case in ("lm22", "lm_pod", "seq_split", "lm_uneven", "ssd22"):
             for k, v in r[case].items():
                 assert _rel(v, ranks[0][case][k]) == 0.0, (case, k)
 
@@ -201,9 +245,14 @@ def test_ranks_hold_the_same_whole_results(ranks):
 @pytest.mark.parametrize("case,step", [("lm22", "train"), ("lm22", "prefill"),
                                        ("lm22", "decode"), ("lm_pod", "fedchs"),
                                        ("lm_pod", "hfl"), ("lm_pod", "prefill"),
-                                       ("lm_pod", "decode"), ("seq_split", "decode")])
+                                       ("lm_pod", "decode"), ("seq_split", "decode"),
+                                       ("lm_uneven", "train"), ("lm_uneven", "prefill"),
+                                       ("lm_uneven", "decode"), ("ssd22", "train"),
+                                       ("ssd22", "prefill"), ("ssd22", "decode")])
 def test_model_mesh_step_against_one_device(ranks, single, case, step):
     ref, ulp = single
+    if case in ("lm_uneven", "ssd22"):
+        ref, ulp = ref[case], ulp[case]
     key = "seq_split" if case == "seq_split" else step
     got = ranks[0][case][step]
     gap, control = _rel(got, ref[key]), _rel(ulp[key], ref[key])
@@ -247,6 +296,32 @@ def test_moe_shardmap_gradients_match_the_one_device_oracle(ranks):
     for got, want in zip(ranks[0]["moe22"][2], grads):
         assert np.abs(want.numpy()).max() > 0  # w_out and the router get a gradient
         # summed over ranks in another order: 1e-5 of the leaf's largest entry
+        np.testing.assert_allclose(got, want.numpy(), rtol=1e-4,
+                                   atol=1e-5 * np.abs(want.numpy()).max())
+
+
+@pytest.mark.parametrize("case,groups", [("moe_global22", 1), ("moe_rows22", 2),
+                                         ("moe_global22_c7", 1)])
+def test_moe_forward_on_2x2_matches_one_device(ranks, case, groups):
+    """`moe_forward` on a (2, 2) mesh against one device.  One group: each
+    rank gathers its experts' scores and the tokens over "data", so the
+    routing is the one-device routing, runs its data shard's block of each
+    expert's slots (blocks of 4 and 3 where an expert has 7), and the
+    combine is summed back onto the tokens' shards.  Batch-row
+    groups: the expert outputs pinned to their rows' data shards before the
+    combine (`ffn._constrain`).  Sums run in another order."""
+    cfg, p, x = moe_setup()
+    cfg = dataclasses.replace(cfg, moe_groups=groups)
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    y, aux = F.moe_forward(cfg, tp, torch.from_numpy(x),
+                           capacity_factor=MOE_CAPACITY.get(case, 1.0))
+    aux = aux / cfg.router_aux_coef
+    grads = torch.autograd.grad(moe_loss(y, aux), [tp["router"], tp["w_out"], tp["w_gate"]])
+    got_y, got_aux, got_grads = ranks[0][case]
+    np.testing.assert_allclose(got_y, y.detach().numpy(), atol=1e-5)
+    assert got_aux == pytest.approx(float(aux.detach()), rel=1e-5)
+    for got, want in zip(got_grads, grads):
+        assert np.abs(want.numpy()).max() > 0
         np.testing.assert_allclose(got, want.numpy(), rtol=1e-4,
                                    atol=1e-5 * np.abs(want.numpy()).max())
 
