@@ -2501,6 +2501,9 @@ PREFILL_BATCH, PREFILL_SEQ = 4, 512
 SERVE = dict(requests=8, slots=4, prompt_len=64, max_new=32)
 PARITY_BATCH, PARITY_SEQ = 2, 64
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_LR = 3, 512, 0.3
+# a remat SGD step's peak over its weights' bytes (3m-a, 3m-e): params and
+# gradients are 2x, the saved block inputs and one block's recompute little
+STEP_PEAK_BOUND = 2.5
 FLASH_DBRX = (PREFILL_BATCH, PREFILL_SEQ, PREFILL_SEQ, 48, 8, 128)  # prefill's attention
 # teacher-forced decode against forward in bf16, relative L2 of the logits.
 # The two paths round activations to bf16 at other places (the flash
@@ -2710,40 +2713,53 @@ def moe_serving_path(torch, build):
                  (PARITY_BATCH, PARITY_SEQ), ("off_by_one",), DECODE_BOUND)
 
 
-def train_step_path(torch, build, label, cfg, seq, lr):
+def train_step_path(torch, build, label, cfg, seq, lr, peak_bound=None):
     """`make_train_step(remat=True)`, batch 1 x `seq`, TRAIN_STEPS SGD steps
     on one batch: the loss finite and falling, the aux loss finite, the
     flash kernel twice per GQA layer per step (forward and the remat
-    recompute), s/step and peak."""
+    recompute), s/step, and each step's peak beside the weights' bytes;
+    with `peak_bound` every step's peak at most that many times the
+    weights' bytes (the params and their gradients, one block's input per
+    layer and one block's recompute: `utils.grad_and_value`)."""
     from repro_torch.models import transformer as tf
+    from repro_torch.utils import tree_num_bytes
 
     params = tf.init_params(cfg, 1, "cuda")
+    weights_gb = tree_num_bytes(params) / 1e9
     b = moe_batch(torch, cfg, 1, seq, 2)
     step = tf.make_train_step(cfg, remat=True)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, steps_ms = [], []
+    losses, steps_ms, peaks_gb = [], [], []
     for _ in range(TRAIN_STEPS):
         build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         (params, loss), ms = timed(torch, lambda: step(params, b, lr))
+        peaks_gb.append(torch.cuda.max_memory_allocated() / 1e9)
         launches = dict(build.LAUNCHES)
         PATH_LAUNCHES[f"{label} SGD step"] = launches
         want = dict.fromkeys(launches, 0) | {"flash_attention": 2 * flash_layers(cfg)}
         check(launches == want, f"{label} step launches {launches}, expected {want}")
         losses.append(float(loss))
         steps_ms.append(ms)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = max(peaks_gb)
     with torch.no_grad():
         _, aux = tf.forward(cfg, params, b)
     print(f"phase {label}: {cfg.name} at full width, {cfg.num_layers} layers "
           f"({cfg.param_count() / 1e9:.2f}B params), make_train_step(remat=True), batch 1 x "
           f"{seq}, flash {'on' if cfg.use_flash else 'off'}, lr {lr}: losses {losses}, aux "
           f"loss after {float(aux):.5f}; s/step {[round(ms / 1e3, 3) for ms in steps_ms]}; "
-          f"flash {2 * flash_layers(cfg)} launches a step; peak {peak_gb:.2f} GB of "
-          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
+          f"flash {2 * flash_layers(cfg)} launches a step; peak a step "
+          f"{[round(g, 2) for g in peaks_gb]} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB, "
+          f"{peak_gb / weights_gb:.2f}x the weights' {weights_gb:.2f} GB"
+          + (f" (bound {peak_bound}x)" if peak_bound else ""))
     check(all(math.isfinite(x) for x in losses) and math.isfinite(float(aux)),
           f"{label}: non-finite loss")
     check(losses[-1] < losses[0], f"{label}: the loss did not fall")
+    if peak_bound:
+        check(peak_gb <= peak_bound * weights_gb,
+              f"{label}: a step peaks at {peak_gb:.2f} GB, over {peak_bound}x the weights' "
+              f"{weights_gb:.2f} GB")
     return {"step_s": steps_ms[-1] / 1e3, "peak_gb": peak_gb}
 
 
@@ -3040,7 +3056,7 @@ def rglru_serving_path(torch, build):
                           ("forget",), RG_DECODE_BOUND)
     del params
     torch.cuda.empty_cache()
-    train_step_path(torch, build, "3m-a", cfg, RG_TRAIN_SEQ, TRAIN_LR)
+    train_step_path(torch, build, "3m-a", cfg, RG_TRAIN_SEQ, TRAIN_LR, STEP_PEAK_BOUND)
 
 
 def rglru_window_path(torch, build):
@@ -3226,7 +3242,7 @@ def vlm_path(torch, build):
     subtree_grads(torch, "3m-e", cfg, params, "projector")
     del params
     torch.cuda.empty_cache()
-    train_step_path(torch, build, "3m-e", cfg, VLM_TRAIN_SEQ, TRAIN_LR)
+    train_step_path(torch, build, "3m-e", cfg, VLM_TRAIN_SEQ, TRAIN_LR, STEP_PEAK_BOUND)
     launcher_path(torch, "3m-e", VLM_ARCH)
     smoke_vs_cpu(torch, "3m-e", VLM_ARCH, "patches")
 

@@ -27,6 +27,7 @@ from repro_torch.core.oracles import local_opt_steps
 from repro_torch.utils import named_scope, tree_add, tree_leaves, tree_map
 
 Tree = Any
+PyTree = Tree  # the reference's name
 
 
 @functools.cache

@@ -67,6 +67,7 @@ from repro_torch.part import AlwaysOn, AvailabilityTrace
 from repro_torch.utils import tree_leaves, tree_map
 
 Tree = Any
+PyTree = Tree  # the reference's name
 
 
 @dataclasses.dataclass

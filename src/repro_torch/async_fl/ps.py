@@ -51,6 +51,7 @@ from repro_torch.part import AlwaysOn, AvailabilityTrace
 from repro_torch.utils import tree_map
 
 Tree = Any
+PyTree = Tree  # the reference's name
 
 
 @dataclasses.dataclass

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 Tree = Any
+PyTree = Tree  # the reference's name
 _META_KEY = "__pytree_meta__"
 
 # float leaves numpy cannot hold (or holds only through the reference's

@@ -48,6 +48,7 @@ from repro_torch.kernels.qsgd import MAX_BLOCK, MAX_LEVELS
 from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 
 Tree = Any
+PyTree = Tree  # the reference's name
 
 
 def _lead(keys: np.ndarray | None, lead: tuple | None) -> tuple:

@@ -88,6 +88,7 @@ from repro_torch.core.ledger import CommLedger
 from repro_torch.core.oracles import grad_phase, local_opt_steps
 from repro_torch.core.precision import Precision, cast_floats, compute_cast, master_cast
 from repro_torch.core.prng import message_leaf_keys, split_each
+from repro_torch.core.prng import split_chain  # noqa: F401  (the reference engine's name)
 from repro_torch.kernels.build import LAUNCHES
 from repro_torch.kernels.ops import key_words
 from repro_torch.models.fed import as_fed_model
@@ -98,7 +99,15 @@ from repro_torch.utils import (named_scope, tree_add, tree_flatten, tree_leaves,
                                tree_unflatten)
 
 Tree = Any
+PyTree = Tree  # the reference's name
+Batch = Any  # a tree of tensors sharing leading axes
 _log = logging.getLogger(__name__)
+
+
+def dummy_subs(*lead: int) -> np.ndarray:
+    """Placeholder key words (*lead, 2) for channels that take none (never
+    consumed): zeros of `async_fl.compute.no_subs`'s dtype."""
+    return np.zeros(tuple(lead) + (2,), np.uint32)
 
 
 def uplink_keys(subs: np.ndarray, width: int, n_leaves: int) -> np.ndarray:

@@ -21,13 +21,14 @@ import functools
 from typing import Any
 
 import torch
-from torch.func import grad_and_value, vmap
+from torch.func import vmap
 
 from repro_torch.models.fed import as_fed_model
 from repro_torch.optim.local import PlainSGD
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import grad_and_value, tree_leaves, tree_map
 
 Tree = Any
+PyTree = Tree  # the reference's name
 
 
 def _steps(lrs) -> list:

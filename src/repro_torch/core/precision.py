@@ -32,6 +32,7 @@ from repro_torch.comm.channels import Channel, DenseChannel, make_channel
 from repro_torch.utils import tree_map
 
 Tree = Any
+PyTree = Tree  # the reference's name
 
 # the dtype names a policy accepts; each has a wire width in
 # `comm.bits.dtype_bits` (tests/test_torch_precision.py holds the two in sync)

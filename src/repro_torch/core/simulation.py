@@ -25,6 +25,7 @@ from repro_torch.obs.trace import maybe_span
 from repro_torch.utils import resolve_device, tree_leaves, tree_num_params
 
 Tree = Any
+PyTree = Tree  # the reference's name
 Batch = Any
 
 

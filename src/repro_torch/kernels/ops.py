@@ -50,6 +50,7 @@ from repro_torch.kernels.ref import (
 from repro_torch.utils import named_scope, tree_flatten, tree_unflatten
 
 Tree = Any
+PyTree = Tree  # the reference's name
 DEFAULT_BLOCK = 1024
 ROWS_PER_TILE = 8  # the reference pads the dense-code API to tiles of 8 blocks
 

@@ -183,6 +183,11 @@ def qsgd_unpack_dequantize(payload: torch.Tensor, norms: torch.Tensor, s: int,
 # ---------------------------------------------------------------------------
 
 
+# the reference's names of the fused kernels (`repro/kernels/qsgd.py`)
+qsgd_quantize_pack_blocks = qsgd_quantize_pack
+qsgd_unpack_dequantize_blocks = qsgd_unpack_dequantize
+
+
 def qsgd_quantize_blocks_plain(v: torch.Tensor, key: torch.Tensor, s: int):
     """The kernel's function in plain torch: the `_cheap_uniform` dither of
     the key over the flat index of the whole (nb, block) array, then the

@@ -152,3 +152,9 @@ def signsgd_dequantize_codes_ref(codes: torch.Tensor, scales: torch.Tensor) -> t
     """Decode ±scale; all-zero blocks (scale 0) decode to exact zeros."""
     sign = codes.to(torch.float32) * 2.0 - 1.0
     return sign * scales[..., None]
+
+
+def weighted_aggregate_ref(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Eq. (5) inner aggregation oracle: grads (n_clients, d), weights
+    (n_clients,) -> (d,) gamma-weighted sum."""
+    return torch.einsum("n,nd->d", weights, grads)

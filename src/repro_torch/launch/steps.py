@@ -35,14 +35,17 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
-from torch.func import grad_and_value, vmap
+from torch.func import vmap
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tf
 from repro_torch.sharding.ctx import current_mesh, model_mesh
 from repro_torch.sharding.specs import (PartitionSpec as P, batch_pspec, cache_pspecs,
                                         distribute, named_shardings, param_pspecs)
-from repro_torch.utils import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils import (grad_and_value, tree_flatten, tree_leaves, tree_map,
+                               tree_unflatten)
+
+PyTree = Any  # the reference's name for a tree of tensors
 
 SHAPES = {
     "train_4k": dict(seq_len=4096, global_batch=256, mode="train"),

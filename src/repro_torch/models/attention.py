@@ -336,25 +336,14 @@ def _decode_seq_split(q, k, v, cache: dict, window: int | None):
     softmax's max, sum and weighted values are reduced over that dim, so no
     rank gathers the cache.  The same softmax as `decode_attention`, its
     sums in another order."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    from repro_torch.models.common import all_reduce
-
-    mesh, dim = cache["k"].device_mesh, _seq_split(cache["k"])
-    group, r = mesh.get_group(dim), mesh.get_local_rank(dim)
+    mesh, group, r, batch_pl, cache_pl = _split_layout(cache["k"], cache["len"])
     S = cache["k"].shape[1]
-    batch_pl = tuple(p if p.is_shard(0) else Replicate() for p in cache["len"].placements)
-    cache_pl = tuple(Shard(1) if i == dim else p for i, p in enumerate(batch_pl))
 
     def local(q, k, v, k_cache, v_cache, lens):
         B, S_loc = k_cache.shape[:2]
         slot = (lens % S if window is not None else torch.clamp(lens, max=S - 1)).long()
-        mine = (slot // S_loc) == r
-        at = (torch.arange(B, device=q.device), (slot - r * S_loc).clamp(0, S_loc - 1))
-        keep = mine[:, None, None]
-        k_cache = k_cache.index_put(at, torch.where(keep, k[:, 0], k_cache[at]))
-        v_cache = v_cache.index_put(at, torch.where(keep, v[:, 0], v_cache[at]))
+        k_cache = _write_owned(k_cache, slot, r, k[:, 0])
+        v_cache = _write_owned(v_cache, slot, r, v[:, 0])
         eff_len = torch.clamp(lens + 1, max=S) if window is not None else lens + 1
         H, hd = q.shape[2], q.shape[3]
         Hkv = k_cache.shape[2]
@@ -363,20 +352,61 @@ def _decode_seq_split(q, k, v, cache: dict, window: int | None):
         pos = r * S_loc + torch.arange(S_loc, device=q.device)
         valid = pos[None, :] < eff_len[:, None]
         sc = torch.where(valid[:, None, None, None, :], sc, torch.full_like(sc, NEG_INF))
-        m = all_reduce(sc.amax(dim=-1, keepdim=True), group, "max")
-        pr = torch.exp(sc - m)
-        den = all_reduce(pr.sum(dim=-1, keepdim=True), group)
-        num = all_reduce(torch.einsum("bthgs,bshd->bthgd", pr, v_cache.float()), group)
-        out = (num / den[..., 0][..., None]).reshape(B, 1, H, hd).to(q.dtype)
-        return out, k_cache, v_cache
+        out = _split_softmax(sc, "bthgs,bshd->bthgd", v_cache.float(), group)
+        return out.reshape(B, 1, H, hd).to(q.dtype), k_cache, v_cache
 
-    whole = tuple(batch_pl)
+    return _split_map(local, mesh, batch_pl, (q, k, v), (cache_pl, cache_pl), (
+        cache["k"], cache["v"], cache["len"]))
+
+
+def _split_layout(cache_leaf, lens):
+    """(mesh, the group of the mesh dim that splits `cache_leaf`'s sequence
+    axis, this rank's index on it, the batch's placements, the cache's
+    placements) of a sequence-split cache and its lengths."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, dim = cache_leaf.device_mesh, _seq_split(cache_leaf)
+    batch_pl = tuple(p if p.is_shard(0) else Replicate() for p in lens.placements)
+    cache_pl = tuple(Shard(1) if i == dim else p for i, p in enumerate(batch_pl))
+    return mesh, mesh.get_group(dim), mesh.get_local_rank(dim), batch_pl, cache_pl
+
+
+def _write_owned(cache, slot, r, row):
+    """Rank `r`'s share (B, S_loc, ...) of a sequence-split cache with `row`
+    (B, ...) written at each sequence's global `slot` where this rank owns
+    it, and left as it was where another rank does."""
+    B, S_loc = cache.shape[:2]
+    mine = ((slot // S_loc) == r).reshape(B, *[1] * (row.ndim - 1))
+    at = (torch.arange(B, device=cache.device), (slot - r * S_loc).clamp(0, S_loc - 1))
+    return cache.index_put(at, torch.where(mine, row, cache[at]))
+
+
+def _split_softmax(s, eq, values, group):
+    """softmax(s) over its last axis, contracted with `values` by the einsum
+    `eq`, where both hold this rank's share of the positions: the max, the
+    sum and the contraction are reduced over `group`."""
+    from repro_torch.models.common import all_reduce
+
+    m = all_reduce(s.amax(dim=-1, keepdim=True), group, "max")
+    p = torch.exp(s - m)
+    den = all_reduce(p.sum(dim=-1, keepdim=True), group)
+    return all_reduce(torch.einsum(eq, p, values), group) / den
+
+
+def _split_map(local, mesh, batch_pl, new, cache_pls, caches):
+    """`local(*new, *caches)` under `local_map`: the new token's tensors
+    (DTensors, or plain tensors taken as whole on every rank) whole over
+    every mesh dim but the batch's, the caches in `cache_pls` and the
+    lengths in `batch_pl`; returns the first output in `batch_pl`, the
+    caches in theirs."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
     args = [t if hasattr(t, "device_mesh") else DTensor.from_local(
-        t, mesh, [Replicate()] * len(batch_pl), run_check=False) for t in (q, k, v)]
-    return local_map(local, out_placements=(whole, cache_pl, cache_pl),
-                     in_placements=(whole, whole, whole, cache_pl, cache_pl, batch_pl),
-                     device_mesh=mesh, redistribute_inputs=True)(
-        *args, cache["k"], cache["v"], cache["len"])
+        t, mesh, [Replicate()] * len(batch_pl), run_check=False) for t in new]
+    return local_map(local, out_placements=(batch_pl, *cache_pls),
+                     in_placements=(batch_pl,) * len(new) + (*cache_pls, batch_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(*args, *caches)
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, capacity: int, dtype, device) -> dict:
@@ -451,23 +481,56 @@ def mla_decode(cfg: ArchConfig, p, x, cache: dict):
     q_nope, q_rope = _mla_q(cfg, p, x, positions)  # (B,1,h,*)
     c_new, kr_new = _mla_latent(cfg, p, x, positions)
     S = cache["c_kv"].shape[1]
-    at = (torch.arange(B, device=x.device), torch.clamp(cache["len"], max=S - 1).long())
-    c_kv = cache["c_kv"].index_put(at, c_new[:, 0])
-    k_rope = cache["k_rope"].index_put(at, kr_new[:, 0, 0])
     new_len = cache["len"] + 1
-
     w_uk, w_uv = p["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim) \
         .split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     q_abs = torch.einsum("bthd,rhd->bthr", q_nope, w_uk)
-    s = torch.einsum("bthr,bsr->bths", q_abs, c_kv) + torch.einsum(
-        "bthd,bsd->bths", q_rope, k_rope)
-    s = s.float() * (1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim))
-    valid = torch.arange(S, device=x.device)[None, :] < new_len[:, None]
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    probs = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bths,bsr->bthr", probs, c_kv.float()).to(x.dtype)
-    out = torch.einsum("bthr,rhd->bthd", ctx, w_uv)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+    if _seq_split(cache["c_kv"]) is not None:
+        ctx, c_kv, k_rope = _mla_decode_seq_split(q_abs, q_rope, c_new, kr_new, cache, scale)
+    else:
+        at = (torch.arange(B, device=x.device), torch.clamp(cache["len"], max=S - 1).long())
+        c_kv = cache["c_kv"].index_put(at, c_new[:, 0])
+        k_rope = cache["k_rope"].index_put(at, kr_new[:, 0, 0])
+        s = torch.einsum("bthr,bsr->bths", q_abs, c_kv) + torch.einsum(
+            "bthd,bsd->bths", q_rope, k_rope)
+        s = s.float() * scale
+        valid = torch.arange(S, device=x.device)[None, :] < new_len[:, None]
+        s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+        probs = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bths,bsr->bthr", probs, c_kv.float())
+    out = torch.einsum("bthr,rhd->bthd", ctx.to(x.dtype), w_uv)
     return out.reshape(B, T, -1) @ p["wo"], {"c_kv": c_kv, "k_rope": k_rope, "len": new_len}
+
+
+def _mla_decode_seq_split(q_abs, q_rope, c_new, kr_new, cache: dict, scale: float):
+    """MLA's absorbed decode against latent caches whose sequence axis is
+    split over the ranks of one mesh dim, as `_decode_seq_split` does for
+    GQA: each rank writes the new `c_kv` and `k_rope` rows only where it
+    owns the slot, scores q_abs . c_kv + q_rope . k_rope over its share of
+    the positions, and the softmax's max and sum and the (B, 1, h, r)
+    context are reduced over that dim; the batch keeps its split.  No rank
+    gathers a cache.  Returns (the f32 context, c_kv, k_rope): the same
+    softmax as `mla_decode`'s, its sums in another order."""
+    mesh, group, r, batch_pl, cache_pl = _split_layout(cache["c_kv"], cache["len"])
+    S = cache["c_kv"].shape[1]
+
+    def local(q_abs, q_rope, c_new, kr_new, c_kv, k_rope, lens):
+        S_loc = c_kv.shape[1]
+        slot = torch.clamp(lens, max=S - 1).long()
+        c_kv = _write_owned(c_kv, slot, r, c_new[:, 0])
+        k_rope = _write_owned(k_rope, slot, r, kr_new[:, 0, 0])
+        s = torch.einsum("bthr,bsr->bths", q_abs, c_kv) + torch.einsum(
+            "bthd,bsd->bths", q_rope, k_rope)
+        s = s.float() * scale
+        pos = r * S_loc + torch.arange(S_loc, device=c_kv.device)
+        valid = pos[None, :] < (lens + 1)[:, None]
+        s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+        return _split_softmax(s, "bths,bsr->bthr", c_kv.float(), group), c_kv, k_rope
+
+    return _split_map(local, mesh, batch_pl, (q_abs, q_rope, c_new, kr_new),
+                      (cache_pl, cache_pl), (cache["c_kv"], cache["k_rope"], cache["len"]))
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, capacity: int, dtype, device) -> dict:

@@ -22,10 +22,9 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.func import grad_and_value
 
 from repro_torch.core import prng
-from repro_torch.utils import resolve_device
+from repro_torch.utils import grad_and_value, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)

@@ -218,9 +218,37 @@ def layout_grad(t: torch.Tensor) -> torch.Tensor:
     return LayoutGrad.apply(t) if hasattr(t, "device_mesh") else t
 
 
+class Silu(torch.autograd.Function):
+    """`F.silu` whose backward is the one autograd takes under grad mode
+    (`infinitely_differentiable_silu_backward`: g * s * (1 + x * (1 - s)),
+    s = sigmoid(x)) whatever the mode, so the port's gradients do not
+    depend on whether the backward builds a graph: `utils.grad_and_value`
+    builds none and takes the bits `torch.func.grad_and_value` took."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return F.silu(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = torch.sigmoid(x)
+        return g * s * (1 + x * (1 - s))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return Silu.apply(x)
+
+
 def activation(name: str):
     if name == "silu":
-        return F.silu
+        return silu
     if name == "gelu":
         return lambda x: F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
     if name == "relu":

@@ -24,6 +24,7 @@ from repro_torch.models.classifier import Classifier
 from repro_torch.utils import resolve_device, tree_leaves
 
 Tree = Any
+PyTree = Tree  # the reference's name
 Batch = Any
 
 

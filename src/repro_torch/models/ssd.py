@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import local_heads
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import dense_init, rms_norm, silu
 
 
 def ssd_chunked(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, *,
@@ -137,7 +137,7 @@ def _causal_conv(xs: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     K, T = w.shape[0], xs.shape[1]
     pad = F.pad(xs, (0, 0, K - 1, 0))
     out = sum(pad[:, i:i + T, :] * w[i] for i in range(K))
-    return F.silu(out + b)
+    return silu(out + b)
 
 
 def _split_cols(w: torch.Tensor) -> torch.Tensor:
@@ -215,7 +215,7 @@ def ssd_block_forward(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor
     y = local_heads(lambda x, a, b, c: ssd_chunked(x, a, b, c, chunk=cfg.ssm_chunk)[0],
                     x_in, log_a, batch=(Bm, Cm))
     y = y[:, :T] + p["D"][:, None] * xs
-    y = rms_norm(y.reshape(B, T, d_in) * F.silu(z), p["norm"], cfg.norm_eps)
+    y = rms_norm(y.reshape(B, T, d_in) * silu(z), p["norm"], cfg.norm_eps)
     return y @ p["w_out"]
 
 
@@ -239,14 +239,14 @@ def ssd_block_decode(cfg: ArchConfig, p: dict, x: torch.Tensor, cache: dict
     d_in, N, H = _dims(cfg)
     z, xs, bc, dt = _streams(cfg, p, x[:, 0])
     hist = torch.cat([cache["conv"], xs[:, None, :]], dim=1)  # (B,K,d_in)
-    xs_t = F.silu(torch.einsum("bkc,kc->bc", hist, p["conv_w"]) + p["conv_b"])
+    xs_t = silu(torch.einsum("bkc,kc->bc", hist, p["conv_w"]) + p["conv_b"])
     hist_bc = torch.cat([cache["conv_bc"], bc[:, None, :]], dim=1)
-    bc_t = F.silu(torch.einsum("bkc,kc->bc", hist_bc, p["conv_bc_w"]) + p["conv_bc_b"])
+    bc_t = silu(torch.einsum("bkc,kc->bc", hist_bc, p["conv_bc_w"]) + p["conv_bc_b"])
     Bm, Cm = bc_t.split([N, N], dim=-1)
     xs_t = xs_t.reshape(B, H, cfg.ssm_head_dim)
     dt, log_a = _decay(p, dt)
     x_in, Bm, Cm = _keep_state_split(cache["state"], xs_t * dt[..., None].to(xs_t.dtype), Bm, Cm)
     y, state = ssd_decode_step(x_in, log_a, Bm, Cm, cache["state"])
     y = (y + p["D"][:, None] * xs_t).reshape(B, 1, d_in)
-    y = rms_norm(y * F.silu(z)[:, None, :], p["norm"], cfg.norm_eps)
+    y = rms_norm(y * silu(z)[:, None, :], p["norm"], cfg.norm_eps)
     return y @ p["w_out"], {"conv": hist[:, 1:], "conv_bc": hist_bc[:, 1:], "state": state}

@@ -28,7 +28,10 @@ inputs (the activations, the encoder's output when there is one, and the
 layer tensors), and its backward runs the block again under
 `torch.func.vjp`.  (`torch.utils.checkpoint` cannot run under the
 engine's `vmap(grad_and_value(...))`: torch.func refuses its saved-tensor
-hooks, and its reentrant form has no `setup_context`.)  With
+hooks, and its reentrant form has no `setup_context`.)  The saving holds
+under the port's `utils.grad_and_value`, whose backward builds no graph;
+under `torch.func.grad_and_value` the backward's own graph keeps every
+block's recompute alive until the last gradient is made.  With
 `remat_policy=DOTS_SAVEABLE` (the reference's
 `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`, the dry run's
 `--opt`) the block also keeps the outputs of its products with 2-D weights
@@ -51,12 +54,13 @@ import contextlib
 import dataclasses
 import functools
 import math
+from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from torch.func import grad_and_value, vjp
+from torch.func import vjp
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.base import ArchConfig
@@ -64,9 +68,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import rglru, ssd
 from repro_torch.models.common import cross_entropy_loss, dense_init, layout_grad, rms_norm
 from repro_torch.models.ffn import ffn_forward, init_ffn, init_moe, moe_forward
-from repro_torch.utils import (resolve_device, tree_flatten, tree_leaves, tree_map,
-                               tree_unflatten)
+from repro_torch.utils import (grad_and_value, resolve_device, tree_flatten, tree_leaves,
+                               tree_map, tree_unflatten)
 
+PyTree = Any  # the reference's name for a tree of tensors
 KINDS = ("attn", "local", "ssd", "rglru")
 DOTS_SAVEABLE = "dots_with_no_batch_dims_saveable"  # the one remat policy
 PATCH_DIM = 1024  # width of the stub patch embeddings the projector maps to d_model
@@ -731,9 +736,10 @@ def decode_step(cfg: ArchConfig, params: dict, caches: dict, token: torch.Tensor
             i, j = i + n, j + m
         new_layers.append(new_leaves)
     new_super, j = [], 0
-    for cache_def, m in cache_defs:
-        new_super.append(tree_unflatten(
-            cache_def, [torch.stack(xs) for xs in zip(*(ls[j:j + m] for ls in new_layers))]))
+    for (cache_def, m), stacks in zip(cache_defs, caches["super"]):
+        new_super.append(tree_unflatten(cache_def, [
+            _restack(xs, like) for xs, like in zip(
+                zip(*(ls[j:j + m] for ls in new_layers)), tree_leaves(stacks))]))
         j += m
     new_tail = []
     for i in range(n_tail):
@@ -742,6 +748,21 @@ def decode_step(cfg: ArchConfig, params: dict, caches: dict, token: torch.Tensor
         new_tail.append(nc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ _head(cfg, params))[:, 0], {"super": new_super, "tail": new_tail}
+
+
+def _restack(layers, like: torch.Tensor) -> torch.Tensor:
+    """The layers' new caches stacked on a leading axis.  On a model mesh
+    each layer's shard is stacked where it lies, under the placements of
+    the stack it came from (`like`), so no step moves the whole stack."""
+    if not hasattr(like, "device_mesh"):
+        return torch.stack(layers)
+    from torch.distributed.tensor import DTensor, Shard
+
+    per_layer = [Shard(p.dim - 1) if p.is_shard() else p for p in like.placements]
+    local = torch.stack([t.redistribute(like.device_mesh, per_layer).to_local()
+                         for t in layers])
+    return DTensor.from_local(local, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, *, capacity: int | None = None,

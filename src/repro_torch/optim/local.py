@@ -17,6 +17,7 @@ from repro_torch.optim.sgd import SGDConfig, sgd_init, sgd_step
 from repro_torch.utils import tree_map
 
 Tree = Any
+PyTree = Tree  # the reference's name
 
 
 @runtime_checkable

@@ -13,6 +13,7 @@ import torch
 from repro_torch.utils import tree_map
 
 Tree = Any
+PyTree = Tree  # the reference's name
 
 
 @dataclasses.dataclass(frozen=True)

@@ -76,6 +76,7 @@ from repro_torch.sharding.specs import FED_AXES, fed_engine_pspecs
 from repro_torch.utils import tree_leaves, tree_map
 
 Tree = Any
+PyTree = Tree  # the reference's name
 
 
 def resolve_mesh(mesh):

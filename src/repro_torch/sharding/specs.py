@@ -28,6 +28,7 @@ from __future__ import annotations
 from typing import Any
 
 Tree = Any
+PyTree = Tree  # the reference's name
 
 _ROW_PARALLEL = {"wo", "w_out"}
 _COL_PARALLEL = {
@@ -129,7 +130,10 @@ def batch_pspec(batch_size: int, mesh, rank: int = 2) -> PartitionSpec:
 def cache_pspecs(caches: Tree, batch_size: int, mesh) -> Tree:
     """KV and state caches: the batch dim split like the batch, kv-head or
     state dims on "model" where they divide, a stacked leading dim not
-    split.  Layouts: attn k/v (L?, B, S, Hkv, hd); mla c_kv (L?, B, S, r);
+    split.  Layouts: attn k/v (L?, B, S, Hkv, hd); mla c_kv (L?, B, S, r)
+    and k_rope (L?, B, S, rope), both split on S (the reference splits
+    c_kv only: the port's MLA decode scores its share of the positions
+    against both, `attention._mla_decode_seq_split`);
     ssd state (L?, B, H, P, N); conv (L?, B, K, C); rglru h (L?, B, W);
     len (L?, B)."""
     baxes = batch_pspec(batch_size, mesh, rank=1)[0]
@@ -151,7 +155,7 @@ def cache_pspecs(caches: Tree, batch_size: int, mesh) -> Tree:
                 dims[-2] = "model"  # kv-head parallel
             elif n_model > 1 and leaf.shape[sdim] % n_model == 0 and sdim != bdim:
                 dims[sdim] = "model"  # sequence-parallel cache
-        elif name == "c_kv" and leaf.ndim >= 3:
+        elif name in ("c_kv", "k_rope") and leaf.ndim >= 3:
             sdim = leaf.ndim - 2
             if n_model > 1 and leaf.shape[sdim] % n_model == 0 and sdim != bdim:
                 dims[sdim] = "model"

@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.prng import split
 
 Tree = Any  # nested dicts / lists / tuples of tensors (or a bare tensor)
+PyTree = Tree  # the reference's name
 
 
 def tree_flatten(tree: Tree) -> tuple[list, Any]:
@@ -122,6 +123,43 @@ def split_like(key: np.ndarray, tree: Tree) -> Tree:
     words of `jax.random.split(key, n_leaves)`."""
     leaves, treedef = tree_flatten(tree)
     return tree_unflatten(treedef, list(split(key, len(leaves))))
+
+
+def grad_and_value(fn: Callable) -> Callable:
+    """`torch.func.grad_and_value(fn)`, the gradient with respect to the
+    first argument, with a backward that frees what it has used: returns
+    ``(*args) -> (grads, value)`` and composes with `torch.func.vmap` as
+    `torch.func`'s does.
+
+    `torch.func.grad_and_value` runs its backward with ``create_graph=True``
+    (so that an outer grad transform can differentiate it), which keeps the
+    graph of the backward alive until every gradient is made: each
+    recomputed `RematBlock`'s activations, and the saved tensors of every
+    backward formula, at once.  Here the backward runs as
+    `torch.autograd.grad` runs it, at the same grad level but building no
+    graph, so a remat step holds one block's recompute at a time.  Not for
+    a gradient that is itself differentiated.  A backward formula that
+    reads the grad mode takes its fused form (SiLU's `silu_backward`), as
+    under `torch.autograd.grad`."""
+    from torch._functorch.eager_transforms import (
+        _autograd_grad, _create_differentiable, _undo_create_differentiable,
+        _wrap_all_tensors, grad_increment_nesting)
+    from torch.utils._pytree import tree_flatten as _flatten
+    from torch.utils._pytree import tree_unflatten as _unflatten
+
+    def run(*args):
+        with grad_increment_nesting() as level, torch.enable_grad():
+            args = _wrap_all_tensors(args, level)
+            diff = _create_differentiable(args[0], level)
+            value = fn(diff, *args[1:])
+            if not isinstance(value, torch.Tensor) or value.dim() != 0:
+                raise RuntimeError("grad_and_value(fn): fn must return a scalar tensor")
+            flat, spec = _flatten(diff)
+            grads = _autograd_grad((value,), flat, create_graph=False)
+            return (_undo_create_differentiable(_unflatten(list(grads), spec), level),
+                    _undo_create_differentiable(value, level))
+
+    return run
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

@@ -15,6 +15,10 @@ process holds against the port's one-device runs and the reference:
   the batch split over (pod, data);
 * decode with one kv head on (2, 2): the caches split their sequence
   axis over "model" (flash-decode style), 4 steps against one device;
+* MLA decode of smoke deepseek-v3-671b on (2, 2): the latent caches
+  (`c_kv` and `k_rope`) split their sequence axis over "model", and each
+  rank scores its share of the positions (`attention._mla_decode_seq_split`),
+  4 steps against one device;
 * two heads on (data 1, model 4), which they do not divide: attention
   splits the batch over "model" (a train round, prefill, decode);
 * `moe_forward` of smoke dbrx-132b on (2, 2) against the port's
@@ -145,6 +149,32 @@ def seq_split_decode(params, mesh=None):
     return np.stack(logits)
 
 
+def mla_cfg():
+    """MLA (DeepSeek-V3): over "model" the latent caches split their
+    sequence axis."""
+    return smoke_config("deepseek-v3-671b")
+
+
+def mla_seq_split_decode(params, mesh=None):
+    """DECODE + 2 decode steps of MLA against sequence-split latent caches
+    on `mesh`."""
+    cfg, toks = mla_cfg(), torch.from_numpy(lm_inputs())
+    caches = tf.init_caches(cfg, B, DECODE + 2, device="cpu")  # both halves written
+    pp, cc = (params, caches) if mesh is None else steps.place(cfg, mesh, params, caches=caches)
+    logits = []
+    with model_mesh(mesh), steps._replicating():
+        for i in range(DECODE + 2):
+            tok = {"t": toks[:, i:i + 1]}
+            tok = (tok if mesh is None else steps.place(cfg, mesh, batch=tok))["t"]
+            lg, cc = tf.decode_step(cfg, pp, cc, tok)
+            logits.append(_full(lg))
+    if mesh is not None:  # the caches kept their split, stacked as they came
+        for t in tree_leaves(cc["super"]):
+            if t.ndim == 4:
+                assert t.placements[1].is_shard(2), t.placements
+    return np.stack(logits)
+
+
 def moe_setup():
     cfg = smoke_config("dbrx-132b")  # 4 experts top-2, no shared experts
     rng = np.random.default_rng(3)
@@ -195,7 +225,9 @@ def rank_cases(rank):
            "moe_global22_c7": moe_case(mesh22, routed=False,
                                        capacity_factor=MOE_CAPACITY["moe_global22_c7"]),
            "seq_split": {"decode": seq_split_decode(tf.init_params(mqa_cfg(), 0, "cpu"),
-                                                    mesh22)}}
+                                                    mesh22)},
+           "mla_seq_split": {"decode": mla_seq_split_decode(
+               tf.init_params(mla_cfg(), 0, "cpu"), mesh22)}}
     res["lm_pod"] = lm_steps(cfg, params, chain2, make_debug_mesh(1, 2, pod=2, device="cpu"))
     res["ssd22"] = lm_steps(ssd_cfg(), tf.init_params(ssd_cfg(), 0, "cpu"), None, mesh22)
     res["lm_uneven"] = lm_steps(uneven_cfg(), tf.init_params(uneven_cfg(), 0, "cpu"), None,
@@ -221,10 +253,14 @@ def single():
     uneven_ulp = tree_map(lambda t: torch.nextafter(t, torch.full_like(t, np.inf)), uneven)
     ssd = tf.init_params(ssd_cfg(), 0, "cpu")
     ssd_ulp = tree_map(lambda t: torch.nextafter(t, torch.full_like(t, np.inf)), ssd)
+    mla = tf.init_params(mla_cfg(), 0, "cpu")
+    mla_ulp = tree_map(lambda t: torch.nextafter(t, torch.full_like(t, np.inf)), mla)
     return ({**lm_steps(cfg, params, chain2), "seq_split": seq_split_decode(mqa),
+             "mla_seq_split": mla_seq_split_decode(mla),
              "lm_uneven": lm_steps(uneven_cfg(), uneven, None),
              "ssd22": lm_steps(ssd_cfg(), ssd, None)},
             {**lm_steps(cfg, ulp, ulp2), "seq_split": seq_split_decode(mqa_ulp),
+             "mla_seq_split": mla_seq_split_decode(mla_ulp),
              "lm_uneven": lm_steps(uneven_cfg(), uneven_ulp, None),
              "ssd22": lm_steps(ssd_cfg(), ssd_ulp, None)})
 
@@ -237,7 +273,7 @@ def _rel(a, b) -> float:
 
 def test_ranks_hold_the_same_whole_results(ranks):
     for r in ranks[1:]:
-        for case in ("lm22", "lm_pod", "seq_split", "lm_uneven", "ssd22"):
+        for case in ("lm22", "lm_pod", "seq_split", "mla_seq_split", "lm_uneven", "ssd22"):
             for k, v in r[case].items():
                 assert _rel(v, ranks[0][case][k]) == 0.0, (case, k)
 
@@ -246,6 +282,7 @@ def test_ranks_hold_the_same_whole_results(ranks):
                                        ("lm22", "decode"), ("lm_pod", "fedchs"),
                                        ("lm_pod", "hfl"), ("lm_pod", "prefill"),
                                        ("lm_pod", "decode"), ("seq_split", "decode"),
+                                       ("mla_seq_split", "decode"),
                                        ("lm_uneven", "train"), ("lm_uneven", "prefill"),
                                        ("lm_uneven", "decode"), ("ssd22", "train"),
                                        ("ssd22", "prefill"), ("ssd22", "decode")])
@@ -253,7 +290,7 @@ def test_model_mesh_step_against_one_device(ranks, single, case, step):
     ref, ulp = single
     if case in ("lm_uneven", "ssd22"):
         ref, ulp = ref[case], ulp[case]
-    key = "seq_split" if case == "seq_split" else step
+    key = case if case in ("seq_split", "mla_seq_split") else step
     got = ranks[0][case][step]
     gap, control = _rel(got, ref[key]), _rel(ulp[key], ref[key])
     assert control > 0

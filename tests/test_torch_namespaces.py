@@ -17,6 +17,16 @@
   `cross_entropy_loss(z_loss=)` at rtol 1e-6, and the tree helpers of
   `repro/utils.py` (`split_like` word for word).
 * `examples/torch_quickstart.py` runs on the CPU.
+* Every public module-level name of each reference module (by its source,
+  functions, classes and assignments) is a name of the port's module of
+  the same path, but for the XLA-only names and the reference's
+  `sharded_*` bodies (`UNPORTED`): the reference's spellings
+  `qsgd_quantize_pack_blocks` / `qsgd_unpack_dequantize_blocks` (the
+  port's `qsgd_quantize_pack` / `qsgd_unpack_dequantize` themselves),
+  `kernels.ref.weighted_aggregate_ref`, `core.engine.dummy_subs` and the
+  `PyTree` / `Batch` aliases; `weighted_aggregate_ref` and `dummy_subs`
+  equal the reference's exactly (dyadic inputs, so any summation order is
+  exact).
 """
 import importlib
 import os
@@ -237,3 +247,78 @@ def test_torch_quickstart_runs_on_the_cpu():
     assert len(final) == 1 and float(final[0].split(":")[1]) > 0.5
     hops = [line for line in out.stdout.splitlines() if line.startswith("per-hop bits")]
     assert len(hops) == 1 and "_ps" not in hops[0] and "ps_" not in hops[0]
+
+
+# reference names the port does not carry: XLA's own, and the sharded
+# bodies that the port's engine bodies took in (ROADMAP, Queue A)
+UNPORTED = {
+    "utils": {"cached_jit"},
+    "roofline.analysis": {"V5E", "analyze_compiled", "analyze_hlo_text", "parse_hlo"},
+    "kernels.qsgd": {"ROWS_PER_TILE"},
+    "kernels.flash_attention": {"DEFAULT_BLOCK_Q"},
+    "core.engine": {"scan_chunk_fn", "sweep_chunk_fn"},
+    "sharding.fed": {"sharded_chunk_fn", "sharded_cluster_delta_body", "sharded_delta_body",
+                     "sharded_grad_body", "sharded_multi_body"},
+}
+
+
+def _public_names(path: pathlib.Path) -> set:
+    import ast
+
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+REF_MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src" / "repro").with_suffix("").parts)
+    for p in (ROOT / "src" / "repro").rglob("*.py") if p.name != "__init__.py")
+
+
+@pytest.mark.parametrize("module", REF_MODULES)
+def test_every_public_module_name_has_the_port_s_twin(module):
+    path = ROOT / "src" / "repro" / (module.replace(".", "/") + ".py")
+    port = importlib.import_module(f"repro_torch.{module}")
+    missing = sorted(_public_names(path) - UNPORTED.get(module, set())
+                     - set(dir(port)))
+    assert not missing, f"repro_torch.{module} lacks {missing}"
+
+
+def test_reference_spellings_of_the_qsgd_kernels():
+    from repro_torch.kernels import qsgd
+
+    assert qsgd.qsgd_quantize_pack_blocks is qsgd.qsgd_quantize_pack
+    assert qsgd.qsgd_unpack_dequantize_blocks is qsgd.qsgd_unpack_dequantize
+
+
+def test_weighted_aggregate_ref_matches_reference():
+    from repro.kernels.ref import weighted_aggregate_ref as jagg
+
+    from repro_torch.kernels.ref import weighted_aggregate_ref
+
+    rng = np.random.default_rng(7)
+    grads = (rng.integers(-64, 65, (5, 300)) * 2.0 ** -8).astype(np.float32)
+    weights = (rng.integers(1, 9, 5) * 2.0 ** -4).astype(np.float32)
+    got = weighted_aggregate_ref(torch.from_numpy(grads), torch.from_numpy(weights))
+    want = np.asarray(jagg(jnp.asarray(grads), jnp.asarray(weights)))
+    assert got.dtype == torch.float32 and got.shape == want.shape == (300,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("lead", [(), (3,), (2, 4)])
+def test_dummy_subs_matches_reference(lead):
+    from repro.core.engine import dummy_subs as jdummy
+
+    from repro_torch.async_fl.compute import no_subs
+    from repro_torch.core.engine import dummy_subs
+
+    got, want = dummy_subs(*lead), np.asarray(jdummy(*lead))
+    assert got.dtype == want.dtype == no_subs().dtype
+    np.testing.assert_array_equal(got, want)
+
