@@ -39,8 +39,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
         and depth (751.6M params in 14 leaves, f32) on 4 token-stream clients
         in 2 clusters, QSGD(16) uplinks, self-attention through the flash
         kernel.  Launch counts must be exact, every uplink priced at the
-        closed form, losses finite, the train loss and the held-out
-        perplexity falling; then one warm round, timed without and then
+        closed form, losses finite, the train loss, the loss on its first
+        round's batches and the held-out perplexity falling; then one warm round, timed without and then
         with the profiler;
      c. the dense-code QSGD API (`repro_torch.comm.qsgd_roundtrip`) over
         every leaf of the trained LM;
@@ -111,7 +111,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
         100352, bf16, random weights): at 4 layers (14.27B params)
         `prefill` of 4 x 512 tokens (the flash kernel once per layer; the
         forward and the cache replay timed apart), `serve_loop` of 8
-        requests over 4 slots (prompt 64, exactly 32 new tokens each;
+        requests over 4 slots (prompt 16, exactly 32 new tokens each;
         tokens/s, ms per batched decode step, peak memory), and
         teacher-forced `decode_step` against `forward` with `dense_topk`
         routing, held to DECODE_BOUND beside an off-by-one cache control
@@ -176,7 +176,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
         `models/moe_shardmap.py`), 4 gloo ranks sharing the card:
         qwen3-0.6b whole in bf16 with flash (B5 on each rank's 8 query and
         4 kv heads) on (2, 2): a train round (C = 1, 2 x 512), a prefill
-        (4 x 512) and 16 decode steps; on (pod 2, data 1, model 2): a
+        (4 x 512) and 8 decode steps; on (pod 2, data 1, model 2): a
         Fed-CHS and an HFL round (C = 2, chain c on pod c); each held to
         the same step on one card in relative L2 at MESH_BOUND x the gap of
         the one-card run from weights 1 bf16 ulp apart, beside controls
@@ -197,6 +197,21 @@ Phases, each of which fails the script (non-zero exit, no result line):
         hop, uplink MB, pass-through rounds, netsim makespans, dropped
         client-rounds, straggler round times) equal, the accuracy gaps
         printed;
+     q. the reference's weights from a seed, run first of the paths (every
+        later card-against-CPU phase starts from weights it holds equal):
+        `init_params` of every smoke config (seeds 0 and 1, and bf16) on
+        the card through the normal_fill kernel (`csrc/prng.cu`), bit-equal
+        leaf by leaf to the CPU's plain draw, its launches equal to the
+        draws recorded on the meta device (3q-a); the two largest leaves of
+        each full-width config of 3b and 3k-3m, their first, middle and
+        last WINDOW entries against `kernels/ref.py::normal_ref` on the
+        host with the same key and offset, bit for bit (3q-b; deepseek-v3's
+        last window sits past flat index 2^32); the kernel's ms a launch at
+        qwen3-0.6b's embedding (the main path's) and at one deepseek-v3
+        MoE `w_gate` layer in bf16, beside its operation bound (the longer
+        of int32 at INT32_OPS_PER_S and f32 at F32_OPS_PER_S, units that
+        run side by side), the plain version on the
+        card and `torch.randn` of the shape (3q-c);
   4. time each kernel at its path's shapes with CUDA events (L2 flushed
      before every launch, the card kept busy while the host enqueues it),
      beside its plain version, its bound and, for flash attention, torch's
@@ -211,6 +226,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
      launches on the serving, SGD-step and federated paths of phases
      3k-3m and on 3n-b's and 3o's mesh paths, summed over the ranks
      (`launches_on_paths`); flash is also timed at 3o's per-rank heads.
+Every LM phase draws the reference's weights (`init_params(cfg, seed)` =
+the reference's `init_params(cfg, PRNGKey(seed))`), on the card through
+normal_fill, whose launches the main path's count includes.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.  Needs a CUDA device; exits non-zero without
 one, and outside a checkout of the repository.
@@ -277,6 +295,10 @@ REPLACES = {
     "qsgd_dequantize": ("src/repro_torch/csrc/qsgd.cu", "src/repro/kernels/qsgd.py:116"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:57"),
+    # no Pallas counterpart: the reference draws its weights with XLA's
+    # threefry and erf_inv (jax.random.normal in dense_init)
+    "normal_fill": ("src/repro_torch/csrc/prng.cu",
+                    "none: jax.random.normal, src/repro/models/common.py:11"),
 }
 
 
@@ -841,24 +863,25 @@ def card_vs_cpu(torch, on_card, on_cpu, p0):
     return diff / float(b.norm()), diff / update, update / float(b.norm()), gap
 
 
-def lm_task(cfg, device=None, init_on_cpu=False, remat=False, scale=1.0, **source_kw):
+def lm_task(cfg, device=None, remat=False, scale=1.0, **source_kw):
     """The LM task of the example: `LMFedModel` + `TokenSource` clients.
-    `scale` multiplies every initial weight (drawn on the CPU)."""
+    The card and the CPU draw the same initial weights (phase 3q holds
+    them bit-equal); `scale` multiplies every one of them."""
     from repro_torch.core.simulation import FLTask
     from repro_torch.data.sources import TokenSource
     from repro_torch.models.fed import LMFedModel
 
     model = LMFedModel(cfg, flash=True, remat=remat)
-    if init_on_cpu:  # the same initial weights on the card and on the CPU
-        model = _CpuInit(model, scale)
+    if scale != 1.0:
+        model = _Scaled(model, scale)
     source = TokenSource(cfg.vocab_size, topics=4, seed=0, **source_kw)
     return FLTask.from_source(model, source, LM_CLUSTERS, seed=0, device=device)
 
 
-class _CpuInit:
-    """An LMFedModel whose weights are drawn on the CPU, scaled, then moved."""
+class _Scaled:
+    """An LMFedModel whose initial weights are scaled (the 1-ulp controls)."""
 
-    def __init__(self, model, scale=1.0):
+    def __init__(self, model, scale):
         self.model, self.scale = model, scale
 
     def __getattr__(self, name):
@@ -867,7 +890,35 @@ class _CpuInit:
     def init(self, seed=0, device=None):
         from repro_torch.utils import tree_map
 
-        return tree_map(lambda t: (t * self.scale).to(device), self.model.init(seed, "cpu"))
+        return tree_map(lambda t: t * self.scale, self.model.init(seed, device))
+
+
+def first_batches_loss(torch, task, params) -> float:
+    """The mean loss of `params` over every client's first training batch
+    (draw 0 of the run's seed 0: what its first round trained on).  A run's
+    recorded train loss is each round's mean over that round's own batches,
+    so at full width, where a few rounds move the loss by about as much as
+    two rounds' batches differ, the loss on the same batches before and
+    after says besides it whether training lowered the loss."""
+    src = task.source
+    drawn = list(src.draw_counts)
+    src.reset(0)
+    batches = [src.next_batch(c) for c in range(src.num_clients)]
+    src.fast_forward(drawn)
+    with torch.no_grad():
+        return statistics.fmean(
+            float(task.fed_model.loss(params, {k: torch.from_numpy(v).to(task.device)
+                                               for k, v in b.items()})) for b in batches)
+
+
+def check_trained(torch, label, task, res) -> str:
+    """Fails unless the run lowered the loss on its first round's batches
+    (`first_batches_loss` of the initial and the final params)."""
+    before = first_batches_loss(torch, task, task.init_params())
+    after = first_batches_loss(torch, task, res.final_params)
+    check(after < before, f"{label}: the loss on the first round's batches did not fall "
+          f"({before:.6f} -> {after:.6f})")
+    return f"loss on the first round's batches {before:.6f} -> {after:.6f}"
 
 
 def lm_path(torch, build):
@@ -901,7 +952,8 @@ def lm_path(torch, build):
     want = {"flash_attention": cfg.num_layers * (LM_ROUNDS * LM_K + evals * n_eval_batches),
             "qsgd_quantize_pack": LM_ROUNDS * J * len(leaf_sizes),
             "qsgd_unpack_dequantize": LM_ROUNDS * J * len(leaf_sizes),
-            "qsgd_quantize": 0, "qsgd_dequantize": 0}
+            "qsgd_quantize": 0, "qsgd_dequantize": 0,
+            "normal_fill": len(init_draws(cfg))}  # the run draws its weights once
     print(f"phase 3b: {LM_ARCH} Fed-CHS QSGD(16), flash attention: {d} params in "
           f"{len(leaf_sizes)} leaves, {cfg.num_layers} layers; {LM_CLIENTS} clients in "
           f"clusters {LM_CLUSTERS}, batch {LM_BATCH} x {LM_SEQ} tokens, K={LM_K}, E={LM_E}, "
@@ -922,6 +974,7 @@ def lm_path(torch, build):
           f"{n_up} messages; visits {visited}")
     print(f"  perplexity {res.test_acc} at rounds {res.rounds}; train loss {res.train_loss}")
     check(all(math.isfinite(x) for x in res.test_acc + res.train_loss), "non-finite LM trace")
+    print(f"  {check_trained(torch, '3b', task, res)}")
     check(res.train_loss[-1] < res.train_loss[0], "the LM's train loss did not fall")
     check(res.test_acc[-1] < res.test_acc[0],
           "the LM's perplexity on the fixed held-out batches did not fall")
@@ -981,13 +1034,13 @@ def lm_cross_check(torch):
     config = FedCHSConfig(rounds=4, local_steps=4, local_epochs=2, eval_every=2,
                           channel=QSGDChannel(16), seed=0, schedule=lambda k: 0.3)
     kw = dict(num_clients=4, batch_size=2, seq_len=64)
-    on_card = run_fed_chs(lm_task(cfg, init_on_cpu=True, **kw), config)
-    cpu_task = lm_task(cfg, device="cpu", init_on_cpu=True, **kw)
+    on_card = run_fed_chs(lm_task(cfg, **kw), config)
+    cpu_task = lm_task(cfg, device="cpu", **kw)
     p0 = cpu_task.init_params()
     on_cpu = run_fed_chs(cpu_task, config)
     rel, upd_rel, upd, _ = card_vs_cpu(torch, on_card, on_cpu, p0)
     ppl = max(abs(x / y - 1) for x, y in zip(on_card.test_acc, on_cpu.test_acc))
-    dense = run_fed_chs(lm_task(cfg, device="cpu", init_on_cpu=True, **kw),
+    dense = run_fed_chs(lm_task(cfg, device="cpu", **kw),
                         dataclasses.replace(config, channel=DenseChannel()))
     b = flat_params(torch, on_cpu.final_params)
     ctrl_rel = float((flat_params(torch, dense.final_params) - b).norm() / b.norm())
@@ -1016,14 +1069,14 @@ def lm_grad_cross_check(torch, cfg, kw):
 
     config = FedCHSConfig(rounds=2, local_steps=4, local_epochs=1, eval_every=1,
                           channel=DenseChannel(), seed=0, schedule=lambda k: 0.3)
-    on_card = run_fed_chs(lm_task(cfg, init_on_cpu=True, **kw), config)
-    cpu_task = lm_task(cfg, device="cpu", init_on_cpu=True, **kw)
+    on_card = run_fed_chs(lm_task(cfg, **kw), config)
+    cpu_task = lm_task(cfg, device="cpu", **kw)
     p0 = cpu_task.init_params()
     on_cpu = run_fed_chs(cpu_task, config)
     _, upd_rel, upd, _ = card_vs_cpu(torch, on_card, on_cpu, p0)
     ppl = max(abs(x / y - 1) for x, y in zip(on_card.test_acc, on_cpu.test_acc))
     wrong = dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16)
-    ctrl = run_fed_chs(lm_task(wrong, device="cpu", init_on_cpu=True, **kw), config)
+    ctrl = run_fed_chs(lm_task(wrong, device="cpu", **kw), config)
     _, ctrl_rel, _, _ = card_vs_cpu(torch, ctrl, on_cpu, p0)
     print(f"  grad mode (dense uplinks, E=1, 2 rounds), card vs CPU plain path: params gap "
           f"{upd_rel:.3g} of the update p_T - p_0 (which is {upd:.3g} of p_T; bound "
@@ -1554,12 +1607,17 @@ def masked_cross_check(torch):
 # phase 3h: the memory-lean engine.  The LM arms train one client at a time
 # (client_microbatch 1) for LEAN_ROUNDS rounds: 3b's 3 do not show the
 # QSGD(16) arm's loss falling under bf16 compute (an H100 80GB HBM3 at 700 W
-# read 12.4355, 12.4186, 12.4412, then 12.4034, 12.4197, 12.3727), 4 do (6
-# until the script needed the time for phase 3m); the
+# read 12.4355, 12.4186, 12.4412, then 12.4034, 12.4197, 12.3727).  At 4
+# rounds whether the loss falls on the batches an arm trained on depends on
+# the draw of the weights: from the reference's, the bf16-wire arm's rose
+# (12.4277 -> 12.4587) and the QSGD arm's fell; from the torch generator's
+# that the port drew before, the QSGD arm's rose (12.4480 -> 12.4899).  At
+# 6 both fall from both draws (12.3135, 12.2712; 12.3882, 12.2733), and so
+# do the held-out perplexity and the recorded train loss; the
 # Appendix-A arms at 3e's scale keep 2 and 10 client replicas live.  A
 # card-vs-CPU gap under bf16 compute is bounded by CROSS_ULPS times the CPU
 # run's own gap from weights 1 bf16 ulp apart.
-LEAN_MB, LEAN_ROUNDS = 1, 4
+LEAN_MB, LEAN_ROUNDS = 1, 6
 MB_ARMS = (("Hier-Local-QSGD QSGD(16)", 2), ("FedAvg", 10))
 CROSS_ULPS = 2.0
 BF16_ULP = 2.0**-7
@@ -1631,6 +1689,7 @@ def lean_lm_path(torch, build, f32_peak_gb, f32_round_s):
         print(f"  perplexity {res.test_acc} at rounds {res.rounds}; train loss {res.train_loss}")
         check(all(math.isfinite(x) for x in res.test_acc + res.train_loss),
               f"{name}: non-finite LM trace")
+        print(f"  {check_trained(torch, name, task, res)}")
         check(res.train_loss[-1] < res.train_loss[0], f"{name}: the train loss did not fall")
         check(res.test_acc[-1] < res.test_acc[0], f"{name}: the perplexity did not fall")
         check(all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
@@ -1704,8 +1763,8 @@ def lean_cross_check(torch):
     kw = dict(num_clients=4, batch_size=2, seq_len=64)
     config = FedCHSConfig(rounds=2, local_steps=4, local_epochs=2, eval_every=1, seed=0,
                           schedule=lambda k: 0.3, client_microbatch=LEAN_MB, precision=policy)
-    cpu = dict(device="cpu", init_on_cpu=True, remat=True)
-    on_card = run_fed_chs(lm_task(cfg, init_on_cpu=True, remat=True, **kw), config)
+    cpu = dict(device="cpu", remat=True)
+    on_card = run_fed_chs(lm_task(cfg, remat=True, **kw), config)
     cpu_task = lm_task(cfg, **cpu, **kw)
     p0 = cpu_task.init_params()
     on_cpu = run_fed_chs(cpu_task, config)
@@ -1983,6 +2042,7 @@ def scanned_lm_path(torch, build):
     check(scanned["launches"] == looped["launches"], "3i-b: launch counts differ: "
           f"{scanned['launches']} scanned, {looped['launches']} looped")
     res = scanned["res"]
+    print(f"  3i-b: {check_trained(torch, '3i-b', task, res)}")
     check(res.train_loss[-1] < res.train_loss[0] and res.test_acc[-1] < res.test_acc[0],
           "3i-b: loss or perplexity did not fall")
     # the kernel time of one round and its eval: a one-round run is one
@@ -2498,7 +2558,7 @@ def async_path(torch, build, task):
 MOE_ARCH = "dbrx-132b"
 SERVE_LAYERS, TRAIN_LAYERS = 4, 2
 PREFILL_BATCH, PREFILL_SEQ = 4, 512
-SERVE = dict(requests=8, slots=4, prompt_len=64, max_new=32)
+SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=32)
 PARITY_BATCH, PARITY_SEQ = 2, 64
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_LR = 3, 512, 0.3
 # a remat SGD step's peak over its weights' bytes (3m-a, 3m-e): params and
@@ -2514,17 +2574,36 @@ FLASH_DBRX = (PREFILL_BATCH, PREFILL_SEQ, PREFILL_SEQ, 48, 8, 128)  # prefill's 
 # heads, 64 experts, the full MLA dims) read 0.0098 and 0.032 on the CPU
 # (two weight draws), the off-by-one control 0.45.
 DECODE_BOUND = 0.125
-# phase 3k-c: the first QSGD(16) round of the smoke MoE LM, card against
-# CPU, over the update.  A code step is a sixteenth of a block norm, and
-# the card's flash runs split TF32, so codes (and with them expert choices)
-# flip where the CPU's do not: an H100 80GB HBM3 at 700 W read 0.019, the
-# CPU run against itself from weights 1 + 2^-23 apart 0.0049.  The bound
-# must reject the controls, all run on the CPU: QSGD with one level fewer
-# (15) reads 0.56, QSGD(8) 1.08, dense uplinks 0.75, and a run that
-# never updates 1.  Expert choice makes a round chaotic (a 5% smaller step
-# reads 0.52), so a fault in the MoE path reads far above the bound.
-# Phases 3l-c and 3l-d hold their smoke runs to it too.
+# phases 3l-d and 3m-c: the first QSGD(16) round of a smoke LM, card
+# against CPU, over the update.  A code step is a sixteenth of a block
+# norm, so a float-order change flips a few codes.  From the reference's
+# weights an H100 80GB HBM3 at 700 W read 0.0034 (3l-d) and 3.4e-7 (3m-c);
+# the CPU run against itself from weights 1 + 2^-23 apart 0.0015 and
+# 3.3e-6.  The bound must reject the controls, all run on the CPU: QSGD
+# with one level fewer (15) reads 0.31 and 0.28, QSGD(8) 0.89-0.91, dense
+# uplinks 0.57, and a run that never updates 1.
 MOE_QSGD_BOUND = 0.1
+# phases 3k-c and 3l-c, the smoke MoE LMs (dbrx-132b, deepseek-v3-671b),
+# hold their first round to a bound of their own.  In 3k-c the first
+# interaction stays within 2e-5 of the CPU's inputs with a handful of codes
+# flipped; those few code steps can move the second interaction's expert
+# choices, and then its inputs lie 0.04-0.33 apart.  Whether they do
+# depends on which codes flip, so the round reads one of a few levels: the
+# CPU run against itself from weights 1 + K 2^-23 apart read 0.0048-0.0082
+# at K = +-1..4, 0.015 at K = -5..-7, 0.099 at K = 6..8 and 0.152 at K =
+# -8 and -16, 3l-c's 0.071-0.110 at K = +-1, 2, 4, 8
+# (`scripts/torch_qsgd_divergence.py --lm ARCH --device cpu --nudge K`).
+# The card read 0.107 (3k-c; 0.019 from the torch generator's weights that
+# the port drew before, its own 1-ulp twin on the card 0.0058) and 0.0033
+# (3l-c).  The bound sits above each CPU's largest level, and each phase
+# prints a twin at that level (3k-c K = -8, 3l-c K = 1) and fails if one
+# reads above it; the controls above it read QSGD(15) 0.52 and 0.43, dense
+# uplinks 0.71 and 0.66, QSGD(8) 1.07 and 1.01, no update 1.
+MOE_ROUTED_BOUND = 0.2
+# the smoke LMs' Fed-CHS runs (`fed_lm_path`): 4 clients of batch 2 x 64
+# tokens in LM_CLUSTERS, K = 4 local steps in E = 2 epochs, a step of 0.3
+FED_LM_SOURCE = dict(num_clients=4, batch_size=2, seq_len=64)
+FED_LM_K, FED_LM_E, FED_LM_LR = 4, 2, 0.3
 
 
 def moe_batch(torch, cfg, B, T, seed):
@@ -2772,7 +2851,8 @@ def moe_train_step_path(torch, build):
     return train_step_path(torch, build, "3k-b", cfg, TRAIN_SEQ, TRAIN_LR)
 
 
-def fed_lm_path(torch, build, label, cfg, rounds, grad_control):
+def fed_lm_path(torch, build, label, cfg, rounds, grad_control, bound=MOE_QSGD_BOUND,
+                twin_ulps=(1,)):
     """`LMFedModel(cfg, flash=True)` at a smoke config under `run_fed_chs`
     with QSGD(16) uplinks, 4 clients in 2 clusters, scanned: launches
     exact, every uplink at the closed form, scanned bit-equal to looped and
@@ -2780,20 +2860,21 @@ def fed_lm_path(torch, build, label, cfg, rounds, grad_control):
     CPU's plain path, printed beside the CPU run's own gap from weights
     1 + 2^-23 apart (an expert-choice run strays from itself after its
     first round by a third or more of its update), its first round alone
-    held to MOE_QSGD_BOUND beside no-update, dense-uplink, QSGD(15) and
-    QSGD(8) controls, and a grad-mode run held to GRAD_BOUND beside
+    held to `bound` beside no-update, dense-uplink, QSGD(15) and QSGD(8)
+    controls and beside the CPU run's twins from weights 1 + K 2^-23 apart
+    (K in `twin_ulps`), and a grad-mode run held to GRAD_BOUND beside
     `grad_control` = (name, the arch config and the step size it runs on
     the CPU), as phase 3d holds its LM."""
     from repro_torch.comm.channels import DenseChannel, QSGDChannel, channel_wire_bits
     from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
     from repro_torch.utils import tree_leaves
 
-    kw = dict(num_clients=4, batch_size=2, seq_len=64)
+    kw = FED_LM_SOURCE
     channel = QSGDChannel(16)
-    K, E = 4, 2
+    K, E = FED_LM_K, FED_LM_E
     config = FedCHSConfig(rounds=rounds, local_steps=K, local_epochs=E, eval_every=1,
-                          channel=channel, seed=0, schedule=lambda k: 0.3)
-    task = lm_task(cfg, init_on_cpu=True, **kw)
+                          channel=channel, seed=0, schedule=lambda k: FED_LM_LR)
+    task = lm_task(cfg, **kw)
     torch.cuda.synchronize()
     build.reset_launches()
     res, ms = timed(torch, lambda: run_fed_chs(task, config))
@@ -2805,7 +2886,7 @@ def fed_lm_path(torch, build, label, cfg, rounds, grad_control):
     want = {"flash_attention": flash_layers(cfg) * (rounds * K + evals * n_eval_batches),
             "qsgd_quantize_pack": rounds * J * len(leaf_sizes),
             "qsgd_unpack_dequantize": rounds * J * len(leaf_sizes),
-            "qsgd_quantize": 0, "qsgd_dequantize": 0}
+            "qsgd_quantize": 0, "qsgd_dequantize": 0, "normal_fill": len(init_draws(cfg))}
     check(launches == want, f"{label} launches {launches}, expected {want}")
     d = sum(leaf_sizes)
     up = channel_wire_bits(channel, d, leaf_sizes)
@@ -2829,38 +2910,43 @@ def fed_lm_path(torch, build, label, cfg, rounds, grad_control):
     # tokens, so a token at the boundary switches experts under any change of
     # float order, and QSGD codes flip with it: after its first round the run
     # strays even from itself.  Each QSGD comparison prints the CPU run
-    # against itself from weights 1 + 2^-23 apart; the whole run's gap is
-    # printed beside it, the first round's is held to MOE_QSGD_BOUND.
+    # against itself from weights 1 + K 2^-23 apart (K in `twin_ulps` for the
+    # first round, 1 for the whole run); the whole run's gap is printed beside
+    # it, the first round's is held to `bound`.
     def cpu_run(conf, c=cfg, scale=1.0):
-        return run_fed_chs(lm_task(c, device="cpu", init_on_cpu=True, scale=scale, **kw), conf)
+        return run_fed_chs(lm_task(c, device="cpu", scale=scale, **kw), conf)
 
-    p0 = lm_task(cfg, device="cpu", init_on_cpu=True, **kw).init_params()
+    p0 = lm_task(cfg, device="cpu", **kw).init_params()
 
-    def gaps(name, on_card, conf, controls=()):
-        on_cpu, twin = cpu_run(conf), cpu_run(conf, scale=1 + F32_ULP)
+    def gaps(name, on_card, conf, controls=(), twin_ulps=(1,)):
+        on_cpu = cpu_run(conf)
         _, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
-        _, ulp_rel, _, _ = card_vs_cpu(torch, twin, on_cpu, p0)
+        twins = {k: card_vs_cpu(torch, cpu_run(conf, scale=1 + k * F32_ULP), on_cpu, p0)[1]
+                 for k in twin_ulps}
         b = flat_params(torch, on_cpu.final_params)
         update = float((b - flat_params(torch, p0)).norm())
         read = {c_name: float((flat_params(torch, c_run.final_params) - b).norm()) / update
                 for c_name, c_run in controls}
         print(f"  {name}, card vs CPU plain path: params gap {upd_rel:.3g} of the update (which "
               f"is {upd:.3g} of p_T), largest perplexity gap {gap:.3g}; the CPU run against "
-              f"itself from weights 1 + 2^-23 apart: {ulp_rel:.3g}"
+              f"itself from weights "
+              + ", ".join(f"1 {'+' if k > 0 else '-'} {abs(k)} x 2^-23 apart: {r:.3g}"
+                          for k, r in twins.items())
               + "".join(f"; {c_name} control {r:.3g}" for c_name, r in read.items()))
-        return upd_rel, read
+        return upd_rel, read, twins
 
     gaps(f"the {rounds}-round QSGD(16) run above", res, config)
     one = dataclasses.replace(config, rounds=1)
-    upd_rel, read = gaps(
-        f"its first round alone (bound {MOE_QSGD_BOUND})", run_fed_chs(task, one), one,
+    upd_rel, read, twins = gaps(
+        f"its first round alone (bound {bound})", run_fed_chs(task, one), one,
         [("no-update", cpu_run(dataclasses.replace(one, schedule=lambda k: 0.0))),
          ("dense-uplink", cpu_run(dataclasses.replace(one, channel=DenseChannel()))),
          ("QSGD(15)", cpu_run(dataclasses.replace(one, channel=QSGDChannel(15)))),
-         ("QSGD(8)", cpu_run(dataclasses.replace(one, channel=QSGDChannel(8))))])
-    check(upd_rel <= MOE_QSGD_BOUND, f"{label}: the card's first round strays from the CPU's")
+         ("QSGD(8)", cpu_run(dataclasses.replace(one, channel=QSGDChannel(8))))], twin_ulps)
+    check(upd_rel <= bound, f"{label}: the card's first round strays from the CPU's")
+    check(max(twins.values()) <= bound, f"{label}: the CPU's own twins read above the bound")
     for c_name, r in read.items():
-        check(r > MOE_QSGD_BOUND, f"{label}: the bound would pass the {c_name} control")
+        check(r > bound, f"{label}: the bound would pass the {c_name} control")
     grad = FedCHSConfig(rounds=2, local_steps=4, local_epochs=1, eval_every=1,
                         channel=DenseChannel(), seed=0, schedule=lambda k: 0.3)
     on_card = run_fed_chs(task, grad)
@@ -2887,7 +2973,8 @@ def moe_fed_path(torch, build):
     cfg = smoke_config(MOE_ARCH)
     fed_lm_path(torch, build, "3k-c", cfg, 3, (
         "wrong-mask control on the CPU (window 16)",
-        dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16), 0.3))
+        dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16), 0.3),
+        bound=MOE_ROUTED_BOUND, twin_ulps=(1, -8))
     qcfg = smoke_config(LM_ARCH)
     qparams = tf.init_params(qcfg, 0, "cuda")
     batched, _ = serve_loop(qcfg, qparams, requests=6, slots=4, prompt_len=6, max_new=8)
@@ -2978,7 +3065,7 @@ def mla_fed_path(torch, build):
     cfg = smoke_config(MLA_ARCH)
     fed_lm_path(torch, build, "3l-c", cfg, 3, (
         "wrong-position control on the CPU (rope base halved)",
-        dataclasses.replace(cfg, rope_theta=cfg.rope_theta / 2), 0.3))
+        dataclasses.replace(cfg, rope_theta=cfg.rope_theta / 2), 0.3), bound=MOE_ROUTED_BOUND)
 
 
 def ssd_path(torch, build):
@@ -3570,7 +3657,7 @@ def mesh_path(torch, build):
 # sum over "data"), so it is not bit-equal: it is held at MESH_BOUND x the
 # gap of the one-card run from weights 1 bf16 ulp apart, and a control
 # (one rank's wq shard zeroed; the chains not passed on) must exceed that.
-MESH_LM_BATCH, MESH_SEQ, MESH_PREFILL, MESH_DECODE = 2, 512, 4, 16
+MESH_LM_BATCH, MESH_SEQ, MESH_PREFILL, MESH_DECODE = 2, 512, 4, 8
 MESH_BOUND = 2.0
 FLASH_MESH = (MESH_PREFILL // 2, MESH_SEQ, MESH_SEQ, 8, 4, 128)  # a rank's prefill heads
 MESH_MOE_BATCH = 2
@@ -3627,7 +3714,7 @@ def rel_l2_bf16(a, b) -> float:
 
 def mesh_lm_steps(torch, cfg, params, chain2, mesh):
     """The steps of phase 3o on `mesh` (None: one card), timed: a train
-    round (C = 1, 2 x 512), a prefill (4 x 512) and 16 decode steps; with
+    round (C = 1, 2 x 512), a prefill (4 x 512) and 8 decode steps; with
     `chain2` on a pod mesh (or one card), a Fed-CHS and an HFL round over
     two chains of 1 x 512.  Returns flat results and the seconds of each."""
     import contextlib
@@ -3697,9 +3784,11 @@ def mesh_moe_inputs(torch):
     from repro_torch.configs.registry import get_config
     from repro_torch.models import ffn as F
 
+    from repro_torch.core import prng
+
     cfg = get_config("dbrx-132b")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    p = F.init_moe(cfg, gen, torch.bfloat16)
+    p = F.init_moe(cfg, prng.PRNGKey(5), torch.bfloat16, "cuda")
     x = (torch.randn((MESH_MOE_BATCH, MESH_SEQ, cfg.d_model), generator=gen, device="cuda")
          * 0.5).to(torch.bfloat16)
     return cfg, p, x
@@ -4200,6 +4289,210 @@ def flash_timings(torch, fa, flush):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 3q: the reference's weights from a seed (csrc/prng.cu, normal_fill)
+# ---------------------------------------------------------------------------
+
+# the H100 SXM's int32 rate: 64 INT32 lanes an SM (half its 128 FP32 lanes),
+# one operation each a clock, 132 SMs at the 1.98 GHz of F32_OPS_PER_S
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# per entry of normal_fill (csrc/prng.cu), counted from its code: threefry's
+# 20 rounds of an add, a rotate and a xor, its 5 key injections of 2 adds and
+# its 2 first adds, the 64-bit index, the bits to a float (the grid-stride
+# loop's own operations are not work the function needs)
+NORMAL_INT_OPS = 20 * 3 + 5 * 2 + 2 + 2 + 3
+# float operations (an FMA counts 2, as F32_OPS_PER_S does): the uniform (4),
+# x * -x and the 3 scalings (4), erf_inv's 8 FMAs and its shift (17), then
+# log1p's rational form (14 FMAs, 6 more) or, where |x| >= sqrt(2) - 1 (a
+# share 1 - 0.6436 of uniform u), the log (11 FMAs, 10 more)
+NORMAL_F32_OPS = 4 + 4 + 17 + 0.6436 * (14 * 2 + 6) + 0.3564 * (11 * 2 + 10)
+WINDOW = 1 << 20  # entries of each window 3q-b holds against the plain draw
+# the full-width configs of phases 3b and 3k-3m, as those phases cut them
+INIT_CONFIGS = (("3b", LM_ARCH, dict(dtype="float32")),
+                ("3k", MOE_ARCH, dict(num_layers=SERVE_LAYERS)),
+                ("3l", MLA_ARCH, dict(num_layers=1)),
+                ("3l-d", SSD_ARCH, {}),
+                ("3m-a", RG_ARCH, {}),
+                ("3m-d", ENC_ARCH, {}),
+                ("3m-e", VLM_ARCH, {}))
+
+
+def init_draws(cfg, seed=0) -> list[tuple]:
+    """The launches of `init_params(cfg, seed, ...)`, recorded from a run on
+    the meta device (nothing allocated or drawn): (leaf number, key words,
+    f32 scale, offset, entries, dtype) each, in launch order."""
+    import numpy as np
+
+    from repro_torch.models import common
+    from repro_torch.models import transformer as tf
+
+    draws, bases, real = [], [], common.normal_fill
+
+    def record(out, key, scale, offset=0):
+        base = out._base if out._base is not None else out
+        leaf = next((i for i, b in enumerate(bases) if b is base), None)
+        if leaf is None:
+            leaf = len(bases)
+            bases.append(base)
+        if out.numel():
+            draws.append((leaf, tuple(int(k) for k in np.asarray(key).reshape(2)),
+                          float(np.float32(scale)), offset, out.numel(), out.dtype))
+        return out
+
+    common.normal_fill = record
+    try:
+        tf.init_params(cfg, seed, "meta")
+    finally:
+        common.normal_fill = real
+    return draws
+
+
+def window_segments(draws, leaf, start, n):
+    """The (key, scale, offset, entries, dtype) pieces of entries [start,
+    start + n) of `leaf`'s flat entries (its draws in order)."""
+    out, pos = [], 0
+    for lf, key, scale, offset, m, dtype in draws:
+        if lf != leaf:
+            continue
+        lo, hi = max(start, pos), min(start + n, pos + m)
+        if lo < hi:
+            out.append((key, scale, offset + lo - pos, hi - lo, dtype))
+        pos += m
+    return out
+
+
+def init_path(torch, build):
+    """Phase 3q: `init_params` on the card through the normal_fill kernel.
+    (a) Every smoke config of the registry, seeds 0 and 1 (and bf16 at seed
+    0), bit-equal leaf by leaf to the CPU's plain draw, its launches equal
+    to its recorded draws; (b) the two largest leaves of each full-width
+    config of 3b and 3k-3m, three windows of WINDOW entries (the first, the
+    middle and the last) against `normal_ref` on the host with the same key
+    and offset, bit for bit, and the first window also against the plain
+    version on the card; (c) the kernel's ms a launch at qwen3-0.6b's
+    embedding and one deepseek-v3 MoE `w_gate` layer in bf16, beside its
+    bound and `torch.randn` of the shape.  Returns (max |kernel - plain|,
+    the timing row of the embedding)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config, smoke_config
+    from repro_torch.kernels.normal import normal_fill
+    from repro_torch.kernels.ref import normal_ref
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils import tree_leaves
+
+    def bits(t):
+        t = t.detach().contiguous().cpu()
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
+
+    t0 = time.perf_counter()
+    n_cases = 0
+    for arch in ARCH_IDS:
+        for seed, dtype in ((0, "float32"), (1, "bfloat16")):
+            cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+            build.reset_launches()
+            card = tree_leaves(tf.init_params(cfg, seed, "cuda"))
+            torch.cuda.synchronize()
+            launches = build.LAUNCHES["normal_fill"]
+            cpu = tree_leaves(tf.init_params(cfg, seed, "cpu"))
+            same = len(card) == len(cpu) and all(
+                a.dtype == b.dtype and a.shape == b.shape and torch.equal(bits(a), bits(b))
+                for a, b in zip(card, cpu))
+            check(same, f"3q-a: smoke {arch} seed {seed} {dtype}: the card's init_params "
+                  f"differs from the CPU's")
+            want = len(init_draws(cfg, seed))
+            check(launches == want, f"3q-a: smoke {arch}: normal_fill launched {launches} "
+                  f"times, expected {want}")
+            n_cases += 1
+    print(f"phase 3q-a: init_params of {n_cases} smoke configs (every arch, seed 0 in f32 "
+          f"and seed 1 in bf16) on the card bit-equal to the CPU's plain draw, leaf by leaf; "
+          f"launches = the recorded draws; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    max_err, n_windows = 0.0, 0
+    for label, arch, kw in INIT_CONFIGS:
+        cfg = dataclasses.replace(get_config(arch), **kw)
+        draws = init_draws(cfg)
+        sizes: dict[int, int] = {}
+        for leaf, *_, m, _ in draws:
+            sizes[leaf] = sizes.get(leaf, 0) + m
+        largest = sorted(sizes, key=lambda lf: -sizes[lf])[:2]
+        shown = []
+        for leaf in largest:
+            total = sizes[leaf]
+            dtype = next(d[5] for d in draws if d[0] == leaf)
+            shown.append(f"leaf {leaf} ({total} entries, {str(dtype).removeprefix('torch.')})")
+            for start in (0, (total // 2) - WINDOW // 2, total - WINDOW):
+                for key, scale, offset, m, dtype in window_segments(draws, leaf, start, WINDOW):
+                    got = normal_fill(torch.empty(m, dtype=dtype, device="cuda"), key, scale,
+                                      offset)
+                    want = normal_ref(key, offset, m, scale, dtype)
+                    check(torch.equal(bits(got), bits(want)),
+                          f"3q-b: {label} {cfg.name} leaf {leaf}, entries from {offset}: the "
+                          f"kernel differs from the plain draw at "
+                          f"{int((bits(got) != bits(want)).sum())} of {m}")
+                    if start == 0:
+                        plain = normal_ref(key, offset, m, scale, dtype, device="cuda")
+                        check(torch.equal(bits(got), bits(plain)),
+                              f"3q-b: {label} leaf {leaf}: the plain draw on the card differs")
+                    max_err = max(max_err, float((got.float().cpu() - want.float()).abs().max()))
+                    n_windows += 1
+        print(f"phase 3q-b: {label} {cfg.name} ({cfg.num_layers} layers): the two largest leaves, "
+              f"{'; '.join(shown)}: first, middle and last {WINDOW} entries equal normal_ref")
+    print(f"  3q-b: {n_windows} windows bit for bit, max |kernel - plain| {max_err:g}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (c) one launch at qwen3-0.6b's embedding (f32, the main path's) and at
+    # one deepseek-v3 MoE w_gate layer (bf16)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    rows = {}
+    main_cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    _, key, scale, _, m, dtype = init_draws(main_cfg)[0]  # the embedding, drawn first
+    shape = (main_cfg.vocab_size, main_cfg.d_model)
+    check(m == shape[0] * shape[1], "3q-c: the first draw is not the embedding")
+    moe_cfg = dataclasses.replace(get_config(MLA_ARCH), num_layers=1, mtp_depth=0)
+    moe = [d for d in init_draws(moe_cfg) if d[4] == moe_cfg.d_model * moe_cfg.d_ff]
+    moe_key, moe_scale = moe[0][1], moe[0][2]  # w_gate's first expert: the layer's key
+    moe_shape = (moe_cfg.num_experts, moe_cfg.d_model, moe_cfg.d_ff)
+    for name, shp, k, sc, dt in (
+            (f"{LM_ARCH} embedding", shape, key, scale, torch.float32),
+            (f"{MLA_ARCH} MoE w_gate layer", moe_shape, moe_key, moe_scale, torch.bfloat16)):
+        out = torch.empty(shp, dtype=dt, device="cuda")
+        n = out.numel()
+        build.reset_launches()
+        ms = time_launches(torch, lambda: normal_fill(out, k, sc), 10, flush)
+        check(build.LAUNCHES["normal_fill"] == 13, "3q-c: normal_fill launch count")
+        randn_ms = time_launches(torch, lambda: torch.randn(shp, dtype=dt, device="cuda"), 10,
+                                 flush)
+        nbytes = n * out.element_size()
+        # an SM issues to its INT32 and FP32 lanes side by side, so the
+        # operations take the longer of the two units' times, not their sum
+        int_ms = n * NORMAL_INT_OPS / INT32_OPS_PER_S * 1e3
+        f32_ms = n * NORMAL_F32_OPS / F32_OPS_PER_S * 1e3
+        ops_ms, bytes_ms = max(int_ms, f32_ms), nbytes / MEM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+        row = {"name": "normal_fill", "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None}
+        if dt == torch.float32:
+            plain_ms = time_launches(
+                torch, lambda: normal_ref(k, 0, n, sc, dt, device="cuda"), 3, flush)
+            row["plain_ms"] = plain_ms
+            rows[name] = row
+        print(f"phase 3q-c: normal_fill [{name}, {tuple(shp)} {str(dt).removeprefix('torch.')}, "
+              f"{n} entries]: {ms:.4f} ms median a launch; bound {bound_ms:.4f} ms by "
+              f"{bound_by}, the longest of {n * NORMAL_INT_OPS / 1e9:.1f} G int32 ops at "
+              f"{INT32_OPS_PER_S / 1e12:.1f} T/s ({int_ms:.4f} ms), "
+              f"{n * NORMAL_F32_OPS / 1e9:.1f} G f32 ops at {F32_OPS_PER_S / 1e12:g} T/s "
+              f"({f32_ms:.4f} ms) and {nbytes / 1e9:.2f} GB written ({bytes_ms:.4f} ms); "
+              f"{ms / bound_ms:.2f}x the bound; torch.randn of the shape "
+              f"(Philox, not the reference's draw: what the init cost before) {randn_ms:.4f} ms"
+              + (f"; the plain version on the card {row['plain_ms']:.1f} ms" if "plain_ms" in row
+                 else ""))
+        del out
+    torch.cuda.empty_cache()
+    return max_err, rows[f"{LM_ARCH} embedding"]
+
+
 def main() -> None:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch").is_dir():
@@ -4253,6 +4546,11 @@ def main() -> None:
 
     def elapsed(done: str) -> None:
         print(f"[{time.perf_counter() - t_paths:.0f} s into the paths: {done} done]")
+
+    # first of the paths: every later card-against-CPU phase starts from
+    # weights that this phase holds equal on the two
+    err["normal_fill"], normal_row = init_path(torch, build)
+    elapsed("3q")
 
     lenet_task = lenet_path(torch, build)
     quickstart_and_cross_check(torch)
@@ -4332,6 +4630,7 @@ def main() -> None:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     rows = qsgd_timings(torch, qsgd, ref, flush, lm_sizes)
     rows["flash_attention"] = flash_timings(torch, fa, flush)
+    rows["normal_fill"] = normal_row  # timed in phase 3q
     elapsed("4")
 
     kernels = []

@@ -18,8 +18,12 @@ captured CUDA graph replays it without a host-derived value.  Only the
 sequential key chain (`split_chain`) is walked once per run.
 
 `normal` is `jax.random.normal` in float32, bit for bit as XLA's CPU
-backend computes it: the classifiers draw their initial weights with it, so
-a seed gives the reference's weights.
+backend computes it, drawn on the host by `kernels/ref.py::normal_ref`:
+the classifiers draw their initial weights with it, so a seed gives the
+reference's weights.  The LMs draw theirs through `kernels/normal.py`, by
+a CUDA kernel on the card and by the same `normal_ref` on the CPU.
+`uniform`, `linspace` and `log` give the reference's few other drawn or
+computed leaves (RG-LRU's `lambda`, SSD's `A_log`).
 """
 from __future__ import annotations
 
@@ -108,26 +112,12 @@ def split_chain(key: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
     return key, subs
 
 
-# XLA's f32 `log1p` (Cephes' rational form below |x| = sqrt(2) - 1, else the
-# log of 1 + x by Cephes' `logf`) and f32 `erf_inv` (Giles' polynomials, w < 5
-# and w >= 5), with the fused multiply-adds that XLA's CPU backend emits.
-_LOG1P_NUM = tuple(np.float32(c) for c in (
-    4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
-    2.9911919328553073277375e1, 6.0949667980987787057556e1, 5.7112963590585538103336e1,
-    2.0039553499201281259648e1))
-_LOG1P_DEN = tuple(np.float32(c) for c in (
-    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1, 2.2176239823732856465394e2,
-    3.0909872225312059774938e2, 2.1642788614495947685003e2, 6.0118660497603843919306e1))
+# XLA's f32 `log` (Cephes' `logf`), with the fused multiply-adds that XLA's
+# CPU backend emits (`kernels/ref.py` holds the rest of `jax.random.normal`).
 _LOG_P = tuple(np.float32(c) for c in (
     7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
     -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
 _LOG_Q1, _LOG_Q2 = np.float32(-2.12194440e-4), np.float32(0.693359375)
-_ERFINV_LT5 = np.array([2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
-                        0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
-                        1.50140941], np.float32)
-_ERFINV_GE5 = np.array([-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
-                        0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
-                        2.83297682], np.float32)
 
 
 def _fma(a, b, c) -> np.ndarray:
@@ -136,7 +126,7 @@ def _fma(a, b, c) -> np.ndarray:
             + np.asarray(c, np.float64)).astype(np.float32)
 
 
-def _log(v: np.ndarray) -> np.ndarray:
+def log(v: np.ndarray) -> np.ndarray:
     """XLA's f32 log of positive normal `v`."""
     m, e = np.frexp(v)
     m, e = m.astype(np.float32), e.astype(np.float32)
@@ -155,43 +145,50 @@ def _log(v: np.ndarray) -> np.ndarray:
     return _fma(_LOG_Q2, e, x)
 
 
-def _log1p(x: np.ndarray) -> np.ndarray:
-    """XLA's f32 log1p of `x` in (-1, 0]."""
-    out = np.empty_like(x)
-    large = np.abs(x) >= np.float32(0.41421356237309504880)
-    out[large] = _log(np.float32(1) + x[large])
-    x = x[~large]
-    x2 = x * x
-    num = np.zeros_like(x)
-    den = np.zeros_like(x)
-    for cn, cd in zip(_LOG1P_NUM, _LOG1P_DEN):
-        num, den = _fma(num, x, cn), _fma(den, x, cd)
-    out[~large] = x + _fma(np.float32(-0.5), x2, (x * x2) * (num / den))
-    return out
-
-
-def _erf_inv(x: np.ndarray) -> np.ndarray:
-    """XLA's f32 erf_inv of `x` in (-1, 1)."""
-    w = -_log1p(x * -x)
-    lt = w < np.float32(5)
-    w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3))
-    p = np.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
-    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = _fma(p, w, np.where(lt, c_lt, c_ge))
-    return np.where(np.abs(x) == 1, x * np.finfo(np.float32).max, p * x)
-
-
-def normal(key: np.ndarray, shape) -> np.ndarray:
-    """`jax.random.normal(key, shape, float32)`: partitionable random bits
-    (threefry of each entry's 64-bit flat index, the two words xor'ed), a
-    uniform in (-1, 1) from their top 23 bits, then sqrt(2) erf_inv."""
-    shape = tuple(int(d) for d in shape)
-    idx = np.arange(int(np.prod(shape)), dtype=np.uint64)
+def _bits(key: np.ndarray, n: int) -> np.ndarray:
+    """The random bits of `jax.random` for flat indices 0..n-1: threefry of
+    each 64-bit index (high word, low word), the two words xor'ed."""
+    idx = np.arange(n, dtype=np.uint64)
     with np.errstate(over="ignore"):
         b0, b1 = threefry2x32(key, (idx >> np.uint64(32)).astype(np.uint32),
                               idx.astype(np.uint32))
-    bits = b0 ^ b1
-    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
-    lo = np.nextafter(np.float32(-1), np.float32(0))
-    u = np.maximum(lo, floats * (np.float32(1) - lo) + lo)
-    return (np.float32(np.sqrt(2)) * _erf_inv(u)).reshape(shape)
+    return b0 ^ b1
+
+
+def _unit(bits: np.ndarray) -> np.ndarray:
+    """Floats in [0, 1) from the top 23 bits."""
+    return ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+
+
+def uniform(key: np.ndarray, shape, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """`jax.random.uniform(key, shape, float32, minval, maxval)`: floats *
+    (max - min) + min in f32, fused as XLA's CPU backend fuses it, then
+    max(min, .)."""
+    shape = tuple(int(d) for d in shape)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    floats = _unit(_bits(key, int(np.prod(shape))))
+    return np.maximum(lo, _fma(floats, hi - lo, lo)).reshape(shape)
+
+
+def linspace(start: float, stop: float, num: int) -> np.ndarray:
+    """`jnp.linspace(start, stop, num)` in float32 as XLA's CPU backend
+    computes it for up to 352 entries (held for start 1, stop 16, the
+    only call): it folds the division by num - 1 into a product by its
+    f32 reciprocal r, then start * (1 - i r) + (stop r) i with the last
+    product fused; the last entry is `stop`."""
+    start, stop = np.float32(start), np.float32(stop)
+    if num < 2:
+        return np.full(num, start, np.float32)
+    i = np.arange(num - 1, dtype=np.float32)
+    r = np.float32(1) / np.float32(num - 1)
+    head = _fma(i, stop * r, start * (np.float32(1) - i * r))
+    return np.append(head, stop).astype(np.float32)
+
+
+def normal(key: np.ndarray, shape) -> np.ndarray:
+    """`jax.random.normal(key, shape, float32)`, drawn on the host by
+    `kernels/ref.py::normal_ref`."""
+    from repro_torch.kernels.ref import normal_ref
+
+    shape = tuple(int(d) for d in shape)
+    return normal_ref(key, 0, int(np.prod(shape)), 1.0).numpy().reshape(shape)

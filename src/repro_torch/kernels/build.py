@@ -24,12 +24,13 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                 "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# per-source flags: the QSGD kernels must round every float operation on its
-# own (codes and payloads are held bit for bit), so no FMA contraction there
-SOURCES = {"qsgd": ("-fmad=false",), "flash_attention": ()}
+# per-source flags: the QSGD and PRNG kernels must round every float operation
+# on its own (codes, payloads and weights are held bit for bit), so no FMA
+# contraction there
+SOURCES = {"qsgd": ("-fmad=false",), "flash_attention": (), "prng": ("-fmad=false",)}
 
 LAUNCHES = {"qsgd_quantize_pack": 0, "qsgd_unpack_dequantize": 0,
-            "qsgd_quantize": 0, "qsgd_dequantize": 0, "flash_attention": 0}
+            "qsgd_quantize": 0, "qsgd_dequantize": 0, "flash_attention": 0, "normal_fill": 0}
 _libs: dict[str, ctypes.CDLL] = {}
 
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import vjp
@@ -41,50 +42,53 @@ from torch.func import vjp
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (ContiguousGrad, SumGrad, apply_rope, dense_init,
-                                      layout_grad, rms_norm, rope_angles)
+                                      layout_grad, rms_norm, rope_angles, split_keys)
 
 NEG_INF = -1e30
 
 
-def init_attention(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()) -> dict:
-    """Attention params; `lead` = (layers,) stacks that many blocks."""
+def init_attention(cfg: ArchConfig, key: np.ndarray, dtype, device) -> dict:
+    """Attention params under key words `key` (*lead, 2), as the reference
+    draws them: `lead` = (layers,) stacks that many blocks."""
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ks = split_keys(key, 6)
+    lead = ks[0].shape[:-1]
     p = {
-        "wq": dense_init(gen, d, h * hd, lead=lead, dtype=dtype),
-        "wk": dense_init(gen, d, hkv * hd, lead=lead, dtype=dtype),
-        "wv": dense_init(gen, d, hkv * hd, lead=lead, dtype=dtype),
-        "wo": dense_init(gen, h * hd, d, lead=lead, dtype=dtype),
+        "wq": dense_init(ks[0], d, h * hd, dtype=dtype, device=device),
+        "wk": dense_init(ks[1], d, hkv * hd, dtype=dtype, device=device),
+        "wv": dense_init(ks[2], d, hkv * hd, dtype=dtype, device=device),
+        "wo": dense_init(ks[3], h * hd, d, dtype=dtype, device=device),
     }
-    dev = gen.device
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((*lead, h * hd), dtype=dtype, device=dev)
-        p["bk"] = torch.zeros((*lead, hkv * hd), dtype=dtype, device=dev)
-        p["bv"] = torch.zeros((*lead, hkv * hd), dtype=dtype, device=dev)
+        p["bq"] = torch.zeros((*lead, h * hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((*lead, hkv * hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((*lead, hkv * hd), dtype=dtype, device=device)
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((*lead, hd), dtype=dtype, device=dev)
-        p["k_norm"] = torch.ones((*lead, hd), dtype=dtype, device=dev)
+        p["q_norm"] = torch.ones((*lead, hd), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((*lead, hd), dtype=dtype, device=device)
     return p
 
 
-def init_mla(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()) -> dict:
-    """MLA params (the reference's leaves); `lead` = (layers,) stacks that
-    many blocks.  Drawn query projections first, then the latent K/V and
-    the output projection."""
+def init_mla(cfg: ArchConfig, key: np.ndarray, dtype, device) -> dict:
+    """MLA params under key words `key` (*lead, 2), as the reference draws
+    them: `lead` = (layers,) stacks that many blocks."""
     m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
-    dev = gen.device
+    ks = split_keys(key, 8)
+    lead = ks[0].shape[:-1]
     p = {}
     if m.q_lora_rank:
-        p["wq_a"] = dense_init(gen, d, m.q_lora_rank, lead=lead, dtype=dtype)
-        p["q_norm"] = torch.ones((*lead, m.q_lora_rank), dtype=dtype, device=dev)
-        p["wq_b"] = dense_init(gen, m.q_lora_rank, h * qk_head, lead=lead, dtype=dtype)
+        p["wq_a"] = dense_init(ks[0], d, m.q_lora_rank, dtype=dtype, device=device)
+        p["q_norm"] = torch.ones((*lead, m.q_lora_rank), dtype=dtype, device=device)
+        p["wq_b"] = dense_init(ks[1], m.q_lora_rank, h * qk_head, dtype=dtype, device=device)
     else:
-        p["wq"] = dense_init(gen, d, h * qk_head, lead=lead, dtype=dtype)
-    p["wkv_a"] = dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim, lead=lead, dtype=dtype)
-    p["kv_norm"] = torch.ones((*lead, m.kv_lora_rank), dtype=dtype, device=dev)
-    p["wkv_b"] = dense_init(gen, m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim),
-                            lead=lead, dtype=dtype)
-    p["wo"] = dense_init(gen, h * m.v_head_dim, d, lead=lead, dtype=dtype)
+        p["wq"] = dense_init(ks[0], d, h * qk_head, dtype=dtype, device=device)
+    p["wkv_a"] = dense_init(ks[2], d, m.kv_lora_rank + m.qk_rope_head_dim, dtype=dtype,
+                            device=device)
+    p["kv_norm"] = torch.ones((*lead, m.kv_lora_rank), dtype=dtype, device=device)
+    p["wkv_b"] = dense_init(ks[3], m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim),
+                            dtype=dtype, device=device)
+    p["wo"] = dense_init(ks[4], h * m.v_head_dim, d, dtype=dtype, device=device)
     return p
 
 

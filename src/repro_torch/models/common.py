@@ -7,19 +7,50 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.core import prng
+from repro_torch.kernels.normal import normal_fill
 
 
-def dense_init(gen: torch.Generator, n_in: int, n_out: int, *, scale: float | None = None,
-               lead: tuple = (), dtype=torch.float32) -> torch.Tensor:
-    """Normal weights of shape (*lead, n_in, n_out) times `scale` (default
-    1/sqrt(n_in)), drawn in f32 on the generator's device.  A matrix with
-    no rows (an FFN of width 0) is empty, as the reference's is."""
+def normal_leaf(keys: np.ndarray, shape: tuple, scale: float, dtype, device) -> torch.Tensor:
+    """`jax.random.normal(key, shape) * scale` cast to `dtype`, for each key
+    of `keys` (*lead, 2) (uint32 key words): a (*lead, *shape) tensor on
+    `device`, one repetition of a stacked leaf per key.  Drawn by
+    `kernels/normal.py` one trailing matrix at a time (at its offset in its
+    repetition's draw), so an expert stack is drawn expert by expert."""
+    keys = np.asarray(keys, np.uint32)
+    lead = keys.shape[:-1]
+    out = torch.empty((*lead, *shape), dtype=dtype, device=device)
+    mat = int(np.prod(shape[-2:]))
+    if is_fake(out):  # the dry run's abstract params: nothing to draw
+        return out
+    for idx in np.ndindex(*lead):
+        for j, piece in enumerate(out[idx].view(-1, mat) if mat else ()):
+            normal_fill(piece, keys[idx], scale, offset=j * mat)
+    return out
+
+
+def dense_init(key: np.ndarray, n_in: int, n_out: int, *, scale: float | None = None,
+               dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """The reference's `dense_init` under key words `key` (*lead, 2): normal
+    weights (*lead, n_in, n_out) times `scale`, by default 1/sqrt(n_in) in
+    f64 rounded to f32 (the reference multiplies its f32 draw by that numpy
+    scalar).  A matrix with no rows (an FFN of width 0) is empty, as the
+    reference's is."""
     if scale is None:
         scale = 1.0 / math.sqrt(n_in) if n_in else math.inf
-    w = torch.randn((*lead, n_in, n_out), generator=gen, device=gen.device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return normal_leaf(key, (n_in, n_out), scale, dtype, device)
+
+
+def split_keys(key: np.ndarray, n: int) -> list[np.ndarray]:
+    """`jax.random.split(key, n)` of every key of `key` (*lead, 2): n key
+    arrays (*lead, 2)."""
+    ks = prng.split_each(key, n)
+    return [ks[..., i, :] for i in range(n)]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -29,30 +29,31 @@ mesh it falls through to the plain path.
 """
 from __future__ import annotations
 
-import math
-
+import numpy as np
 import torch
-from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import activation, dense_init
+from repro_torch.models.common import activation, dense_init, normal_leaf, split_keys
 
 
-def init_ffn(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()) -> dict:
-    """Gated (SwiGLU-family, act "silu") or plain FFN params; `lead` =
-    (layers,) stacks that many blocks."""
+def init_ffn(cfg: ArchConfig, key: np.ndarray, dtype, device) -> dict:
+    """Gated (SwiGLU-family, act "silu") or plain FFN params under key
+    words `key` (*lead, 2), as the reference draws them: `lead` = (layers,)
+    stacks that many blocks."""
     d, f = cfg.d_model, cfg.d_ff
+    k1, k2, k3 = split_keys(key, 3)
+    lead = k1.shape[:-1]
     if cfg.act == "silu":
         return {
-            "w_gate": dense_init(gen, d, f, lead=lead, dtype=dtype),
-            "w_in": dense_init(gen, d, f, lead=lead, dtype=dtype),
-            "w_out": dense_init(gen, f, d, lead=lead, dtype=dtype),
+            "w_gate": dense_init(k1, d, f, dtype=dtype, device=device),
+            "w_in": dense_init(k2, d, f, dtype=dtype, device=device),
+            "w_out": dense_init(k3, f, d, dtype=dtype, device=device),
         }
     return {
-        "w_in": dense_init(gen, d, f, lead=lead, dtype=dtype),
-        "b_in": torch.zeros((*lead, f), dtype=dtype, device=gen.device),
-        "w_out": dense_init(gen, f, d, lead=lead, dtype=dtype),
-        "b_out": torch.zeros((*lead, d), dtype=dtype, device=gen.device),
+        "w_in": dense_init(k1, d, f, dtype=dtype, device=device),
+        "b_in": torch.zeros((*lead, f), dtype=dtype, device=device),
+        "w_out": dense_init(k2, f, d, dtype=dtype, device=device),
+        "b_out": torch.zeros((*lead, d), dtype=dtype, device=device),
     }
 
 
@@ -82,39 +83,30 @@ def _constrain(t: torch.Tensor, *axes) -> torch.Tensor:
     return t.redistribute(t.device_mesh, pl) if pl != list(t.placements) else t
 
 
-def _expert_weights(gen: torch.Generator, lead: tuple, E: int, n_in: int, n_out: int,
-                    dtype) -> torch.Tensor:
-    """(*lead, E, n_in, n_out) normal weights times 1/sqrt(n_in), drawn in f32
-    one (n_in, n_out) matrix at a time, so a full-width stack never has an
-    f32 copy on the device.  Built under `FakeTensorMode` (the dry run's
-    `abstract_params`), the stack holds no data and nothing is drawn."""
-    w = torch.empty((*lead, E, n_in, n_out), dtype=dtype, device=gen.device)
-    if is_fake(w):
-        return w
-    for mat in w.view(-1, n_in, n_out):
-        mat.copy_(torch.randn((n_in, n_out), generator=gen, device=gen.device,
-                              dtype=torch.float32) * (1.0 / math.sqrt(n_in)))
-    return w
-
-
-def init_moe(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()) -> dict:
-    """MoE params: `router` (d, E) in f32 whatever `dtype`; experts `w_gate`,
-    `w_in` (E, d, f) and `w_out` (E, f, d); `shared` (a gated FFN of width
-    f * num_shared_experts) when the config has shared experts.  `lead` =
+def init_moe(cfg: ArchConfig, key: np.ndarray, dtype, device) -> dict:
+    """MoE params under key words `key` (*lead, 2), as the reference draws
+    them: `router` (d, E) in f32 whatever `dtype`; experts `w_gate`, `w_in`
+    (E, d, f) and `w_out` (E, f, d), scaled by 1/sqrt(d) and 1/sqrt(f)
+    computed in f32 (not `dense_init`'s f64 scale) and drawn one expert
+    matrix at a time; `shared` (a gated FFN of width f *
+    num_shared_experts) when the config has shared experts.  `lead` =
     (layers,) stacks that many blocks."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    k_r, k_g, k_i, k_o, k_s = split_keys(key, 5)
+    scale_in, scale_out = (np.float32(1) / np.sqrt(np.float32(n)) for n in (d, f))
     p = {
-        "router": dense_init(gen, d, E, lead=lead, dtype=torch.float32),
-        "w_gate": _expert_weights(gen, lead, E, d, f, dtype),
-        "w_in": _expert_weights(gen, lead, E, d, f, dtype),
-        "w_out": _expert_weights(gen, lead, E, f, d, dtype),
+        "router": dense_init(k_r, d, E, dtype=torch.float32, device=device),
+        "w_gate": normal_leaf(k_g, (E, d, f), scale_in, dtype, device),
+        "w_in": normal_leaf(k_i, (E, d, f), scale_in, dtype, device),
+        "w_out": normal_leaf(k_o, (E, f, d), scale_out, dtype, device),
     }
     if cfg.num_shared_experts:
+        ks = split_keys(k_s, 3)
         fs = f * cfg.num_shared_experts
         p["shared"] = {
-            "w_gate": dense_init(gen, d, fs, lead=lead, dtype=dtype),
-            "w_in": dense_init(gen, d, fs, lead=lead, dtype=dtype),
-            "w_out": dense_init(gen, fs, d, lead=lead, dtype=dtype),
+            "w_gate": dense_init(ks[0], d, fs, dtype=dtype, device=device),
+            "w_in": dense_init(ks[1], d, fs, dtype=dtype, device=device),
+            "w_out": dense_init(ks[2], fs, d, dtype=dtype, device=device),
         }
     return p
 

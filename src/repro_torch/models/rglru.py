@@ -20,11 +20,13 @@ f32 whatever the model's dtype; the recurrence runs in f32 and its state
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import activation, dense_init
+from repro_torch.core import prng
+from repro_torch.models.common import activation, dense_init, normal_leaf, split_keys
 
 _C = 8.0
 
@@ -44,22 +46,26 @@ def _lru_scan(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return u
 
 
-def init_rglru_block(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()) -> dict:
-    """The block's params (the reference's leaves); `lead` = (layers,)
-    stacks that many blocks.  `lambda` is f32, drawn in (0.3, 0.8) so that
-    a lies in (0.9, 0.999) at r = 0.5."""
+def init_rglru_block(cfg: ArchConfig, key: np.ndarray, dtype, device) -> dict:
+    """The block's params under key words `key` (*lead, 2), as the
+    reference draws them: `lead` = (layers,) stacks that many blocks.
+    `lambda` is f32, uniform in (0.3, 0.8) so that a lies in (0.9, 0.999)
+    at r = 0.5; `w_out` takes `fold_in(key, 9)`."""
     d = cfg.d_model
     w = cfg.lru_width or d
-    dev = gen.device
+    ks = split_keys(key, 6)
+    lead = ks[0].shape[:-1]
+    lam = np.stack([prng.uniform(ks[4][idx], (w,), 0.3, 0.8) for idx in np.ndindex(*lead)])
     return {
-        "w_x": dense_init(gen, d, w, lead=lead, dtype=dtype),
-        "w_gate": dense_init(gen, d, w, lead=lead, dtype=dtype),
-        "conv_w": (torch.randn((*lead, 4, w), generator=gen, device=dev) * 0.2).to(dtype),
-        "conv_b": torch.zeros((*lead, w), dtype=dtype, device=dev),
-        "w_r": dense_init(gen, w, w, lead=lead, dtype=dtype),
-        "w_i": dense_init(gen, w, w, lead=lead, dtype=dtype),
-        "lambda": torch.rand((*lead, w), generator=gen, device=dev) * 0.5 + 0.3,
-        "w_out": dense_init(gen, w, d, lead=lead, dtype=dtype),
+        "w_x": dense_init(ks[0], d, w, dtype=dtype, device=device),
+        "w_gate": dense_init(ks[1], d, w, dtype=dtype, device=device),
+        "conv_w": normal_leaf(ks[2], (4, w), 0.2, dtype, device),
+        "conv_b": torch.zeros((*lead, w), dtype=dtype, device=device),
+        "w_r": dense_init(ks[3], w, w, dtype=dtype, device=device),
+        "w_i": dense_init(ks[5], w, w, dtype=dtype, device=device),
+        "lambda": torch.from_numpy(lam.reshape(*lead, w)).to(device),
+        "w_out": dense_init(prng.fold_in_each(key, [9])[..., 0, :], w, d, dtype=dtype,
+                            device=device),
     }
 
 

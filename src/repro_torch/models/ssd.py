@@ -23,12 +23,14 @@ broadcast over heads).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng
 from repro_torch.models.attention import local_heads
-from repro_torch.models.common import dense_init, rms_norm, silu
+from repro_torch.models.common import dense_init, normal_leaf, rms_norm, silu, split_keys
 
 
 def ssd_chunked(x: torch.Tensor, log_a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, *,
@@ -100,35 +102,31 @@ def _dims(cfg: ArchConfig) -> tuple[int, int, int]:
     return d_in, cfg.ssm_state, d_in // cfg.ssm_head_dim
 
 
-def init_ssd_block(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()) -> dict:
-    """The block's params (the reference's leaves); `lead` = (layers,)
-    stacks that many blocks.  `A_log` and `dt_bias` are f32."""
+def init_ssd_block(cfg: ArchConfig, key: np.ndarray, dtype, device) -> dict:
+    """The block's params under key words `key` (*lead, 2), as the
+    reference draws them: `lead` = (layers,) stacks that many blocks.
+    `A_log` and `dt_bias` are f32; `A_log` is log(linspace(1, 16, H)) with
+    XLA's f32 linspace and log."""
     d = cfg.d_model
     d_in, N, H = _dims(cfg)
-    dev = gen.device
-
-    def conv_w(width):
-        return (torch.randn((*lead, cfg.ssm_conv, width), generator=gen, device=dev)
-                * 0.2).to(dtype)
-
-    def const(values, dt):
-        return values.to(device=dev, dtype=dt).expand(*lead, -1).clone()
-
+    ks = split_keys(key, 7)
+    lead = ks[0].shape[:-1]
+    a_log = torch.from_numpy(prng.log(prng.linspace(1.0, 16.0, H)))
     return {
         # wide streams: z (gate) and x
-        "w_in": dense_init(gen, d, 2 * d_in, lead=lead, dtype=dtype),
-        "conv_w": conv_w(d_in),
-        "conv_b": torch.zeros((*lead, d_in), dtype=dtype, device=dev),
+        "w_in": dense_init(ks[0], d, 2 * d_in, dtype=dtype, device=device),
+        "conv_w": normal_leaf(ks[1], (cfg.ssm_conv, d_in), 0.2, dtype, device),
+        "conv_b": torch.zeros((*lead, d_in), dtype=dtype, device=device),
         # narrow streams: B, C (state projections) and dt
-        "w_bc": dense_init(gen, d, 2 * N, lead=lead, dtype=dtype),
-        "conv_bc_w": conv_w(2 * N),
-        "conv_bc_b": torch.zeros((*lead, 2 * N), dtype=dtype, device=dev),
-        "w_dt": dense_init(gen, d, H, lead=lead, dtype=dtype),
-        "A_log": const(torch.log(torch.linspace(1.0, 16.0, H)), torch.float32),
-        "dt_bias": torch.zeros((*lead, H), dtype=torch.float32, device=dev),
-        "D": torch.ones((*lead, H), dtype=dtype, device=dev),
-        "norm": torch.ones((*lead, d_in), dtype=dtype, device=dev),
-        "w_out": dense_init(gen, d_in, d, lead=lead, dtype=dtype),
+        "w_bc": dense_init(ks[2], d, 2 * N, dtype=dtype, device=device),
+        "conv_bc_w": normal_leaf(ks[3], (cfg.ssm_conv, 2 * N), 0.2, dtype, device),
+        "conv_bc_b": torch.zeros((*lead, 2 * N), dtype=dtype, device=device),
+        "w_dt": dense_init(ks[5], d, H, dtype=dtype, device=device),
+        "A_log": a_log.to(device).expand(*lead, -1).clone(),
+        "dt_bias": torch.zeros((*lead, H), dtype=torch.float32, device=device),
+        "D": torch.ones((*lead, H), dtype=dtype, device=device),
+        "norm": torch.ones((*lead, d_in), dtype=dtype, device=device),
+        "w_out": dense_init(ks[6], d_in, d, dtype=dtype, device=device),
     }
 
 

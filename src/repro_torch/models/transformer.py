@@ -64,9 +64,11 @@ from torch.func import vjp
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru, ssd
-from repro_torch.models.common import cross_entropy_loss, dense_init, layout_grad, rms_norm
+from repro_torch.models.common import (cross_entropy_loss, dense_init, layout_grad, rms_norm,
+                                      split_keys)
 from repro_torch.models.ffn import ffn_forward, init_ffn, init_moe, moe_forward
 from repro_torch.utils import (grad_and_value, resolve_device, tree_flatten, tree_leaves,
                                tree_map, tree_unflatten)
@@ -112,29 +114,29 @@ def _has_ffn(kind: str) -> bool:
     return kind != "ssd"  # mamba2 blocks are mixer-only
 
 
-def init_block(cfg: ArchConfig, kind: str, gen: torch.Generator, dtype,
-               lead: tuple = ()) -> dict:
-    """A block's params: the mixer (attention, MLA, SSD or RG-LRU) drawn
-    first, then an encoder-decoder's cross-attention, then the FFN, the
-    order that keeps every earlier config's weights."""
-    ones = torch.ones((*lead, cfg.d_model), dtype=dtype, device=gen.device)
+def init_block(cfg: ArchConfig, kind: str, key: np.ndarray, dtype, device) -> dict:
+    """A block's params under key words `key` (*lead, 2), as the reference
+    draws them (`split(key, 3)`: the mixer, the FFN, an encoder-decoder's
+    cross-attention); `lead` = (layers,) stacks that many blocks."""
+    k1, k2, k3 = split_keys(key, 3)
+    ones = torch.ones((*k1.shape[:-1], cfg.d_model), dtype=dtype, device=device)
     p: dict = {"ln1": ones}
     if kind == "ssd":
-        p["mixer"] = ssd.init_ssd_block(cfg, gen, dtype, lead)
+        p["mixer"] = ssd.init_ssd_block(cfg, k1, dtype, device)
     elif kind == "rglru":
-        p["mixer"] = rglru.init_rglru_block(cfg, gen, dtype, lead)
+        p["mixer"] = rglru.init_rglru_block(cfg, k1, dtype, device)
     elif kind in ("attn", "local"):
         init = attn.init_mla if cfg.mla is not None else attn.init_attention
-        p["attn"] = init(cfg, gen, dtype, lead)
+        p["attn"] = init(cfg, k1, dtype, device)
         if cfg.is_encoder_decoder:
             p["ln_x"] = ones.clone()
             xcfg = dataclasses.replace(cfg, qkv_bias=False, qk_norm=False)
-            p["xattn"] = attn.init_attention(xcfg, gen, dtype, lead)
+            p["xattn"] = attn.init_attention(xcfg, k3, dtype, device)
     else:
         raise ValueError(kind)
     if _has_ffn(kind):
         p["ln2"] = ones.clone()
-        p["ffn"] = (init_moe if cfg.is_moe else init_ffn)(cfg, gen, dtype, lead)
+        p["ffn"] = (init_moe if cfg.is_moe else init_ffn)(cfg, k2, dtype, device)
     return p
 
 
@@ -272,35 +274,42 @@ def block_decode(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, cache: di
 
 
 def init_params(cfg: ArchConfig, seed: int, device) -> dict:
-    """Random params from `seed`, drawn with a generator on `device`: the
-    embedding, the layers, the LM head, then what only some configs have
-    (the encoder, the patch projector, the MTP head), so a config without
-    them draws the weights it drew before they were ported."""
+    """The reference's `init_params(cfg, PRNGKey(seed))`, bit for bit: its
+    key tree walked on the host (`core/prng.py`), every random leaf drawn by
+    `kernels/normal.py` on `device` (the CUDA kernel on the card, its plain
+    version on the CPU)."""
     dtype = _dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
     n_super, n_tail = _layout(cfg)
     plen = len(cfg.block_pattern)
+    keys = prng.split(prng.PRNGKey(seed), cfg.num_layers + cfg.encoder_layers + 8)
     p: dict = {
-        "embed": dense_init(gen, cfg.vocab_size, cfg.d_model, scale=0.02, dtype=dtype),
-        "super": [init_block(cfg, kind, gen, dtype, (n_super,)) for kind in cfg.block_pattern]
-        if n_super else [],
-        "tail": [init_block(cfg, cfg.block_kind(n_super * plen + i), gen, dtype)
-                 for i in range(n_tail)],
+        "embed": dense_init(keys[-1], cfg.vocab_size, cfg.d_model, scale=0.02, dtype=dtype,
+                            device=device),
+        # pattern position pos of repetition r takes keys[r * plen + pos]
+        "super": [init_block(cfg, kind, keys[pos:n_super * plen:plen], dtype, device)
+                  for pos, kind in enumerate(cfg.block_pattern)] if n_super else [],
+        "tail": [init_block(cfg, cfg.block_kind(n_super * plen + i), keys[n_super * plen + i],
+                            dtype, device) for i in range(n_tail)],
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype=dtype)
+        p["lm_head"] = dense_init(keys[-2], cfg.d_model, cfg.vocab_size, dtype=dtype,
+                                  device=device)
     if cfg.is_encoder_decoder:
         p["encoder"] = {
-            "blocks": _init_encoder_block(_encoder_cfg(cfg), gen, dtype, (cfg.encoder_layers,)),
+            "blocks": _init_encoder_block(_encoder_cfg(cfg),
+                                          prng.split(keys[-3], cfg.encoder_layers), dtype,
+                                          device),
             "norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         }
     if cfg.num_patches:
-        p["projector"] = dense_init(gen, PATCH_DIM, cfg.d_model, dtype=dtype)
-    if cfg.mtp_depth:  # drawn last, so the trunk's weights are those without it
+        p["projector"] = dense_init(keys[-4], PATCH_DIM, cfg.d_model, dtype=dtype,
+                                    device=device)
+    if cfg.mtp_depth:
         p["mtp"] = {
-            "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype=dtype),
-            "block": init_block(cfg, "attn", gen, dtype),
+            "proj": dense_init(keys[-5], 2 * cfg.d_model, cfg.d_model, dtype=dtype,
+                               device=device),
+            "block": init_block(cfg, "attn", keys[-6], dtype, device),
             "norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         }
     return p
@@ -313,13 +322,13 @@ def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
                                block_pattern=("attn",), mla=None)
 
 
-def _init_encoder_block(cfg: ArchConfig, gen: torch.Generator, dtype, lead: tuple = ()
-                        ) -> dict:
-    """An encoder block's params (attention, then FFN); `lead` = (layers,)
-    stacks that many."""
-    ones = torch.ones((*lead, cfg.d_model), dtype=dtype, device=gen.device)
-    return {"ln1": ones, "attn": attn.init_attention(cfg, gen, dtype, lead),
-            "ln2": ones.clone(), "ffn": init_ffn(cfg, gen, dtype, lead)}
+def _init_encoder_block(cfg: ArchConfig, key: np.ndarray, dtype, device) -> dict:
+    """An encoder block's params (attention, then FFN) under key words `key`
+    (*lead, 2); `lead` = (layers,) stacks that many."""
+    k1, k2 = split_keys(key, 2)
+    ones = torch.ones((*k1.shape[:-1], cfg.d_model), dtype=dtype, device=device)
+    return {"ln1": ones, "attn": attn.init_attention(cfg, k1, dtype, device),
+            "ln2": ones.clone(), "ffn": init_ffn(cfg, k2, dtype, device)}
 
 
 @functools.lru_cache(maxsize=4)

@@ -1,6 +1,7 @@
 """The port's example twins against the reference's examples, on the CPU:
 `examples/torch_{compare_algorithms,dynamic_topology,netsim_tour,
-participation_tour}.py`.
+participation_tour}.py`, and the LM twins `examples/torch_{serve_decode,
+train_lm_fedchs}.py` (at the end of this file).
 
 Each twin runs in a subprocess through its `main`, at a quarter of its
 rounds (`--rounds-div 4`), and hands back its rows.  The reference's same
@@ -318,3 +319,127 @@ def test_twin_holds_the_reference_example(name):
     for row, key, gap, control in compare(twin, ref, ctrls):
         print(f"{name} {row} {key}: gap {gap:.4g}, 1-ulp control {control:.4g}")
         assert gap <= control, (row, key, gap, control)
+
+
+# -- the LM twins: weights from the seed alone ----------------------------------
+#
+# `examples/torch_serve_decode.py` draws the reference example's weights
+# (`init_params` from seed 0) and, for an encoder-decoder, its stub frames
+# (`jax.random.normal(PRNGKey(1), ...) * 0.1`); nothing is carried across.
+# Its greedy tokens equal the reference example's, or the first difference
+# comes no earlier than that of the twin against itself from weights 1 ulp
+# up (every entry's `nextafter`).
+
+SERVE_ARCHS = ("qwen3-0.6b", "whisper-tiny")
+
+
+def ref_serve_decode(arch: str, batch: int = 4, prompt_len: int = 16, tokens: int = 32) -> list:
+    """`examples/serve_decode.py`'s calls: teacher-forced decode over the
+    prompt, then greedy decode."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import smoke_config
+    from repro.data.tokens import synthetic_lm_batch
+    from repro.models import transformer as jtf
+
+    cfg = smoke_config(arch)
+    params = jtf.init_params(cfg, jax.random.PRNGKey(0))
+    b = {k: jnp.asarray(v) for k, v in
+         synthetic_lm_batch(cfg.vocab_size, batch, prompt_len, seed=0).items()}
+    if cfg.is_encoder_decoder:
+        b["frames"] = jax.random.normal(
+            jax.random.PRNGKey(1), (batch, cfg.num_audio_frames, cfg.d_model)) * 0.1
+    enc_len = cfg.num_audio_frames if cfg.is_encoder_decoder else 0
+    caches = jtf.init_caches(cfg, batch, prompt_len + tokens, enc_len=enc_len)
+    if cfg.is_encoder_decoder:
+        caches = jtf._fill_cross_caches(cfg, params, b, caches)
+    step = jax.jit(lambda p, c, t: jtf.decode_step(cfg, p, c, t))
+    for t in range(prompt_len):
+        logits, caches = step(params, caches, b["tokens"][:, t:t + 1])
+    tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
+    out = [tok]
+    for _ in range(tokens - 1):
+        logits, caches = step(params, caches, tok)
+        tok = jnp.argmax(logits, axis=-1)[:, None].astype(jnp.int32)
+        out.append(tok)
+    return np.concatenate([np.asarray(t) for t in out], axis=1).tolist()
+
+
+class _NudgedTransformer:
+    """The port's transformer module, its weights 1 ulp up."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+    def init_params(self, cfg, seed, device):
+        from repro_torch.utils import tree_map
+
+        return tree_map(lambda t: torch.nextafter(t, torch.full_like(t, np.inf)),
+                        self.module.init_params(cfg, seed, device))
+
+
+def _first_difference(a: list, b: list):
+    """(step, request) of the first token where two generations differ."""
+    steps = [i for i in range(len(a[0])) if any(x[i] != y[i] for x, y in zip(a, b))]
+    return None if not steps else (steps[0], [r for r in range(len(a)) if a[r][steps[0]] !=
+                                               b[r][steps[0]]])
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serve_decode_twin_holds_the_reference_example(arch):
+    argv = ["--arch", arch, "--device", "cpu"]
+    twin = _twin("serve_decode")["main"](argv)
+    ref = ref_serve_decode(arch)
+    first = _first_difference(twin, ref)
+    print(f"{arch}: {len(twin)} requests x {len(twin[0])} tokens, first difference from the "
+          f"reference's: {first}")
+    if first is None:
+        return
+    mod = _twin("serve_decode")
+    mod["main"].__globals__["tf"] = _NudgedTransformer(mod["tf"])
+    control = _first_difference(mod["main"](argv), twin)
+    print(f"{arch}: the twin's tokens first differ from the reference's at {first}; the "
+          f"twin 1 ulp apart first differs at {control}")
+    assert control is not None and first[0] >= control[0], (first, control)
+
+
+# `examples/torch_train_lm_fedchs.py` at its smallest flags (a 2-layer,
+# d_model 32 LM over a 64-token vocabulary, 6 rounds of QSGD(16) uplinks)
+# against `examples/train_lm_fedchs.py`'s same calls, each drawing its own
+# weights from seed 0: the ledger and the visit order exact, the held-out
+# perplexities within the 2% of `tests/test_torch_lm.py`'s QSGD runs.
+
+TRAIN_ARGV = ["--d-model", "32", "--layers", "2", "--vocab", "64", "--seq", "16", "--batch",
+              "2", "--rounds", "6", "--eval-every", "2", "--target-ppl", "70"]
+
+
+def ref_train_lm_fedchs():
+    """`examples/train_lm_fedchs.py`'s calls at `TRAIN_ARGV` (its toy mode:
+    4 clients, 2 clusters, K = 4, E = 2, QSGD(16), lr 0.3)."""
+    from repro.comm.channels import QSGDChannel
+    from repro.configs.base import ArchConfig
+    from repro.core import FedCHSConfig, run_fed_chs
+    from repro.core.simulation import FLTask
+    from repro.data.sources import TokenSource
+    from repro.models.fed import LMFedModel
+
+    cfg = ArchConfig(name="fedchs-lm", family="dense", num_layers=2, d_model=32, num_heads=1,
+                     num_kv_heads=1, d_ff=128, vocab_size=64, dtype="float32")
+    source = TokenSource(64, 4, 2, 16, topics=4, seed=0)
+    task = FLTask.from_source(LMFedModel(cfg), source, [[0, 2], [1, 3]], seed=0)
+    return run_fed_chs(task, FedCHSConfig(rounds=6, local_steps=4, local_epochs=2,
+                                          eval_every=2, channel=QSGDChannel(16), seed=0,
+                                          schedule=lambda k: 0.3))
+
+
+def test_train_lm_fedchs_twin_holds_the_reference_example():
+    res = _twin("train_lm_fedchs")["main"]([*TRAIN_ARGV, "--device", "cpu"])
+    jres = ref_train_lm_fedchs()
+    assert _ledger(res) == _ledger(jres)  # the hops used; the port's ledger lists every hop
+    assert res.ledger.events == jres.ledger.events and res.ledger.history == jres.ledger.history
+    assert res.rounds == jres.rounds
+    np.testing.assert_allclose(res.test_acc, jres.test_acc, rtol=0.02)

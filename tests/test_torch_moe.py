@@ -70,6 +70,7 @@ from repro_torch.core.baselines import (
     run_hier_local_qsgd,
     run_wrwgd,
 )
+from repro_torch.core import prng
 from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
 from repro_torch.core.precision import Precision
 from repro_torch.core.simulation import FLTask
@@ -110,7 +111,7 @@ def test_init_moe_leaves_match_reference(shared):
     jcfg, cfg = (dataclasses.replace(c, num_shared_experts=shared)
                  for c in (jax_smoke_config(ARCH), smoke_config(ARCH)))
     jp = jffn.init_moe(jcfg, jax.random.PRNGKey(0), jnp.bfloat16)
-    p = ffn.init_moe(cfg, torch.Generator().manual_seed(0), torch.bfloat16)
+    p = ffn.init_moe(cfg, prng.PRNGKey(0), torch.bfloat16, "cpu")
     jleaves = jax.tree.leaves(jp)
     leaves, _ = tree_flatten(p)
     assert [(tuple(t.shape), str(t.dtype).removeprefix("torch.")) for t in leaves] == \
@@ -122,10 +123,12 @@ def test_init_moe_leaves_match_reference(shared):
     ffn_leaves = tree_leaves(stacked["super"][0]["ffn"])
     assert [tuple(t.shape) for t in ffn_leaves] == [(cfg.num_layers, *a.shape)
                                                     for a in jleaves]
-    # the same scale as the reference's draws
+    # the reference's draws, bit for bit (the router in f32, the experts
+    # at scales computed in f32)
     for a, t in zip(jleaves, leaves):
-        a = np.asarray(a, np.float32)
-        assert float(t.float().std()) == pytest.approx(float(a.std()), rel=0.05)
+        a = np.asarray(a)
+        got = t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+        np.testing.assert_array_equal(got, a.view(got.dtype))
 
 
 @pytest.mark.parametrize("method", ["dense_topk", "expert_choice"])

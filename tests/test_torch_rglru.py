@@ -48,7 +48,7 @@ from repro.models.fed import LMFedModel as JaxLMFedModel
 from repro_torch.checkpoint.io import treedef_str
 from repro_torch.comm.channels import DenseChannel, QSGDChannel
 from repro_torch.configs.registry import smoke_config
-from repro_torch.core import FedCHSConfig, FLTask, run_fed_chs
+from repro_torch.core import FedCHSConfig, FLTask, prng, run_fed_chs
 from repro_torch.data.sources import TokenSource
 from repro_torch.data.tokens import synthetic_lm_batch
 from repro_torch.launch.serve import _splice_slot, serve_loop
@@ -140,17 +140,23 @@ def block():
 def test_init_rglru_block_leaves_match_reference():
     cfg = dataclasses.replace(smoke_config(ARCH), dtype="bfloat16")
     jp = jrglru.init_rglru_block(jax_smoke_config(ARCH), jax.random.PRNGKey(0), jnp.bfloat16)
-    p = rglru.init_rglru_block(cfg, torch.Generator().manual_seed(0), torch.bfloat16)
+    p = rglru.init_rglru_block(cfg, prng.PRNGKey(0), torch.bfloat16, "cpu")
     leaves, _ = tree_flatten(p)
     assert sorted(p) == sorted(jp)
     assert [(tuple(t.shape), str(t.dtype).removeprefix("torch.")) for t in leaves] == \
         [(a.shape, str(a.dtype)) for a in jax.tree.leaves(jp)]
     assert p["lambda"].dtype == torch.float32
     assert 0.3 <= float(p["lambda"].min()) and float(p["lambda"].max()) < 0.8
-    stacked = rglru.init_rglru_block(cfg, torch.Generator().manual_seed(0), torch.bfloat16,
-                                     (3,))
+    for a, t in zip(jax.tree.leaves(jp), leaves):  # the reference's draw, bit for bit
+        got = t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+        np.testing.assert_array_equal(got, np.asarray(a).view(got.dtype))
+    # a stack of 3 blocks: block i under the i-th of 3 keys
+    keys = prng.split(prng.PRNGKey(4), 3)
+    stacked = rglru.init_rglru_block(cfg, keys, torch.bfloat16, "cpu")
     assert stacked["lambda"].shape == (3, p["lambda"].shape[0])
     assert stacked["lambda"].dtype == torch.float32
+    one = rglru.init_rglru_block(cfg, keys[2], torch.bfloat16, "cpu")
+    assert all(torch.equal(stacked[k][2], one[k]) for k in one)
     # params_from_jax keeps the f32 leaf of the bf16 tree, bit for bit
     back = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     assert back["lambda"].dtype == torch.float32 and back["w_x"].dtype == torch.bfloat16

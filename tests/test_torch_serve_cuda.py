@@ -23,6 +23,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch.configs.registry import smoke_config
+from repro_torch.core import prng
 from repro_torch.data.tokens import synthetic_lm_batch
 from repro_torch.launch.serve import serve_loop
 from repro_torch.models import ffn
@@ -36,7 +37,7 @@ needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
 def moe_inputs(dtype, groups):
     cfg = dataclasses.replace(smoke_config("dbrx-132b"), moe_groups=groups)
     device = resolve_device("cuda")
-    p = ffn.init_moe(cfg, torch.Generator(device).manual_seed(0), dtype)
+    p = ffn.init_moe(cfg, prng.PRNGKey(0), dtype, device)
     x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator(device).manual_seed(1),
                     device=device).to(dtype)
     return cfg, p, x

@@ -51,7 +51,7 @@ from repro.models.fed import LMFedModel as JaxLMFedModel
 from repro_torch.checkpoint.io import treedef_str
 from repro_torch.comm.channels import DenseChannel, QSGDChannel
 from repro_torch.configs.registry import smoke_config
-from repro_torch.core import FedCHSConfig, FLTask, run_fed_chs
+from repro_torch.core import FedCHSConfig, FLTask, prng, run_fed_chs
 from repro_torch.data.sources import TokenSource
 from repro_torch.data.tokens import synthetic_lm_batch
 from repro_torch.launch.serve import _splice_slot, serve_loop
@@ -162,16 +162,22 @@ def block():
 def test_init_ssd_block_leaves_match_reference():
     cfg = dataclasses.replace(smoke_config(ARCH), dtype="bfloat16")
     jp = jssd.init_ssd_block(jax_smoke_config(ARCH), jax.random.PRNGKey(0), jnp.bfloat16)
-    p = ssd.init_ssd_block(cfg, torch.Generator().manual_seed(0), torch.bfloat16)
+    p = ssd.init_ssd_block(cfg, prng.PRNGKey(0), torch.bfloat16, "cpu")
     leaves, _ = tree_flatten(p)
     assert sorted(p) == sorted(jp)
     assert [(tuple(t.shape), str(t.dtype).removeprefix("torch.")) for t in leaves] == \
         [(a.shape, str(a.dtype)) for a in jax.tree.leaves(jp)]
     assert p["A_log"].dtype == p["dt_bias"].dtype == torch.float32
-    np.testing.assert_allclose(p["A_log"].numpy(), np.asarray(jp["A_log"]), rtol=1e-6)
-    stacked = ssd.init_ssd_block(cfg, torch.Generator().manual_seed(0), torch.bfloat16, (3,))
+    for a, t in zip(jax.tree.leaves(jp), leaves):  # the reference's draw, bit for bit
+        got = t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+        np.testing.assert_array_equal(got, np.asarray(a).view(got.dtype))
+    # a stack of 3 blocks: block i under the i-th of 3 keys
+    keys = prng.split(prng.PRNGKey(4), 3)
+    stacked = ssd.init_ssd_block(cfg, keys, torch.bfloat16, "cpu")
     assert stacked["A_log"].shape == (3, p["A_log"].shape[0])
     assert torch.equal(stacked["A_log"][2], p["A_log"])
+    one = ssd.init_ssd_block(cfg, keys[2], torch.bfloat16, "cpu")
+    assert all(torch.equal(stacked[k][2], one[k]) for k in one)
 
 
 @pytest.mark.parametrize("T", [16, 20, 37], ids=["T16", "T20_ragged", "T37_ragged"])
