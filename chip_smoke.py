@@ -27,7 +27,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
      H = Hkv = 32, hd 96; whisper-tiny's 4 x 128, H = Hkv = 6, hd 64; bf16),
      atol 3e-5 in f32 and 2e-2 in bf16;
   3. the paths, through the entry points a user calls, each with the launch
-     counts set to 0 just before it and read just after:
+     counts set to 0 just before it and read just after (the CPU runs
+     that 3a, 3d, 3f, 3h and the smoke LMs of 3k-3m hold card runs
+     against, their twins and controls go to CPU_WORKERS worker processes
+     of one torch thread each, all submitted before phase 1 and all done
+     before the first path, so they run beside phases 1-2 and no timed
+     card work shares the host with them):
      a. LeNet-MNIST Fed-CHS with QSGD(16) uplinks at the paper's Appendix-A
         width (100 clients / 10 ESs, Dirichlet 0.6, batch 32, K=20, E=5), a
         few rounds; a profiled 2-round run that must repeat bit for bit;
@@ -111,7 +116,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
         100352, bf16, random weights): at 4 layers (14.27B params)
         `prefill` of 4 x 512 tokens (the flash kernel once per layer; the
         forward and the cache replay timed apart), `serve_loop` of 8
-        requests over 4 slots (prompt 16, exactly 32 new tokens each;
+        requests over 4 slots (prompt 8, exactly 16 new tokens each;
         tokens/s, ms per batched decode step, peak memory), and
         teacher-forced `decode_step` against `forward` with `dense_topk`
         routing, held to DECODE_BOUND beside an off-by-one cache control
@@ -127,14 +132,14 @@ Phases, each of which fails the script (non-zero exit, no result line):
         64, v 128; 256 experts top-8 of d_ff 2048 and a shared expert;
         vocab 129280; bf16, random weights) at 1 layer with its MTP block
         (24.97B params) served as 3k-a serves dbrx (prefill 4 x 128,
-        `serve_loop` of 8 requests over 4 slots, prompt 32, exactly 16 new
+        `serve_loop` of 8 requests over 4 slots, prompt 16, exactly 16 new
         tokens, a decode step beside its byte bound, decode against
         forward beside the off-by-one control) and its losses printed
         (main, MTP, aux) (3l-a); its 1-layer SGD step without MTP (13.36B
         params; params, grads and one new leaf at a time), the loss falling
         (3l-b); the smoke deepseek LM under Fed-CHS QSGD(16) as 3k-c holds
         smoke dbrx (3l-c); mamba2-370m whole (48 layers, 0.42B params):
-        prefill 4 x 272, `serve_loop` (prompt 16, 32 new tokens), decode
+        prefill 4 x 272, `serve_loop` (prompt 8, 16 new tokens), decode
         against forward beside a control that forgets the state (these at 12
         of its 48 layers), 3 SGD steps of 1 x 512, and smoke mamba2 under
         Fed-CHS QSGD(16), 2 rounds (3l-d);
@@ -165,13 +170,13 @@ Phases, each of which fails the script (non-zero exit, no result line):
         params bit for bit (or, where cuBLAS picks a product by the lane
         count, within 1e-6 of the single run's update and twice a 1-ulp
         control), ledgers equal, B1/B2 over the ranks = 4 x the
-        single run's (3n-a); the LeNet task of 3a, 2 rounds, Fed-CHS
+        single run's (3n-a); the LeNet task of 3a, 1 round, Fed-CHS
         QSGD(16) on (1, 4) and Hier-Local-QSGD QSGD(16) on (2, 2), params
         held to one card's as in 3n-a, ledgers equal, B1 = B2 = 4 ranks x rounds x compressed hops a
         round x 10 leaves, each rank's s/round and peak printed as 4 gloo
         ranks sharing one H100, not a scale-out figure (3n-b);
         `run_sweep(mesh=)` over 4 seeds, each lane bit-equal to its solo
-        run (3n-c);
+        run (3n-c); one spawn of the ranks runs 3n-a, 3n-c and 3n-b;
      o. the model mesh (`launch.steps`, `launch/mesh.py::make_debug_mesh`,
         `models/moe_shardmap.py`), 4 gloo ranks sharing the card:
         qwen3-0.6b whole in bf16 with flash (B5 on each rank's 8 query and
@@ -236,6 +241,7 @@ one, and outside a checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -366,8 +372,114 @@ def sass_per_entry(lib, label: str, key: str) -> dict[str, int]:
     return count
 
 
+# CPU runs held against the card's (the plain paths' runs, their 1-ulp twins
+# and controls) go to CPU_WORKERS worker processes of one torch thread each.
+# They depend on nothing the card computes, so all of them are submitted
+# before phase 1 and awaited before the first path (`cpu_runs_done`): they
+# run beside the build and the kernels' checks, and every timed phase has
+# the host to itself.  Two cores stay with the card's driver process.
+CPU_WORKERS = max(1, (os.cpu_count() or 1) - 2)
+CPU_POOL = None  # set by main()
+
+
+def start_cpu_pool(src: Path):
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=cpu_worker_init, initargs=(str(src),))
+    for _ in range(CPU_WORKERS):  # the workers start (and import) while phases 1-2 run
+        pool.submit(os.getpid)
+    return pool
+
+
+def cpu_worker_init(src: str) -> None:
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""  # the card stays the parent's
+    sys.path.insert(0, src)
+    import torch
+
+    import repro_torch.core.fed_chs  # noqa: F401  (imported before the first run)
+
+    torch.set_num_threads(1)
+
+
+def cpu_lm_run(cfg, config, scale=1.0, remat=False):
+    """A smoke LM's Fed-CHS run on the CPU's plain path (`lm_task` with
+    FED_LM_SOURCE's clients), in a worker of CPU_POOL."""
+    from repro_torch.core.fed_chs import run_fed_chs
+
+    return run_fed_chs(lm_task(cfg, device="cpu", remat=remat, scale=scale, **FED_LM_SOURCE),
+                       config)
+
+
+def mlp_task(device=None, uneven=False, scale=1.0):
+    """Phase 3a's MLP task (MNIST, 4000 samples, 20 clients at Dirichlet
+    0.6, batch 32, 4 clusters; `uneven`: phase 3f's clusters of 9, 6, 5) on
+    `device` (the card unless "cpu"), every initial weight times `scale`."""
+    from repro_torch.core.simulation import FLTask
+    from repro_torch.data.partition import assign_clusters, dirichlet_partition
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.models.classifier import make_classifier
+    from repro_torch.models.fed import as_fed_model
+
+    ds = make_dataset("mnist", train_size=4000, test_size=1000, seed=0)
+    clients = dirichlet_partition(ds.train_y, 20, 0.6, seed=0)
+    clusters = ([list(range(0, 9)), list(range(9, 15)), list(range(15, 20))] if uneven
+                else assign_clusters(20, 4, seed=0))
+    model = as_fed_model(make_classifier("mlp", "mnist", ds.spec.image_shape, 10))
+    if scale != 1.0:
+        model = _Scaled(model, scale)
+    return FLTask(model, ds, clients, clusters, batch_size=32, seed=0, device=device)
+
+
+def cpu_mlp_run(driver: str, config, scale=1.0, uneven=False):
+    """`mlp_task` under `driver` ("fed_chs", "hier" or "fedavg") on the
+    CPU's plain path, in a worker of CPU_POOL."""
+    from repro_torch.core.baselines import run_fedavg, run_hier_local_qsgd
+    from repro_torch.core.fed_chs import run_fed_chs
+
+    run = {"fed_chs": run_fed_chs, "hier": run_hier_local_qsgd, "fedavg": run_fedavg}[driver]
+    return run(mlp_task("cpu", uneven, scale), config)
+
+
+def on_cpu_later(cfg, config, **task_kw):
+    """`cpu_lm_run` submitted to CPU_POOL: a future of its RunResult."""
+    return CPU_POOL.submit(cpu_lm_run, cfg, config, **task_kw)
+
+
+def cpu_runs_done(runs) -> None:
+    """Waits for every future in `runs` (nested dicts, lists and tuples),
+    then shuts the pool down: no CPU run is left to share the host with a
+    timed phase."""
+    from concurrent.futures import Future, wait
+
+    def futures(tree):
+        if isinstance(tree, Future):
+            yield tree
+        elif isinstance(tree, dict):
+            for v in tree.values():
+                yield from futures(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                yield from futures(v)
+
+    pending = list(futures(runs))
+    t0 = time.perf_counter()
+    wait(pending)
+    CPU_POOL.shutdown()
+    print(f"CPU runs: {len(pending)} on {CPU_WORKERS} workers, all done "
+          f"{time.perf_counter() - t0:.1f} s after phase 2")
+
+
+def constant_step(lr: float, k: int) -> float:
+    """A constant step size: a schedule that a CPU worker can unpickle."""
+    return lr
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    if CPU_POOL is not None:
+        CPU_POOL.shutdown(wait=False, cancel_futures=True)
     sys.exit(1)
 
 
@@ -377,7 +489,10 @@ def check(cond: bool, msg: str) -> None:
 
 
 def dyadic(torch, gen, shape, device):
-    return torch.randint(-64, 65, shape, generator=gen).to(torch.float32).mul(2.0**-8).to(device)
+    """Entries k * 2^-8, |k| <= 64, drawn on the host (int8 draws the int64
+    draw's values) and scaled on `device`."""
+    k = torch.randint(-64, 65, shape, generator=gen, dtype=torch.int8)
+    return k.to(device).to(torch.float32).mul(2.0**-8)
 
 
 def lenet_leaf_blocks() -> list[int]:
@@ -768,26 +883,41 @@ def print_gemm_share(events, plain_ms):
 MLP_QSGD_BOUND = 0.03
 
 
-def quickstart_and_cross_check(torch):
+def mlp_qsgd_configs():
+    """Phase 3a's MLP QSGD(16) run and its first round alone."""
+    from repro_torch.comm.channels import QSGDChannel
+    from repro_torch.core.fed_chs import FedCHSConfig
+
+    cfg = FedCHSConfig(rounds=4, local_steps=10, local_epochs=5, eval_every=2,
+                       channel=QSGDChannel(16))
+    return cfg, dataclasses.replace(cfg, rounds=1)
+
+
+def mlp_qsgd_cpu_runs():
+    """Phase 3a's CPU runs, submitted to CPU_POOL: for the whole run and its
+    first round, the plain path's run and the same run from weights
+    1 + 2^-23 apart; for the first round also a QSGD(4) control the bound
+    must reject."""
+    from repro_torch.comm.channels import QSGDChannel
+
+    cfg, one = mlp_qsgd_configs()
+    return [[CPU_POOL.submit(cpu_mlp_run, "fed_chs", conf, scale) for scale in (1.0, 1 + F32_ULP)]
+            + ([CPU_POOL.submit(cpu_mlp_run, "fed_chs",
+                                dataclasses.replace(one, channel=QSGDChannel(4)))]
+               if conf is one else [None]) for conf in (cfg, one)]
+
+
+def quickstart_and_cross_check(torch, cpu_runs):
     """Phase 3a, continued: the quickstart grad-mode config on the card; a
     small QSGD run on the card against the same run on the CPU's plain path
     (params within MLP_QSGD_BOUND of p_T, accuracies within 0.02; its gap
     over the update p_T - p_0 printed beside what the CPU run reads against
     itself from weights 1 + 2^-23 apart), and its first round alone within
     MLP_QSGD_BOUND of the update too, beside a QSGD(4) control the bound
-    must reject."""
-    from repro_torch.comm.channels import QSGDChannel
+    must reject.  `cpu_runs`: `mlp_qsgd_cpu_runs()`."""
     from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
-    from repro_torch.core.simulation import FLTask
-    from repro_torch.data.partition import assign_clusters, dirichlet_partition
-    from repro_torch.data.synthetic import make_dataset
-    from repro_torch.models.classifier import make_classifier
 
-    ds = make_dataset("mnist", train_size=4000, test_size=1000, seed=0)
-    clients = dirichlet_partition(ds.train_y, 20, 0.6, seed=0)
-    clusters = assign_clusters(20, 4, seed=0)
-    mlp = make_classifier("mlp", "mnist", ds.spec.image_shape, 10)
-    task = FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0)
+    task = mlp_task()
     t0 = time.perf_counter()
     res = run_fed_chs(task, FedCHSConfig(rounds=10, local_steps=10, eval_every=5))
     torch.cuda.synchronize()
@@ -797,19 +927,19 @@ def quickstart_and_cross_check(torch):
     check(res.ledger.bits["client_to_es"] == res.ledger.messages["client_to_es"]
           * task.num_params() * 32, "dense uplink bits")
 
-    data = (ds, clients, clusters)
-    cfg = FedCHSConfig(rounds=4, local_steps=10, local_epochs=5, eval_every=2,
-                       channel=QSGDChannel(16))
-    one = dataclasses.replace(cfg, rounds=1)
-    p0 = FLTask(mlp, *data, batch_size=32, seed=0, device="cpu").init_params()
-    for conf, name in ((cfg, "MLP QSGD run"), (one, "  its first round alone")):
+    cfg, one = mlp_qsgd_configs()
+    p0 = mlp_task("cpu").init_params()
+    for conf, name, (on_cpu, ulp_run, ctrl) in zip(
+            (cfg, one), ("MLP QSGD run", "  its first round alone"), cpu_runs):
         on_card = run_fed_chs(task, conf)
-        on_cpu = run_fed_chs(FLTask(mlp, *data, batch_size=32, seed=0, device="cpu"), conf)
+        on_cpu = on_cpu.result()
         rel, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
-        ulp_upd_rel, ctrl_rel = qsgd_cpu_controls(
-            torch, mlp, data, conf, on_cpu, p0,
-            dataclasses.replace(conf, channel=QSGDChannel(4)) if conf is one else None)
+        _, ulp_upd_rel, _, _ = card_vs_cpu(torch, ulp_run.result(), on_cpu, p0)
         held = conf is one
+        if held:
+            b = flat_params(torch, on_cpu.final_params)
+            ctrl_rel = float((flat_params(torch, ctrl.result().final_params) - b).norm()
+                             / (b - flat_params(torch, p0)).norm())
         print(f"  {name}, card vs CPU plain path: params rel L2 {rel:.3g} (bound "
               f"{MLP_QSGD_BOUND}), {upd_rel:.3g} of the update p_T - p_0, which is {upd:.3g} "
               f"of p_T ({f'bound {MLP_QSGD_BOUND}' if held else 'not bounded'}); accuracy gap "
@@ -820,28 +950,6 @@ def quickstart_and_cross_check(torch):
         if held:
             check(ctrl_rel > MLP_QSGD_BOUND, "the update bound would pass the QSGD(4) control")
             check(upd_rel <= MLP_QSGD_BOUND, "card run strays from the CPU run")
-
-
-def qsgd_cpu_controls(torch, clf, data, cfg, on_cpu, p0, ctrl_cfg=None):
-    """What phase 3a's QSGD(16) MLP run reads on the CPU against itself:
-    (its gap over the update from initial weights scaled by 1 + 2^-23,
-    about an ulp; the gap of `ctrl_cfg`'s run, which the bound must
-    reject, or None without one)."""
-    from repro_torch.core.fed_chs import run_fed_chs
-    from repro_torch.core.simulation import FLTask
-    from repro_torch.utils import tree_map
-
-    nudged = dataclasses.replace(clf, init=lambda seed=0, device=None: tree_map(
-        lambda t: t * (1 + 2**-23), clf.init(seed, device)))
-    ulp_run = run_fed_chs(FLTask(nudged, *data, batch_size=32, seed=0, device="cpu"), cfg)
-    _, ulp_upd_rel, _, _ = card_vs_cpu(torch, ulp_run, on_cpu, p0)
-    if ctrl_cfg is None:
-        return ulp_upd_rel, None
-    ctrl = run_fed_chs(FLTask(clf, *data, batch_size=32, seed=0, device="cpu"), ctrl_cfg)
-    b = flat_params(torch, on_cpu.final_params)
-    ctrl_rel = float((flat_params(torch, ctrl.final_params) - b).norm()
-                     / (b - flat_params(torch, p0)).norm())
-    return ulp_upd_rel, ctrl_rel
 
 
 def flat_params(torch, params):
@@ -879,7 +987,7 @@ def lm_task(cfg, device=None, remat=False, scale=1.0, **source_kw):
 
 
 class _Scaled:
-    """An LMFedModel whose initial weights are scaled (the 1-ulp controls)."""
+    """A fed model whose initial weights are scaled (the 1-ulp controls)."""
 
     def __init__(self, model, scale):
         self.model, self.scale = model, scale
@@ -1020,28 +1128,51 @@ def dense_code_path(torch, build, params):
     return launches
 
 
-def lm_cross_check(torch):
+def lm_cross_configs():
+    """Phase 3d's QSGD run and its grad-mode run (dense uplinks, E = 1)."""
+    from repro_torch.comm.channels import DenseChannel, QSGDChannel
+    from repro_torch.core.fed_chs import FedCHSConfig
+
+    return (FedCHSConfig(rounds=4, local_steps=4, local_epochs=2, eval_every=2,
+                         channel=QSGDChannel(16), seed=0,
+                         schedule=functools.partial(constant_step, 0.3)),
+            FedCHSConfig(rounds=2, local_steps=4, local_epochs=1, eval_every=1,
+                         channel=DenseChannel(), seed=0,
+                         schedule=functools.partial(constant_step, 0.3)))
+
+
+def lm_cross_cpu_runs() -> dict:
+    """Phase 3d's CPU runs, submitted to CPU_POOL: the QSGD run and its
+    dense-uplink control, the grad-mode run and its wrong-mask control."""
+    from repro_torch.comm.channels import DenseChannel
+    from repro_torch.configs.registry import smoke_config
+
+    cfg = smoke_config(LM_ARCH)
+    wrong = dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16)
+    config, grad = lm_cross_configs()
+    return {"qsgd": [on_cpu_later(cfg, config),
+                     on_cpu_later(cfg, dataclasses.replace(config, channel=DenseChannel()))],
+            "grad": [on_cpu_later(cfg, grad), on_cpu_later(wrong, grad)]}
+
+
+def lm_cross_check(torch, cpu_runs):
     """Phase 3d: a 2-layer smoke-config LM run, card against CPU, held to
     params within 3% relative L2 and perplexity within 2%.  Two controls on
     the CPU show that these bounds reject a wrong run: one that never
     updates (it reads the update's size away) and one whose uplinks skip
-    the quantizer (dense uplinks, the same config otherwise)."""
-    from repro_torch.comm.channels import DenseChannel, QSGDChannel
+    the quantizer (dense uplinks, the same config otherwise).  `cpu_runs`:
+    `lm_cross_cpu_runs()`."""
     from repro_torch.configs.registry import smoke_config
-    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    from repro_torch.core.fed_chs import run_fed_chs
 
     cfg = smoke_config(LM_ARCH)
-    config = FedCHSConfig(rounds=4, local_steps=4, local_epochs=2, eval_every=2,
-                          channel=QSGDChannel(16), seed=0, schedule=lambda k: 0.3)
-    kw = dict(num_clients=4, batch_size=2, seq_len=64)
+    config, _ = lm_cross_configs()
+    kw = FED_LM_SOURCE
     on_card = run_fed_chs(lm_task(cfg, **kw), config)
-    cpu_task = lm_task(cfg, device="cpu", **kw)
-    p0 = cpu_task.init_params()
-    on_cpu = run_fed_chs(cpu_task, config)
+    p0 = lm_task(cfg, device="cpu", **kw).init_params()
+    on_cpu, dense = (r.result() for r in cpu_runs["qsgd"])
     rel, upd_rel, upd, _ = card_vs_cpu(torch, on_card, on_cpu, p0)
     ppl = max(abs(x / y - 1) for x, y in zip(on_card.test_acc, on_cpu.test_acc))
-    dense = run_fed_chs(lm_task(cfg, device="cpu", **kw),
-                        dataclasses.replace(config, channel=DenseChannel()))
     b = flat_params(torch, on_cpu.final_params)
     ctrl_rel = float((flat_params(torch, dense.final_params) - b).norm() / b.norm())
     ctrl_ppl = max(abs(x / y - 1) for x, y in zip(dense.test_acc, on_cpu.test_acc))
@@ -1055,28 +1186,25 @@ def lm_cross_check(torch):
     check(upd > 0.03, "the params bound would pass a run that never updates")
     check(ctrl_rel > 0.03 and ctrl_ppl > 0.02,
           "the bounds would pass a run whose uplinks skip the quantizer")
-    lm_grad_cross_check(torch, cfg, kw)
+    lm_grad_cross_check(torch, cfg, cpu_runs["grad"])
 
 
-def lm_grad_cross_check(torch, cfg, kw):
+def lm_grad_cross_check(torch, cfg, cpu_runs):
     """Phase 3d, continued: the same smoke-config LM in grad mode (dense
     uplinks, E = 1, 2 rounds, flash on), card against CPU.  No code can flip
     here, so only float order separates the runs, and the gap is held to
     GRAD_BOUND of the update p_T - p_0.  A CPU control with the wrong mask
-    (a 16-key window in place of full causal attention) must read above it."""
-    from repro_torch.comm.channels import DenseChannel
-    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    (a 16-key window in place of full causal attention) must read above it.
+    `cpu_runs`: those two runs on the CPU."""
+    from repro_torch.core.fed_chs import run_fed_chs
 
-    config = FedCHSConfig(rounds=2, local_steps=4, local_epochs=1, eval_every=1,
-                          channel=DenseChannel(), seed=0, schedule=lambda k: 0.3)
+    _, config = lm_cross_configs()
+    kw = FED_LM_SOURCE
     on_card = run_fed_chs(lm_task(cfg, **kw), config)
-    cpu_task = lm_task(cfg, device="cpu", **kw)
-    p0 = cpu_task.init_params()
-    on_cpu = run_fed_chs(cpu_task, config)
+    p0 = lm_task(cfg, device="cpu", **kw).init_params()
+    on_cpu, ctrl = (r.result() for r in cpu_runs)
     _, upd_rel, upd, _ = card_vs_cpu(torch, on_card, on_cpu, p0)
     ppl = max(abs(x / y - 1) for x, y in zip(on_card.test_acc, on_cpu.test_acc))
-    wrong = dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16)
-    ctrl = run_fed_chs(lm_task(wrong, device="cpu", **kw), config)
     _, ctrl_rel, _, _ = card_vs_cpu(torch, ctrl, on_cpu, p0)
     print(f"  grad mode (dense uplinks, E=1, 2 rounds), card vs CPU plain path: params gap "
           f"{upd_rel:.3g} of the update p_T - p_0 (which is {upd:.3g} of p_T; bound "
@@ -1286,7 +1414,35 @@ class _AdamWWithoutBiasCorrection:
         return new, {"mu": mu, "nu": nu, "count": state["count"] + 1}
 
 
-def baselines_cross_check(torch):
+def baselines_configs():
+    """Phase 3f's two runs: Hier-Local-QSGD QSGD(16) with MomentumSGD, and
+    FedAvg dense with AdamW."""
+    from repro_torch.core.baselines import FedAvgConfig, HierLocalQSGDConfig
+    from repro_torch.optim.local import AdamWOpt, MomentumSGD
+
+    return (HierLocalQSGDConfig(rounds=2, local_steps=10, local_epochs=5, eval_every=1,
+                                qsgd_levels=16, local_opt=MomentumSGD(0.9)),
+            FedAvgConfig(rounds=2, local_steps=5, eval_every=1, local_opt=AdamWOpt(),
+                         schedule=functools.partial(constant_step, 0.002)))
+
+
+def baselines_cpu_runs() -> dict:
+    """Phase 3f's CPU runs, submitted to CPU_POOL: each run on the plain
+    path, beside its control and its run from weights 1 + 2^-23 apart."""
+    hier, fedavg = baselines_configs()
+
+    def later(driver, config, scale=1.0):
+        return CPU_POOL.submit(cpu_mlp_run, driver, config, scale, uneven=True)
+
+    return {"hier": [later("hier", hier),
+                     later("hier", dataclasses.replace(hier, qsgd_levels=None)),
+                     later("hier", hier, 1 + F32_ULP)],
+            "fedavg": [later("fedavg", fedavg), later("fedavg", dataclasses.replace(
+                fedavg, local_opt=_AdamWWithoutBiasCorrection())), later("fedavg", fedavg,
+                                                                        1 + F32_ULP)]}
+
+
+def baselines_cross_check(torch, cpu_runs):
     """Phase 3f: the new code, card against CPU.  A small Hier-Local-QSGD
     QSGD(16) MLP run (20 clients in 3 uneven clusters, MomentumSGD) held to
     params within 3% relative L2, beside two CPU controls that bound must
@@ -1296,43 +1452,18 @@ def baselines_cross_check(torch):
     ulp): code flips under momentum make float order alone move this run
     further than phase 3a's tighter bounds allow.  A dense FedAvg run with
     AdamW held to ADAM_BOUND of its update (see there), beside a CPU control
-    without AdamW's bias corrections and the same noise floor."""
-    from repro_torch.core.baselines import (
-        FedAvgConfig,
-        HierLocalQSGDConfig,
-        run_fedavg,
-        run_hier_local_qsgd,
-    )
-    from repro_torch.core.simulation import FLTask
-    from repro_torch.data.partition import dirichlet_partition
-    from repro_torch.data.synthetic import make_dataset
-    from repro_torch.models.classifier import make_classifier
-    from repro_torch.optim.local import AdamWOpt, MomentumSGD
-    from repro_torch.utils import tree_map
+    without AdamW's bias corrections and the same noise floor.  `cpu_runs`:
+    `baselines_cpu_runs()`."""
+    from repro_torch.core.baselines import run_fedavg, run_hier_local_qsgd
 
-    ds = make_dataset("mnist", train_size=4000, test_size=1000, seed=0)
-    clients = dirichlet_partition(ds.train_y, 20, 0.6, seed=0)
-    clusters = [list(range(0, 9)), list(range(9, 15)), list(range(15, 20))]
-    mlp = make_classifier("mlp", "mnist", ds.spec.image_shape, 10)
-
-    def both(run, cfg, ctrl_cfg):
-        on_card = run(FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0), cfg)
-        cpu_task = FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0, device="cpu")
-        p0 = cpu_task.init_params()
-        on_cpu = run(cpu_task, cfg)
-        return on_card, on_cpu, run(cpu_task, ctrl_cfg), p0
-
-    hier = HierLocalQSGDConfig(rounds=2, local_steps=10, local_epochs=5, eval_every=1,
-                               qsgd_levels=16, local_opt=MomentumSGD(0.9))
-    on_card, on_cpu, dense, p0 = both(run_hier_local_qsgd, hier,
-                                      dataclasses.replace(hier, qsgd_levels=None))
+    cpu_task = mlp_task("cpu", uneven=True)
+    p0 = cpu_task.init_params()
+    hier, fedavg = baselines_configs()
+    on_card = run_hier_local_qsgd(mlp_task(uneven=True), hier)
+    on_cpu, dense, ulp_run = (r.result() for r in cpu_runs["hier"])
     rel, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
     b = flat_params(torch, on_cpu.final_params)
     ctrl_rel = float((flat_params(torch, dense.final_params) - b).norm() / b.norm())
-    nudged = dataclasses.replace(mlp, init=lambda seed=0, device=None: tree_map(
-        lambda t: t * (1 + 2**-23), mlp.init(seed, device)))
-    ulp_run = run_hier_local_qsgd(
-        FLTask(nudged, ds, clients, clusters, batch_size=32, seed=0, device="cpu"), hier)
     ulp_rel, ulp_upd_rel, _, ulp_gap = card_vs_cpu(torch, ulp_run, on_cpu, p0)
     print(f"phase 3f: Hier-Local-QSGD QSGD(16) MLP, MomentumSGD(0.9), 20 clients in clusters "
           f"of 9, 6, 5, 2 rounds, card vs CPU plain path: params rel L2 {rel:.3g} ({upd_rel:.3g} "
@@ -1344,16 +1475,11 @@ def baselines_cross_check(torch):
     check(upd > 0.03, "the params bound would pass a Hier-Local-QSGD run that never updates")
     check(ctrl_rel > 0.03, "the params bound would pass a run whose uplinks skip the quantizer")
 
-    fedavg = FedAvgConfig(rounds=2, local_steps=5, eval_every=1, local_opt=AdamWOpt(),
-                          schedule=lambda k: 0.002)
-    on_card, on_cpu, ctrl, p0 = both(
-        run_fedavg, fedavg, dataclasses.replace(fedavg, local_opt=_AdamWWithoutBiasCorrection()))
+    on_card = run_fedavg(mlp_task(uneven=True), fedavg)
+    on_cpu, ctrl, ulp_run = (r.result() for r in cpu_runs["fedavg"])
     _, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
     _, ctrl_rel, _, _ = card_vs_cpu(torch, ctrl, on_cpu, p0)
-    ulp_run = run_fedavg(
-        FLTask(nudged, ds, clients, clusters, batch_size=32, seed=0, device="cpu"), fedavg)
     _, ulp_upd_rel, _, _ = card_vs_cpu(torch, ulp_run, on_cpu, p0)
-    cpu_task = FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0, device="cpu")
     flips, grad_gap = first_step_gaps(torch, cpu_task, cpu_task.init_params())
     print(f"  FedAvg dense, AdamW, 2 rounds, card vs CPU plain path: params gap {upd_rel:.3g} "
           f"of the update p_T - p_0 (which is {upd:.3g} of p_T; bound {ADAM_BOUND:g}), accuracy "
@@ -1571,28 +1697,16 @@ def masked_cross_check(torch):
     accuracy at phase 3a's bounds and 0.03 of the update, beside what the
     CPU run reads against itself from weights 1 + 2^-23 apart."""
     from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
-    from repro_torch.core.simulation import FLTask
-    from repro_torch.data.partition import assign_clusters, dirichlet_partition
-    from repro_torch.data.synthetic import make_dataset
-    from repro_torch.models.classifier import make_classifier
     from repro_torch.part import AvailabilityAware, GilbertElliottTrace
-    from repro_torch.utils import tree_map
 
-    ds = make_dataset("mnist", train_size=4000, test_size=1000, seed=0)
-    clients = dirichlet_partition(ds.train_y, 20, 0.6, seed=0)
-    clusters = assign_clusters(20, 4, seed=0)
-    mlp = make_classifier("mlp", "mnist", ds.spec.image_shape, 10)
     cfg = FedCHSConfig(rounds=4, local_steps=10, local_epochs=5, eval_every=2, qsgd_levels=16,
                        sampler=AvailabilityAware(GilbertElliottTrace(0.25, 0.35, seed=5)))
-    on_card = run_fed_chs(FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0), cfg)
-    cpu_task = FLTask(mlp, ds, clients, clusters, batch_size=32, seed=0, device="cpu")
+    on_card = run_fed_chs(mlp_task(), cfg)
+    cpu_task = mlp_task("cpu")
     p0 = cpu_task.init_params()
     on_cpu = run_fed_chs(cpu_task, cfg)
     rel, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
-    nudged = dataclasses.replace(mlp, init=lambda seed=0, device=None: tree_map(
-        lambda t: t * (1 + 2**-23), mlp.init(seed, device)))
-    ulp_run = run_fed_chs(FLTask(nudged, ds, clients, clusters, batch_size=32, seed=0,
-                                 device="cpu"), cfg)
+    ulp_run = run_fed_chs(mlp_task("cpu", scale=1 + F32_ULP), cfg)
     ulp_rel, ulp_upd_rel, _, ulp_gap = card_vs_cpu(torch, ulp_run, on_cpu, p0)
     ups = on_cpu.ledger.messages["client_to_es"]
     print(f"phase 3g: masked MLP QSGD(16) run under GE churn ({ups} uplinks of "
@@ -1723,7 +1837,47 @@ def lean_lm_path(torch, build, f32_peak_gb, f32_round_s):
         print(f"    {label}: " + "; ".join(row))
 
 
-def lean_cross_check(torch):
+def lean_configs():
+    """Phase 3h-cross's two runs under `Precision()`: the smoke LM (bf16
+    dense wire, client_microbatch LEAN_MB) and 3a's MLP QSGD(16) task
+    (client_microbatch 2)."""
+    from repro_torch.comm.channels import QSGDChannel
+    from repro_torch.core.fed_chs import FedCHSConfig
+    from repro_torch.core.precision import Precision
+
+    policy = Precision()
+    return (FedCHSConfig(rounds=2, local_steps=4, local_epochs=2, eval_every=1, seed=0,
+                         schedule=functools.partial(constant_step, 0.3),
+                         client_microbatch=LEAN_MB, precision=policy),
+            FedCHSConfig(rounds=4, local_steps=10, local_epochs=5, eval_every=2,
+                         channel=QSGDChannel(16), precision=policy, client_microbatch=2))
+
+
+def doubled_paper_step(k: int) -> float:
+    """Twice the paper's step 1/(K sqrt(k + 1)) at K = 10: 3h's MLP control."""
+    from repro_torch.optim.schedules import paper_sqrt_schedule
+
+    return 2 * paper_sqrt_schedule(10, half=False)(k)
+
+
+def lean_cpu_runs() -> dict:
+    """Phase 3h-cross's CPU runs, submitted to CPU_POOL: each run on the
+    plain path, from weights 1 + 2^-7 apart, and its control (the window-16
+    mask; the doubled step)."""
+    from repro_torch.configs.registry import smoke_config
+
+    cfg = smoke_config(LM_ARCH)
+    wrong = dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16)
+    config, mlp_cfg = lean_configs()
+    return {"lm": [on_cpu_later(c, config, scale=scale, remat=True)
+                   for c, scale in ((cfg, 1.0), (cfg, 1 + BF16_ULP), (wrong, 1.0))],
+            "mlp": [CPU_POOL.submit(cpu_mlp_run, "fed_chs", mlp_cfg),
+                    CPU_POOL.submit(cpu_mlp_run, "fed_chs", mlp_cfg, 1 + BF16_ULP),
+                    CPU_POOL.submit(cpu_mlp_run, "fed_chs",
+                                    dataclasses.replace(mlp_cfg, schedule=doubled_paper_step))]}
+
+
+def lean_cross_check(torch, cpu_runs):
     """Phase 3h-cross: the lean knobs, card against CPU.  The 2-layer
     smoke-config LM of phase 3d (bf16 dense wire, client_microbatch 1,
     remat, flash) and phase 3a's MLP QSGD(16) task (client_microbatch 2)
@@ -1732,17 +1886,9 @@ def lean_cross_check(torch):
     1 + 2^-7 (one bf16 ulp), printed beside it; each bound must reject a
     run that never updates (which reads 1) and a CPU control: a 16-key
     window in place of causal attention for the LM, a doubled step size for
-    the MLP."""
-    from repro_torch.comm.channels import QSGDChannel
+    the MLP.  `cpu_runs`: `lean_cpu_runs()`."""
     from repro_torch.configs.registry import smoke_config
-    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
-    from repro_torch.core.precision import Precision
-    from repro_torch.core.simulation import FLTask
-    from repro_torch.data.partition import assign_clusters, dirichlet_partition
-    from repro_torch.data.synthetic import make_dataset
-    from repro_torch.models.classifier import make_classifier
-    from repro_torch.optim.schedules import paper_sqrt_schedule
-    from repro_torch.utils import tree_map
+    from repro_torch.core.fed_chs import run_fed_chs
 
     def bounded(name, on_card, on_cpu, ulp_run, ctrl, ctrl_name, p0):
         _, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
@@ -1758,42 +1904,19 @@ def lean_cross_check(torch):
         check(bound < 1.0, f"{name}: the bound would pass a run that never updates")
         check(ctrl_rel > bound, f"{name}: the bound would pass the {ctrl_name} control")
 
-    policy = Precision()
     cfg = smoke_config(LM_ARCH)
-    kw = dict(num_clients=4, batch_size=2, seq_len=64)
-    config = FedCHSConfig(rounds=2, local_steps=4, local_epochs=2, eval_every=1, seed=0,
-                          schedule=lambda k: 0.3, client_microbatch=LEAN_MB, precision=policy)
-    cpu = dict(device="cpu", remat=True)
+    kw = FED_LM_SOURCE
+    config, mlp_cfg = lean_configs()
     on_card = run_fed_chs(lm_task(cfg, remat=True, **kw), config)
-    cpu_task = lm_task(cfg, **cpu, **kw)
-    p0 = cpu_task.init_params()
-    on_cpu = run_fed_chs(cpu_task, config)
-    ulp_run = run_fed_chs(lm_task(cfg, scale=1 + BF16_ULP, **cpu, **kw), config)
-    wrong = dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16)
-    ctrl = run_fed_chs(lm_task(wrong, **cpu, **kw), config)
+    p0 = lm_task(cfg, device="cpu", remat=True, **kw).init_params()
+    on_cpu, ulp_run, ctrl = (r.result() for r in cpu_runs["lm"])
     bounded(f"{LM_ARCH} smoke-config LM (2 layers), bf16 dense wire, client_microbatch "
             f"{LEAN_MB}, remat, flash, 2 rounds", on_card, on_cpu, ulp_run, ctrl,
             "the window-16 mask", p0)
 
-    ds = make_dataset("mnist", train_size=4000, test_size=1000, seed=0)
-    clients = dirichlet_partition(ds.train_y, 20, 0.6, seed=0)
-    clusters = assign_clusters(20, 4, seed=0)
-    mlp = make_classifier("mlp", "mnist", ds.spec.image_shape, 10)
-    nudged = dataclasses.replace(mlp, init=lambda seed=0, device=None: tree_map(
-        lambda t: t * (1 + BF16_ULP), mlp.init(seed, device)))
-    mlp_cfg = FedCHSConfig(rounds=4, local_steps=10, local_epochs=5, eval_every=2,
-                           channel=QSGDChannel(16), precision=policy, client_microbatch=2)
-    eta = paper_sqrt_schedule(10, half=False)
-
-    def task(model, device=None):
-        return FLTask(model, ds, clients, clusters, batch_size=32, seed=0, device=device)
-
-    on_card = run_fed_chs(task(mlp), mlp_cfg)
-    cpu_task = task(mlp, "cpu")
-    p0 = cpu_task.init_params()
-    on_cpu = run_fed_chs(cpu_task, mlp_cfg)
-    ulp_run = run_fed_chs(task(nudged, "cpu"), mlp_cfg)
-    ctrl = run_fed_chs(cpu_task, dataclasses.replace(mlp_cfg, schedule=lambda k: 2 * eta(k)))
+    on_card = run_fed_chs(mlp_task(), mlp_cfg)
+    p0 = mlp_task("cpu").init_params()
+    on_cpu, ulp_run, ctrl = (r.result() for r in cpu_runs["mlp"])
     bounded("MLP QSGD(16) (phase 3a's task), client_microbatch 2, 4 rounds", on_card, on_cpu,
             ulp_run, ctrl, "the doubled step size", p0)
 
@@ -2280,20 +2403,12 @@ def checkpoint_path(torch, build, task):
     from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
     from repro_torch.core.precision import Precision
     from repro_torch.core.prng import PRNGKey
-    from repro_torch.core.simulation import FLTask
-    from repro_torch.data.partition import assign_clusters, dirichlet_partition
-    from repro_torch.data.synthetic import make_dataset
-    from repro_torch.models.classifier import make_classifier
     from repro_torch.optim.local import MomentumSGD
 
-    ds = make_dataset("mnist", train_size=4000, test_size=1000, seed=0)
-    mlp_task = FLTask(make_classifier("mlp", "mnist", ds.spec.image_shape, 10), ds,
-                      dirichlet_partition(ds.train_y, 20, 0.6, seed=0),
-                      assign_clusters(20, 4, seed=0), batch_size=32, seed=0)
     arms = (("LeNet QSGD(16)", task, FedCHSConfig(
                 rounds=4, local_steps=MAIN_K, local_epochs=MAIN_E, eval_every=1,
                 channel=QSGDChannel(16), seed=0)),
-            ("MLP QSGD(16), Precision(), MomentumSGD(), client_microbatch 2", mlp_task,
+            ("MLP QSGD(16), Precision(), MomentumSGD(), client_microbatch 2", mlp_task(),
              FedCHSConfig(rounds=4, local_steps=10, local_epochs=5, eval_every=1,
                           channel=QSGDChannel(16), precision=Precision(),
                           local_opt=MomentumSGD(), client_microbatch=2, seed=0)))
@@ -2558,8 +2673,8 @@ def async_path(torch, build, task):
 MOE_ARCH = "dbrx-132b"
 SERVE_LAYERS, TRAIN_LAYERS = 4, 2
 PREFILL_BATCH, PREFILL_SEQ = 4, 512
-SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=32)
-PARITY_BATCH, PARITY_SEQ = 2, 64
+SERVE = dict(requests=8, slots=4, prompt_len=8, max_new=16)
+PARITY_BATCH, PARITY_SEQ = 2, 32
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_LR = 3, 512, 0.3
 # a remat SGD step's peak over its weights' bytes (3m-a, 3m-e): params and
 # gradients are 2x, the saved block inputs and one block's recompute little
@@ -2851,8 +2966,69 @@ def moe_train_step_path(torch, build):
     return train_step_path(torch, build, "3k-b", cfg, TRAIN_SEQ, TRAIN_LR)
 
 
-def fed_lm_path(torch, build, label, cfg, rounds, grad_control, bound=MOE_QSGD_BOUND,
-                twin_ulps=(1,)):
+def fed_lm_phases() -> dict:
+    """`fed_lm_path`'s arguments by phase: each smoke config, its rounds,
+    its grad-mode control (name, the arch config and the step size it runs
+    on the CPU), its first round's bound and its twins' ulps."""
+    from repro_torch.configs.registry import smoke_config
+
+    moe, mla, ssd, rg = (smoke_config(a) for a in (MOE_ARCH, MLA_ARCH, SSD_ARCH, RG_ARCH))
+    return {
+        "3k-c": dict(cfg=moe, rounds=3, grad_control=(
+            "wrong-mask control on the CPU (window 16)",
+            dataclasses.replace(moe, block_pattern=("local",), sliding_window=16), 0.3),
+            bound=MOE_ROUTED_BOUND, twin_ulps=(1, -8)),
+        "3l-c": dict(cfg=mla, rounds=3, grad_control=(
+            "wrong-position control on the CPU (rope base halved)",
+            dataclasses.replace(mla, rope_theta=mla.rope_theta / 2), 0.3),
+            bound=MOE_ROUTED_BOUND),
+        "3l-d": dict(cfg=ssd, rounds=2, grad_control=("a 5% smaller step on the CPU", ssd, 0.285)),
+        "3m-c": dict(cfg=rg, rounds=2, grad_control=(
+            "wrong-window control on the CPU (window halved)",
+            dataclasses.replace(rg, sliding_window=rg.sliding_window // 2), 0.3)),
+    }
+
+
+def fed_lm_configs(rounds):
+    """`fed_lm_path`'s QSGD(16) run, its first round alone, and its
+    grad-mode run."""
+    from repro_torch.comm.channels import DenseChannel, QSGDChannel
+    from repro_torch.core.fed_chs import FedCHSConfig
+
+    config = FedCHSConfig(rounds=rounds, local_steps=FED_LM_K, local_epochs=FED_LM_E,
+                          eval_every=1, channel=QSGDChannel(16), seed=0,
+                          schedule=functools.partial(constant_step, FED_LM_LR))
+    grad = FedCHSConfig(rounds=2, local_steps=4, local_epochs=1, eval_every=1,
+                        channel=DenseChannel(), seed=0,
+                        schedule=functools.partial(constant_step, 0.3))
+    return config, dataclasses.replace(config, rounds=1), grad
+
+
+def fed_lm_cpu_runs(cfg, rounds, grad_control, bound=None, twin_ulps=(1,)) -> dict:
+    """`fed_lm_path`'s CPU runs, submitted to CPU_POOL (the card's runs are
+    held against them): the whole run and its twin; the first round, its
+    twins and its four controls; the grad-mode run and its control."""
+    from repro_torch.comm.channels import DenseChannel, QSGDChannel
+
+    config, one, grad = fed_lm_configs(rounds)
+    _, ctrl_cfg, ctrl_lr = grad_control
+    return {
+        "whole": (on_cpu_later(cfg, config),
+                  {1: on_cpu_later(cfg, config, scale=1 + F32_ULP)}, []),
+        "one": (on_cpu_later(cfg, one),
+                {k: on_cpu_later(cfg, one, scale=1 + k * F32_ULP) for k in twin_ulps}, [
+            ("no-update", on_cpu_later(
+                cfg, dataclasses.replace(one, schedule=functools.partial(constant_step, 0.0)))),
+            ("dense-uplink", on_cpu_later(cfg, dataclasses.replace(one, channel=DenseChannel()))),
+            ("QSGD(15)", on_cpu_later(cfg, dataclasses.replace(one, channel=QSGDChannel(15)))),
+            ("QSGD(8)", on_cpu_later(cfg, dataclasses.replace(one, channel=QSGDChannel(8))))]),
+        "grad": on_cpu_later(cfg, grad),
+        "grad control": on_cpu_later(ctrl_cfg, dataclasses.replace(
+            grad, schedule=functools.partial(constant_step, ctrl_lr))),
+    }
+
+
+def fed_lm_path(torch, build, label, later):
     """`LMFedModel(cfg, flash=True)` at a smoke config under `run_fed_chs`
     with QSGD(16) uplinks, 4 clients in 2 clusters, scanned: launches
     exact, every uplink at the closed form, scanned bit-equal to looped and
@@ -2864,16 +3040,19 @@ def fed_lm_path(torch, build, label, cfg, rounds, grad_control, bound=MOE_QSGD_B
     controls and beside the CPU run's twins from weights 1 + K 2^-23 apart
     (K in `twin_ulps`), and a grad-mode run held to GRAD_BOUND beside
     `grad_control` = (name, the arch config and the step size it runs on
-    the CPU), as phase 3d holds its LM."""
-    from repro_torch.comm.channels import DenseChannel, QSGDChannel, channel_wire_bits
-    from repro_torch.core.fed_chs import FedCHSConfig, run_fed_chs
+    the CPU), as phase 3d holds its LM; these arguments are
+    `fed_lm_phases()[label]`, and `later` is `fed_lm_cpu_runs` of them."""
+    from repro_torch.comm.channels import channel_wire_bits
+    from repro_torch.core.fed_chs import run_fed_chs
     from repro_torch.utils import tree_leaves
 
+    spec = fed_lm_phases()[label]
+    cfg, rounds, (ctrl_name, _, _) = spec["cfg"], spec["rounds"], spec["grad_control"]
+    bound = spec.get("bound", MOE_QSGD_BOUND)
     kw = FED_LM_SOURCE
-    channel = QSGDChannel(16)
     K, E = FED_LM_K, FED_LM_E
-    config = FedCHSConfig(rounds=rounds, local_steps=K, local_epochs=E, eval_every=1,
-                          channel=channel, seed=0, schedule=lambda k: FED_LM_LR)
+    config, one, grad = fed_lm_configs(rounds)
+    channel = config.channel
     task = lm_task(cfg, **kw)
     torch.cuda.synchronize()
     build.reset_launches()
@@ -2913,20 +3092,18 @@ def fed_lm_path(torch, build, label, cfg, rounds, grad_control, bound=MOE_QSGD_B
     # against itself from weights 1 + K 2^-23 apart (K in `twin_ulps` for the
     # first round, 1 for the whole run); the whole run's gap is printed beside
     # it, the first round's is held to `bound`.
-    def cpu_run(conf, c=cfg, scale=1.0):
-        return run_fed_chs(lm_task(c, device="cpu", scale=scale, **kw), conf)
-
     p0 = lm_task(cfg, device="cpu", **kw).init_params()
 
-    def gaps(name, on_card, conf, controls=(), twin_ulps=(1,)):
-        on_cpu = cpu_run(conf)
+    def gaps(name, on_card, runs):
+        on_cpu, twin_runs, controls = runs
+        on_cpu = on_cpu.result()
         _, upd_rel, upd, gap = card_vs_cpu(torch, on_card, on_cpu, p0)
-        twins = {k: card_vs_cpu(torch, cpu_run(conf, scale=1 + k * F32_ULP), on_cpu, p0)[1]
-                 for k in twin_ulps}
+        twins = {k: card_vs_cpu(torch, run.result(), on_cpu, p0)[1]
+                 for k, run in twin_runs.items()}
         b = flat_params(torch, on_cpu.final_params)
         update = float((b - flat_params(torch, p0)).norm())
-        read = {c_name: float((flat_params(torch, c_run.final_params) - b).norm()) / update
-                for c_name, c_run in controls}
+        read = {c_name: float((flat_params(torch, c_run.result().final_params) - b).norm())
+                / update for c_name, c_run in controls}
         print(f"  {name}, card vs CPU plain path: params gap {upd_rel:.3g} of the update (which "
               f"is {upd:.3g} of p_T), largest perplexity gap {gap:.3g}; the CPU run against "
               f"itself from weights "
@@ -2935,26 +3112,17 @@ def fed_lm_path(torch, build, label, cfg, rounds, grad_control, bound=MOE_QSGD_B
               + "".join(f"; {c_name} control {r:.3g}" for c_name, r in read.items()))
         return upd_rel, read, twins
 
-    gaps(f"the {rounds}-round QSGD(16) run above", res, config)
-    one = dataclasses.replace(config, rounds=1)
-    upd_rel, read, twins = gaps(
-        f"its first round alone (bound {bound})", run_fed_chs(task, one), one,
-        [("no-update", cpu_run(dataclasses.replace(one, schedule=lambda k: 0.0))),
-         ("dense-uplink", cpu_run(dataclasses.replace(one, channel=DenseChannel()))),
-         ("QSGD(15)", cpu_run(dataclasses.replace(one, channel=QSGDChannel(15)))),
-         ("QSGD(8)", cpu_run(dataclasses.replace(one, channel=QSGDChannel(8))))], twin_ulps)
+    gaps(f"the {rounds}-round QSGD(16) run above", res, later["whole"])
+    upd_rel, read, twins = gaps(f"its first round alone (bound {bound})",
+                                run_fed_chs(task, one), later["one"])
     check(upd_rel <= bound, f"{label}: the card's first round strays from the CPU's")
     check(max(twins.values()) <= bound, f"{label}: the CPU's own twins read above the bound")
     for c_name, r in read.items():
         check(r > bound, f"{label}: the bound would pass the {c_name} control")
-    grad = FedCHSConfig(rounds=2, local_steps=4, local_epochs=1, eval_every=1,
-                        channel=DenseChannel(), seed=0, schedule=lambda k: 0.3)
     on_card = run_fed_chs(task, grad)
-    on_cpu = cpu_run(grad)
+    on_cpu = later["grad"].result()
     _, upd_rel, upd, _ = card_vs_cpu(torch, on_card, on_cpu, p0)
-    ctrl_name, ctrl_cfg, ctrl_lr = grad_control
-    ctrl = cpu_run(dataclasses.replace(grad, schedule=lambda k: ctrl_lr), ctrl_cfg)
-    _, ctrl_rel, _, _ = card_vs_cpu(torch, ctrl, on_cpu, p0)
+    _, ctrl_rel, _, _ = card_vs_cpu(torch, later["grad control"].result(), on_cpu, p0)
     print(f"  grad mode (dense uplinks, E=1, 2 rounds), card vs CPU plain path: params gap "
           f"{upd_rel:.3g} of the update (which is {upd:.3g} of p_T; bound {GRAD_BOUND:g}); "
           f"{ctrl_name} reads {ctrl_rel:.3g}")
@@ -2962,7 +3130,7 @@ def fed_lm_path(torch, build, label, cfg, rounds, grad_control, bound=MOE_QSGD_B
     check(ctrl_rel > GRAD_BOUND, f"{label}: the grad-mode bound would pass the {ctrl_name}")
 
 
-def moe_fed_path(torch, build):
+def moe_fed_path(torch, build, cpu_runs):
     """Phase 3k-c: smoke dbrx-132b under Fed-CHS QSGD(16), 3 rounds
     (`fed_lm_path`, with a wrong-mask grad-mode control); then `serve_loop`
     at smoke qwen3-0.6b on the card, solo equal to batched."""
@@ -2970,11 +3138,7 @@ def moe_fed_path(torch, build):
     from repro_torch.launch.serve import serve_loop
     from repro_torch.models import transformer as tf
 
-    cfg = smoke_config(MOE_ARCH)
-    fed_lm_path(torch, build, "3k-c", cfg, 3, (
-        "wrong-mask control on the CPU (window 16)",
-        dataclasses.replace(cfg, block_pattern=("local",), sliding_window=16), 0.3),
-        bound=MOE_ROUTED_BOUND, twin_ulps=(1, -8))
+    fed_lm_path(torch, build, "3k-c", cpu_runs)
     qcfg = smoke_config(LM_ARCH)
     qparams = tf.init_params(qcfg, 0, "cuda")
     batched, _ = serve_loop(qcfg, qparams, requests=6, slots=4, prompt_len=6, max_new=8)
@@ -2993,16 +3157,16 @@ def moe_fed_path(torch, build):
 # under Fed-CHS; then SSD blocks through mamba2-370m at full size.
 MLA_ARCH, SSD_ARCH = "deepseek-v3-671b", "mamba2-370m"
 MLA_PREFILL, MLA_PARITY, MLA_TRAIN_SEQ = (4, 128), (2, 32), 256
-MLA_SERVE = dict(requests=8, slots=4, prompt_len=32, max_new=16)
+MLA_SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=16)
 # the SSD decode step is host-bound (66-95 ms at 48 layers on an H100 80GB
 # HBM3 at 700 W), so the prompts decoded token by token are cut: the
 # prefill to 272 tokens (two chunks of 256, the second ragged), the serving
-# prompts to 16
-SSD_PREFILL, SSD_PARITY, SSD_TRAIN_SEQ = (4, 272), (2, 64), 512
+# to SERVE's prompts of 8 and 16 new tokens
+SSD_PREFILL, SSD_PARITY, SSD_TRAIN_SEQ = (4, 272), (2, 32), 512
 # and the serving checks run 12 of its 48 layers (the SGD step all 48), so
 # the whole script keeps within its time limit beside phase 3m
 SSD_SERVE_LAYERS = 12
-SSD_SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=32)
+SSD_SERVE = SERVE
 # mamba2-370m's teacher-forced decode against its chunked forward in bf16:
 # 48 layers round the conv and the residual stream at other places (the
 # forward sums the conv's bf16 products, decode contracts the history in
@@ -3015,7 +3179,7 @@ SSD_DECODE_BOUND = 0.3
 def mla_serving_path(torch, build):
     """Phase 3l-a: deepseek-v3-671b at full width, 1 layer, with its MTP
     block, bf16: `serving_path` (prefill 4 x 128, `serve_loop` 8 requests
-    over 4 slots, prompt 32, 16 new tokens, decode against forward at
+    over 4 slots, prompt 16, 16 new tokens, decode against forward at
     DECODE_BOUND beside an off-by-one control), then `loss_fn` with MTP:
     the main, MTP and aux losses, their sum equal to `loss_fn`."""
     from repro_torch.configs.registry import get_config
@@ -3055,28 +3219,23 @@ def mla_train_step_path(torch, build):
     return train_step_path(torch, build, "3l-b", cfg, MLA_TRAIN_SEQ, TRAIN_LR)
 
 
-def mla_fed_path(torch, build):
+def mla_fed_path(torch, build, cpu_runs):
     """Phase 3l-c: smoke deepseek-v3-671b (MLA, MTP, expert choice) under
     Fed-CHS QSGD(16), 3 rounds (`fed_lm_path`): B1 and B2 on the MLA and
     MTP leaves.  MLA ignores the window of "local" blocks, so the grad-mode
     control halves the rope base instead."""
-    from repro_torch.configs.registry import smoke_config
-
-    cfg = smoke_config(MLA_ARCH)
-    fed_lm_path(torch, build, "3l-c", cfg, 3, (
-        "wrong-position control on the CPU (rope base halved)",
-        dataclasses.replace(cfg, rope_theta=cfg.rope_theta / 2), 0.3), bound=MOE_ROUTED_BOUND)
+    fed_lm_path(torch, build, "3l-c", cpu_runs)
 
 
-def ssd_path(torch, build):
+def ssd_path(torch, build, cpu_runs):
     """Phase 3l-d: mamba2-370m at full width (bf16): `serving_path` at 12 of
     its 48 layers (prefill 4 x 272, `serve_loop` 8 requests over 4 slots,
-    prompt 16, 32 new tokens, decode against forward at SSD_DECODE_BOUND
+    prompt 8, 16 new tokens, decode against forward at SSD_DECODE_BOUND
     beside a control that forgets the state), `make_train_step` at all 48
     layers, 3 steps of 1 x 512; then the
     smoke mamba2 under Fed-CHS QSGD(16), 2 rounds (`fed_lm_path`, with a 5%
     smaller step as the grad-mode control)."""
-    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.configs.registry import get_config
 
     cfg = get_config(SSD_ARCH)
     served = dataclasses.replace(cfg, num_layers=SSD_SERVE_LAYERS)
@@ -3088,8 +3247,7 @@ def ssd_path(torch, build):
     torch.cuda.empty_cache()
     train_step_path(torch, build, "3l-d", cfg, SSD_TRAIN_SEQ, TRAIN_LR)
     torch.cuda.empty_cache()
-    small = smoke_config(SSD_ARCH)
-    fed_lm_path(torch, build, "3l-d", small, 2, ("a 5% smaller step on the CPU", small, 0.285))
+    fed_lm_path(torch, build, "3l-d", cpu_runs)
 
 
 # phase 3m: RG-LRU blocks through recurrentgemma-9b (d_model 4096, LRU width
@@ -3099,13 +3257,13 @@ def ssd_path(torch, build):
 # and stub patch embeddings through phi-3-vision-4.2b (32 layers, d_model
 # 3072, 32 heads of 96, 576 patches of width 1024); bf16, random weights.
 RG_ARCH, ENC_ARCH, VLM_ARCH = "recurrentgemma-9b", "whisper-tiny", "phi-3-vision-4.2b"
-RG_PREFILL, RG_PARITY, RG_TRAIN_SEQ = (4, 128), (2, 64), 512
-RG_SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=32)
+RG_PREFILL, RG_PARITY, RG_TRAIN_SEQ = (4, 128), (2, 32), 512
+RG_SERVE = SERVE
 RG_WRAP_LAYERS, RG_WRAP = 3, (2, 2112)  # one pattern; 64 tokens past the window
-ENC_PREFILL, ENC_PARITY, ENC_TRAIN_SEQ = (4, 128), (2, 64), 256
-ENC_SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=32)
-VLM_PREFILL, VLM_PARITY, VLM_TRAIN_SEQ = (4, 128), (2, 64), 512
-VLM_SERVE = dict(requests=8, slots=4, prompt_len=16, max_new=32)
+ENC_PREFILL, ENC_PARITY, ENC_TRAIN_SEQ = (4, 128), (2, 32), 256
+ENC_SERVE = SERVE
+VLM_PREFILL, VLM_PARITY, VLM_TRAIN_SEQ = (4, 128), (2, 32), 512
+VLM_SERVE = SERVE
 # recurrentgemma's teacher-forced decode against its flash forward in bf16:
 # the conv sums its bf16 products in another order on each side, the
 # flash kernel rounds P to bf16.  A 6-layer, d_model 1024 cut read 0.0116
@@ -3129,7 +3287,7 @@ def rel_l2(a, b) -> float:
 
 def rglru_serving_path(torch, build):
     """Phase 3m-a: recurrentgemma-9b whole (38 layers, bf16): `serving_path`
-    (prefill 4 x 128, `serve_loop` 8 requests over 4 slots, prompt 16, 32
+    (prefill 4 x 128, `serve_loop` 8 requests over 4 slots, prompt 8, 16
     new tokens, decode against forward at RG_DECODE_BOUND beside a control
     that forgets the state; 3m-b holds the off-by-one control), then
     `make_train_step`, 3 steps of 1 x 512."""
@@ -3197,17 +3355,12 @@ def rglru_window_path(torch, build):
           "3m-b: the decode bound would pass a control")
 
 
-def rglru_fed_path(torch, build):
+def rglru_fed_path(torch, build, cpu_runs):
     """Phase 3m-c: smoke recurrentgemma-9b under Fed-CHS QSGD(16), 2 rounds
     (`fed_lm_path`): B1 and B2 on the RG-LRU leaves, the f32 `lambda` and
     `conv_w` included, B5 on the local block; the grad-mode control halves
     the window."""
-    from repro_torch.configs.registry import smoke_config
-
-    cfg = smoke_config(RG_ARCH)
-    fed_lm_path(torch, build, "3m-c", cfg, 2, (
-        "wrong-window control on the CPU (window halved)",
-        dataclasses.replace(cfg, sliding_window=cfg.sliding_window // 2), 0.3))
+    fed_lm_path(torch, build, "3m-c", cpu_runs)
 
 
 def subtree_grads(torch, label, cfg, params, key):
@@ -3343,6 +3496,9 @@ def vlm_path(torch, build):
 # on (1, 4) (10 clients pad to 12, 3 a rank) and Hier-Local-QSGD on (2, 2),
 # against single-card runs.  3n-c: `run_sweep(mesh=)`, 4 seeds on 4 ranks.
 MESH_RANKS = 4
+# torch threads of a rank: the host's cores shared among the ranks (torch's
+# default, a thread a core in every rank, oversubscribes them)
+RANK_THREADS = max(1, (os.cpu_count() or 1) // MESH_RANKS)
 MESH_LENET_ROUNDS = 1  # 2 until PR 24 (room for phase 3o)
 TINY_CASES = [  # (name, driver, config fields, ragged clusters)
     ("Fed-CHS grad", "fed_chs", dict(rounds=6, eval_every=3), False),
@@ -3471,8 +3627,9 @@ def summary_gap(a, b) -> float:
                for x, y in zip(a["params"], b["params"]))
 
 
-def mesh_rank(rank: int, part: str) -> dict:
-    """One rank of phase 3n, in its own process on the card."""
+def mesh_rank(rank: int) -> dict:
+    """One rank of phase 3n, in its own process on the card: the tiny task's
+    cases and sweep ("tiny"), then the LeNet cases ("lenet")."""
     import torch
 
     from repro_torch.core import engine
@@ -3483,25 +3640,24 @@ def mesh_rank(rank: int, part: str) -> dict:
 
     torch.cuda.set_device(0)
     resolve_device("cuda")  # full f32 products, as the parent runs them
-    out = {}
-    if part == "tiny":
-        mesh = make_federation_mesh(2, 2)
-        check(mesh.size == MESH_RANKS and mesh.device == torch.device("cuda", 0),
-              f"rank {rank}: mesh {mesh.shape} on {mesh.device}")
-        tasks = {False: tiny_task(torch), True: tiny_task(torch, ragged=True)}
-        for name, drv, fields, ragged in TINY_CASES:
-            run, cls = driver(drv)
-            build.reset_launches()
-            res = run(tasks[ragged], cls(**fields, mesh=mesh))
-            out[name] = dict(run_summary(torch, res), launches=dict(build.LAUNCHES),
-                             executor=engine.LAST_STATS["executor"])
-        run, cls = driver("fedavg")
+    tiny, lenet = {}, {}
+    mesh = make_federation_mesh(2, 2)
+    check(mesh.size == MESH_RANKS and mesh.device == torch.device("cuda", 0),
+          f"rank {rank}: mesh {mesh.shape} on {mesh.device}")
+    tasks = {False: tiny_task(torch), True: tiny_task(torch, ragged=True)}
+    for name, drv, fields, ragged in TINY_CASES:
+        run, cls = driver(drv)
         build.reset_launches()
-        swept = run_sweep(tasks[False], cls(rounds=3, local_steps=4, qsgd_levels=16,
-                                            eval_every=1), SWEEP_SEEDS, mesh=mesh)
-        out["sweep"] = [run_summary(torch, r) for r in swept]
-        out["sweep_launches"] = dict(build.LAUNCHES)
-        return out
+        res = run(tasks[ragged], cls(**fields, mesh=mesh))
+        tiny[name] = dict(run_summary(torch, res), launches=dict(build.LAUNCHES),
+                          executor=engine.LAST_STATS["executor"])
+    run, cls = driver("fedavg")
+    build.reset_launches()
+    swept = run_sweep(tasks[False], cls(rounds=3, local_steps=4, qsgd_levels=16,
+                                        eval_every=1), SWEEP_SEEDS, mesh=mesh)
+    tiny["sweep"] = [run_summary(torch, r) for r in swept]
+    tiny["sweep_launches"] = dict(build.LAUNCHES)
+    del tasks, swept
     task = lenet_appendix_task(torch)
     for name, drv, fields, shape, _ in lenet_mesh_cases():
         mesh = make_federation_mesh(*shape)
@@ -3514,27 +3670,27 @@ def mesh_rank(rank: int, part: str) -> dict:
         res = run(task, cls(**fields, mesh=mesh))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        out[name] = dict(run_summary(torch, res), launches=dict(build.LAUNCHES),
-                         s_per_round=secs / fields["rounds"],
-                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                         executor=engine.LAST_STATS["executor"])
-    return out
+        lenet[name] = dict(run_summary(torch, res), launches=dict(build.LAUNCHES),
+                           s_per_round=secs / fields["rounds"],
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           executor=engine.LAST_STATS["executor"])
+    return {"tiny": tiny, "lenet": lenet}
 
 
-def spawn_mesh(torch, part: str) -> list:
-    """`mesh_rank(part)` on MESH_RANKS gloo ranks sharing the card; a
-    failure in any rank fails the phase."""
+def spawn_mesh(torch) -> list:
+    """`mesh_rank` on MESH_RANKS gloo ranks sharing the card; a failure in
+    any rank fails the phase."""
     from repro_torch.launch.mesh import spawn_ranks
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # the parent's cached blocks go back to the card
     t0 = time.perf_counter()
     try:
-        out = spawn_ranks(mesh_rank, MESH_RANKS, part)
+        out = spawn_ranks(mesh_rank, MESH_RANKS, threads=RANK_THREADS)
     except RuntimeError as e:
-        fail(f"phase 3n ({part}): a rank failed:\n{e}")
-    print(f"  [3n: {MESH_RANKS} ranks of '{part}' in {time.perf_counter() - t0:.1f} s, "
-          f"process start included]")
+        fail(f"phase 3n: a rank failed:\n{e}")
+    print(f"  [3n: {MESH_RANKS} ranks of the tiny task's and the LeNet cases in "
+          f"{time.perf_counter() - t0:.1f} s, process start included]")
     return out
 
 
@@ -3562,7 +3718,9 @@ def mesh_path(torch, build):
     """Phase 3n: the federation mesh on 4 gloo ranks sharing the card."""
     from repro_torch.utils import tree_leaves
 
-    # 3n-a: every driver, dense and QSGD(16), on the tiny task
+    # the single card's runs of 3n-a (every driver, dense and QSGD(16), on
+    # the tiny task) and of 3n-b (the Appendix-A LeNet scale), then one
+    # spawn of the ranks for both
     singles = {}
     tasks = {False: tiny_task(torch), True: tiny_task(torch, ragged=True)}
     for name, drv, fields, ragged in TINY_CASES:
@@ -3570,7 +3728,18 @@ def mesh_path(torch, build):
         build.reset_launches()
         singles[name] = dict(run_summary(torch, run(tasks[ragged], cls(**fields))),
                              launches=dict(build.LAUNCHES))
-    ranks = spawn_mesh(torch, "tiny")
+    task = lenet_appendix_task(torch)
+    lenet_singles = {}
+    for name, drv, fields, shape, hops in lenet_mesh_cases():
+        run, cls = driver(drv)
+        arm = comparison_arm(torch, build, name, lambda: run(task, cls(**fields)),
+                             fields["rounds"])
+        control = run_summary(torch, run(lenet_appendix_task(torch, ulp=True), cls(**fields)))
+        lenet_singles[name] = (arm, run_summary(torch, arm["res"]), control)
+    p0 = [a.detach().cpu() for a in tree_leaves(task.init_params())]
+    del task
+    both = spawn_mesh(torch)
+    ranks = [r["tiny"] for r in both]
     for name, drv, fields, ragged in TINY_CASES:
         single = singles[name]
         for r, out in enumerate(ranks):
@@ -3609,20 +3778,10 @@ def mesh_path(torch, build):
           f"{sum(o['sweep_launches']['qsgd_quantize_pack'] for o in ranks)}")
 
     # 3n-b: the Appendix-A LeNet scale against single-card runs
-    task = lenet_appendix_task(torch)
-    singles = {}
-    for name, drv, fields, shape, hops in lenet_mesh_cases():
-        run, cls = driver(drv)
-        arm = comparison_arm(torch, build, name, lambda: run(task, cls(**fields)),
-                             fields["rounds"])
-        control = run_summary(torch, run(lenet_appendix_task(torch, ulp=True), cls(**fields)))
-        singles[name] = (arm, run_summary(torch, arm["res"]), control)
-    p0 = [a.detach().cpu() for a in tree_leaves(task.init_params())]
-    del task
-    ranks = spawn_mesh(torch, "lenet")
+    ranks = [r["lenet"] for r in both]
     leaves = 10
     for name, drv, fields, shape, hops in lenet_mesh_cases():
-        arm, single, control = singles[name]
+        arm, single, control = lenet_singles[name]
         ctl = summary_gap(control, single)
         gap = summary_gap(ranks[0][name], single)
         for r, out in enumerate(ranks):
@@ -4022,7 +4181,7 @@ def model_mesh_path(torch, build):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
-        ranks = spawn_ranks(model_mesh_rank, MESH_RANKS)
+        ranks = spawn_ranks(model_mesh_rank, MESH_RANKS, threads=RANK_THREADS)
     except RuntimeError as e:
         fail(f"phase 3o: a rank failed:\n{e}")
     r0 = ranks[0]
@@ -4512,7 +4671,14 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
+          f"CUDA {torch.version.cuda}; host: {os.cpu_count()} CPU cores, torch "
+          f"{torch.get_num_threads()} threads, {CPU_WORKERS} CPU workers of 1, mesh ranks of "
+          f"{RANK_THREADS}")
+    global CPU_POOL
+    CPU_POOL = start_cpu_pool(root / "src")
+    cpu_runs = {"3a": mlp_qsgd_cpu_runs(), "3d": lm_cross_cpu_runs(),
+                "3f": baselines_cpu_runs(), "3h": lean_cpu_runs(),
+                **{label: fed_lm_cpu_runs(**spec) for label, spec in fed_lm_phases().items()}}
 
     t0 = time.perf_counter()
     built = build.build()
@@ -4541,6 +4707,7 @@ def main() -> None:
     baseline_shapes_vs_plain(torch, qsgd, ref, err)
     err.update(dense_codes_vs_plain(torch, qsgd, lm_sizes))
     err["flash_attention"] = flash_vs_plain(torch, fa)
+    cpu_runs_done(cpu_runs)
 
     t_paths = time.perf_counter()
 
@@ -4553,20 +4720,20 @@ def main() -> None:
     elapsed("3q")
 
     lenet_task = lenet_path(torch, build)
-    quickstart_and_cross_check(torch)
+    quickstart_and_cross_check(torch, cpu_runs["3a"])
     elapsed("3a")
     launches, round_s, lm_params, lm_peak_gb = lm_path(torch, build)
     elapsed("3b")
     launches.update({k: v for k, v in dense_code_path(torch, build, lm_params).items()
                      if k in ("qsgd_quantize", "qsgd_dequantize")})
     del lm_params
-    lm_cross_check(torch)
+    lm_cross_check(torch, cpu_runs["3d"])
     torch.cuda.empty_cache()
     elapsed("3c, 3d")
     arms = comparison_path(torch, build, lenet_task)
     elapsed("3e")
     participation_path(torch, build, lenet_task, arms)
-    baselines_cross_check(torch)
+    baselines_cross_check(torch, cpu_runs["3f"])
     elapsed("3f, 3g")
     microbatched_appendix_arms(torch, build, lenet_task, arms)
     scanned_appendix_path(torch, build, lenet_task, arms)
@@ -4579,7 +4746,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     lean_lm_path(torch, build, lm_peak_gb, round_s)
     elapsed("3h's LM arms")
-    lean_cross_check(torch)
+    lean_cross_check(torch, cpu_runs["3h"])
     elapsed("3h")
     torch.cuda.empty_cache()
     scanned_lm_path(torch, build)
@@ -4592,24 +4759,24 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe_train_step_path(torch, build)
     torch.cuda.empty_cache()
-    moe_fed_path(torch, build)
+    moe_fed_path(torch, build, cpu_runs["3k-c"])
     elapsed("3k")
     torch.cuda.empty_cache()
     mla_serving_path(torch, build)
     torch.cuda.empty_cache()
     mla_train_step_path(torch, build)
     torch.cuda.empty_cache()
-    mla_fed_path(torch, build)
+    mla_fed_path(torch, build, cpu_runs["3l-c"])
     elapsed("3l-a, 3l-b, 3l-c")
     torch.cuda.empty_cache()
-    ssd_path(torch, build)
+    ssd_path(torch, build, cpu_runs["3l-d"])
     elapsed("3l-d")
     torch.cuda.empty_cache()
     rglru_serving_path(torch, build)
     torch.cuda.empty_cache()
     rglru_window_path(torch, build)
     torch.cuda.empty_cache()
-    rglru_fed_path(torch, build)
+    rglru_fed_path(torch, build, cpu_runs["3m-c"])
     elapsed("3m-a, 3m-b, 3m-c")
     torch.cuda.empty_cache()
     whisper_path(torch, build)

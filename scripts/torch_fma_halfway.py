@@ -20,7 +20,7 @@ import argparse
 import collections
 import traceback
 
-import torch
+import numpy as np
 
 import repro_torch.kernels.ref as ref
 from repro_torch.core import prng
@@ -34,19 +34,19 @@ def main(argv=None) -> None:
     exact, inexact = collections.Counter(), collections.Counter()
 
     def checked(self, a, b, c, out):
-        a64 = a.double()
-        p = a64 * (b.double() if isinstance(b, torch.Tensor) else b)
-        s = p + (c.double() if isinstance(c, torch.Tensor) else c)
-        tie = (s.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
-        if bool(tie.any()):
+        p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+        c64 = np.broadcast_to(np.asarray(c, np.float64), p.shape)
+        s = p + c64
+        tie = (s.view(np.int64) & ((1 << 29) - 1)) == (1 << 28)
+        if tie.any():
             site = traceback.extract_stack(limit=2)[0].lineno
-            t, pt = s[tie], p[tie] if p.dim() else p
-            ct = c.double()[tie] if isinstance(c, torch.Tensor) else torch.full_like(t, c)
+            t, pt, ct = s[tie], p[tie], c64[tie]
             back = t - pt  # two-sum: the exact error of t = p + c
             err = (pt - (t - back)) + (ct - back)
             exact[site] += int((err == 0).sum())
             inexact[site] += int((err != 0).sum())
-        return out.copy_(s)
+        out[...] = s
+        return out
 
     ref._Fma.__call__ = checked
     for k in range(args.keys):

@@ -8,7 +8,9 @@ in one call on the same card:
     python scripts/torch_init_seconds.py --src src --label change
 
 With `--smoke --device cpu`, the registry's smoke configs on the CPU (what
-the tests draw), with the entries a second.
+the tests draw), with the entries a second, and first the rate of the plain
+draw `kernels/ref.py::normal_ref` alone over 2^22 entries (f32 and bf16, the
+best of three draws); run it under `OMP_NUM_THREADS=1` for one torch thread.
 
 Each config is drawn twice (the first draw builds and loads the kernels)
 and the second draw's wall seconds, ended by a synchronize, are printed,
@@ -57,6 +59,16 @@ def main(argv=None) -> None:
          for phase, arch, kw in INIT_CONFIGS]
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     out = {}
+    if not on_card:
+        from repro_torch.kernels.ref import normal_ref
+
+        n = 1 << 22
+        for dtype in (torch.float32, torch.bfloat16):
+            secs = min(_seconds(lambda: normal_ref((7, 9), 12345, n, 0.02, dtype))
+                       for _ in range(3))
+            out[f"normal_ref {dtype}"] = secs
+            print(f"  normal_ref: {n} entries ({dtype}) in {secs:.3f} s "
+                  f"({n / secs / 1e6:.1f}M a second)")
     for phase, arch, cfg in configs:
         for _ in range(2):
             sync()
@@ -72,6 +84,12 @@ def main(argv=None) -> None:
         print(f"  {phase} {arch} ({cfg.num_layers} layers, {cfg.dtype}): {n} params drawn in "
               f"{secs:.3f} s ({n / secs / 1e6:.1f}M a second)")
     print(json.dumps({args.label: out}))
+
+
+def _seconds(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
 
 
 if __name__ == "__main__":

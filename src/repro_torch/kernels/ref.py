@@ -16,7 +16,9 @@ The packed wire format (what crosses a channel):
 draw: `jax.random.normal` bit for bit, what `init_params` runs on the CPU.
 
 32-bit words on the CPU: torch has no `>>` for uint32 and `>>` on int32
-sign-extends, so the arithmetic here runs in int64 masked to 32 bits.
+sign-extends, so the QSGD arithmetic here runs in int64 masked to 32 bits;
+`normal_ref` carries its threefry words as numpy uint32 on the CPU and as
+int32 with masked right shifts on a device.
 Payload words are stored as int32 tensors holding the uint32 bit pattern
 (compare with ``.numpy().view(np.uint32)``); codes are int64.
 """
@@ -192,36 +194,105 @@ _LOG1P_LARGE = float(np.float32(0.41421356237309504880))
 _U_LO = float(np.nextafter(np.float32(-1), np.float32(0)))
 
 
+class _Host:
+    """The plain draw's array operations on the CPU: numpy, whose element-wise
+    operations all run on the calling thread (torch's CPU operations split
+    over its thread pool, and under a parallel test run each split waits on
+    every core), with the words as uint32."""
+    f32, f64, words_dtype = np.float32, np.float64, np.uint32
+    lshift, frexp, sqrt, maximum = np.left_shift, np.frexp, np.sqrt, np.maximum
+    nonzero = staticmethod(np.flatnonzero)
+
+    @staticmethod
+    def counters(start: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+        idx = np.arange(start, start + n, dtype=np.uint64)
+        return (idx >> np.uint64(32)).astype(np.uint32), idx.astype(np.uint32)
+
+    @staticmethod
+    def word(k: int) -> np.uint32:
+        return np.uint32(k)
+
+    @staticmethod
+    def shr(x: np.ndarray, r: int) -> None:
+        x >>= r
+
+    @staticmethod
+    def cast(x: np.ndarray, dtype) -> np.ndarray:
+        return x.astype(dtype)
+
+    @staticmethod
+    def empty(n: int, dtype) -> np.ndarray:
+        return np.empty(n, dtype)
+
+
+class _Device:
+    """The same operations in torch on a device (the card), the words as
+    int32: adds wrap, and a right shift is masked to be logical."""
+    f32, f64, words_dtype = torch.float32, torch.float64, torch.int32
+    lshift, frexp, sqrt, maximum = (torch.bitwise_left_shift, torch.frexp, torch.sqrt,
+                                    torch.clamp_min)
+
+    def __init__(self, device):
+        self.device = device
+
+    def counters(self, start: int, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        idx = torch.arange(start, start + n, dtype=torch.int64, device=self.device)
+        return (idx >> 32).to(torch.int32), idx.to(torch.int32)
+
+    @staticmethod
+    def word(k: int) -> int:
+        return k - (1 << 32) if k >> 31 else k
+
+    @staticmethod
+    def shr(x: torch.Tensor, r: int) -> None:
+        x >>= r
+        x &= (1 << (32 - r)) - 1
+
+    @staticmethod
+    def nonzero(mask: torch.Tensor) -> torch.Tensor:
+        return mask.nonzero().squeeze(1)
+
+    @staticmethod
+    def cast(x: torch.Tensor, dtype) -> torch.Tensor:
+        return x.to(dtype)
+
+    def empty(self, n: int, dtype) -> torch.Tensor:
+        return torch.empty(n, dtype=dtype, device=self.device)
+
+
 class _Fma:
     """XLA's f32 fused multiply-adds as an f64 product and sum: the f32
     product is exact in f64, and the f64 sum is rounded to f32.
     That rounds twice, and differs from one rounding where the f64 sum
     lies exactly halfway between two f32 values and was itself inexact;
     `scripts/torch_fma_halfway.py` counts such sums in these polynomials.
-    Work tensors are allocated once per chunk: a fresh large tensor per
-    operation costs more than the operation on this path."""
+    The f64 work array is allocated once per chunk."""
 
-    def __init__(self, n: int, device):
-        self.a, self.s = (torch.empty(n, dtype=torch.float64, device=device) for _ in range(2))
+    def __init__(self, xp, n: int):
+        self.s = xp.empty(n, xp.f64)
 
-    def __call__(self, a: torch.Tensor, b, c, out: torch.Tensor) -> torch.Tensor:
-        """out = fma(a, b, c) in f32: a an f32 tensor, b an f64 tensor (an
-        f32 tensor's f64 copy) or an f32-exact Python float, c an f32
-        tensor or an f32-exact Python float."""
-        torch.mul(self.a.copy_(a), b, out=self.s).add_(c)
-        return out.copy_(self.s)
+    def __call__(self, a, b, c, out):
+        """out = fma(a, b, c) in f32: a an f32 array, b an f64 array (an f32
+        array's f64 copy) or an f32-exact Python float, c an f32 array or
+        an f32-exact Python float."""
+        s = self.s
+        s[...] = a
+        s *= b
+        s += c
+        out[...] = s
+        return out
 
 
-def _log_ref(fma: _Fma, v: torch.Tensor) -> torch.Tensor:
+def _log_ref(xp, fma: _Fma, v):
     """XLA's f32 log of positive normal `v` (Cephes' `logf`)."""
-    m, e = torch.frexp(v)
-    low = (m < _LOG_LOW).float()
+    m, e = xp.frexp(v)
+    low = xp.cast(m < _LOG_LOW, xp.f32)
     x = (m - 1.0) + m * low
-    e = e.float() - low
+    e = xp.cast(e, xp.f32) - low
     x2 = x * x
     x3 = x2 * x
-    p, x64, x3_64 = _LOG_P, x.double(), x3.double()
-    y, y1, y2 = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    p, x64, x3_64 = _LOG_P, xp.cast(x, xp.f64), xp.cast(x3, xp.f64)
+    y, y1, y2 = (xp.empty(len(x), xp.f32) for _ in range(3))
     fma(fma(x, p[0], p[1], y), x64, p[2], y)
     fma(fma(x, p[3], p[4], y1), x64, p[5], y1)
     fma(fma(x, p[6], p[7], y2), x64, p[8], y2)
@@ -233,22 +304,20 @@ def _log_ref(fma: _Fma, v: torch.Tensor) -> torch.Tensor:
     return e * _LOG_Q2 + x
 
 
-def _log1p_ref(fma: _Fma, x: torch.Tensor) -> torch.Tensor:
+def _log1p_ref(xp, fma: _Fma, x):
     """XLA's f32 log1p of `x` in (-1, 0]: Cephes' rational form where |x| <
     sqrt(2) - 1, else the log of 1 + x, each computed on its own entries."""
-    large = (x <= -_LOG1P_LARGE).nonzero().squeeze(1)
-    out = _log1p_small(fma, x)
+    large = xp.nonzero(x <= -_LOG1P_LARGE)
+    out = _log1p_small(xp, fma, x)
     if len(large):
-        xl = x[large]
-        out[large] = _log_ref(_Fma(len(large), x.device), xl + 1.0)
+        out[large] = _log_ref(xp, _Fma(xp, len(large)), x[large] + 1.0)
     return out
 
 
-def _log1p_small(fma: _Fma, x: torch.Tensor) -> torch.Tensor:
-    x64 = x.double()
-    num, den = torch.empty_like(x), torch.empty_like(x)
-    fma(x, _LOG1P_NUM[0], _LOG1P_NUM[1], num)
-    torch.add(x, _LOG1P_DEN[1], out=den)  # the leading 1 of the denominator
+def _log1p_small(xp, fma: _Fma, x):
+    x64 = xp.cast(x, xp.f64)
+    num = fma(x, _LOG1P_NUM[0], _LOG1P_NUM[1], xp.empty(len(x), xp.f32))
+    den = x + _LOG1P_DEN[1]  # the leading 1 of the denominator
     for cn, cd in zip(_LOG1P_NUM[2:], _LOG1P_DEN[2:]):
         fma(num, x64, cn, num)
         fma(den, x64, cd, den)
@@ -256,55 +325,64 @@ def _log1p_small(fma: _Fma, x: torch.Tensor) -> torch.Tensor:
     return x + (x2 * -0.5 + (x * x2) * (num / den))
 
 
-def _erf_inv_ref(fma: _Fma, x: torch.Tensor) -> torch.Tensor:
+def _erf_inv_ref(xp, fma: _Fma, x):
     """XLA's f32 erf_inv of `x` in (-1, 1): Giles' polynomial in w - 2.5
     where w = -log(1 - x^2) < 5, else (about 1 entry in 300) in sqrt(w) - 3,
     with the f64 sqrt rounded to f32, which is the correctly rounded one."""
-    w = _log1p_ref(fma, x * -x).neg_()
-    tail = (w >= 5.0).nonzero().squeeze(1)
-    p = _erf_inv_poly(fma, w - 2.5, _ERFINV_LT5)
+    w = -_log1p_ref(xp, fma, x * -x)
+    tail = xp.nonzero(w >= 5.0)
+    p = _erf_inv_poly(xp, fma, w - 2.5, _ERFINV_LT5)
     if len(tail):
-        wt = torch.sqrt(w[tail].double()).float() - 3.0
-        p[tail] = _erf_inv_poly(_Fma(len(tail), x.device), wt, _ERFINV_GE5)
+        wt = xp.cast(xp.sqrt(xp.cast(w[tail], xp.f64)), xp.f32) - 3.0
+        p[tail] = _erf_inv_poly(xp, _Fma(xp, len(tail)), wt, _ERFINV_GE5)
     return p * x
 
 
-def _erf_inv_poly(fma: _Fma, w: torch.Tensor, coeffs: tuple) -> torch.Tensor:
-    p, w64 = torch.empty_like(w), w.double()
+def _erf_inv_poly(xp, fma: _Fma, w, coeffs: tuple):
+    p, w64 = xp.empty(len(w), xp.f32), xp.cast(w, xp.f64)
     fma(w, coeffs[0], coeffs[1], p)
     for c in coeffs[2:]:
         fma(p, w64, c, p)
     return p
 
 
-def _threefry_bits(k0: int, k1: int, start: int, n: int, device="cpu") -> torch.Tensor:
+def _threefry_bits(xp, k0: int, k1: int, start: int, n: int):
     """Random bits of `jax.random` (partitionable threefry2x32) for flat
     indices [start, start + n): the 20-round hash of each 64-bit index
-    (high word, low word), the two output words xor'ed.  int64 tensors
-    holding 32-bit words, updated in place; x0 is masked only where it is
-    read as a word (it only ever grows by sums, so its low word is right)."""
+    (high word, low word), the two output words xor'ed.  32-bit words
+    updated in place."""
     ks = (k0, k1, k0 ^ k1 ^ int(prng._PARITY))
-    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
-    x0 = (idx >> 32).add_(ks[0])
-    x1 = idx.bitwise_and_(MASK32).add_(ks[1]).bitwise_and_(MASK32)
-    y = torch.empty_like(x1)
+    x0, x1 = xp.counters(start, n)
+    x0 += xp.word(ks[0])
+    x1 += xp.word(ks[1])
+    y = xp.empty(n, xp.words_dtype)
     for i in range(5):
         for r in prng._ROTATIONS[i % 2]:
-            x0.add_(x1)
-            torch.bitwise_left_shift(x1, r, out=y)
-            torch.bitwise_right_shift(y, 32, out=x1)
-            x1.bitwise_or_(y).bitwise_xor_(x0).bitwise_and_(MASK32)  # rotl(x1, r) ^ x0
-        x0.add_(ks[(i + 1) % 3])
-        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(MASK32)
-    return x0.bitwise_xor_(x1).bitwise_and_(MASK32)
+            x0 += x1
+            xp.lshift(x1, r, out=y)
+            xp.shr(x1, 32 - r)
+            x1 |= y
+            x1 ^= x0  # rotl(x1, r) ^ x0
+        x0 += xp.word(ks[(i + 1) % 3])
+        x1 += xp.word((ks[(i + 2) % 3] + i + 1) & MASK32)
+    x0 ^= x1
+    return x0
 
 
-def _normal_chunk(k0: int, k1: int, start: int, n: int, device) -> torch.Tensor:
-    bits = _threefry_bits(k0, k1, start, n, device)
-    floats = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000).to(torch.int32) \
-        .view(torch.float32) - 1.0
-    u = torch.clamp_min(floats * 2.0 + _U_LO, _U_LO)  # floats * f32(1 - lo) + lo: f32(1 - lo) = 2
-    return _erf_inv_ref(_Fma(n, device), u) * _SQRT2
+def _normal_chunk(xp, k0: int, k1: int, start: int, n: int):
+    bits = _threefry_bits(xp, k0, k1, start, n)
+    xp.shr(bits, 9)
+    bits |= 0x3F800000
+    floats = bits.view(xp.f32) - 1.0
+    u = xp.maximum(floats * 2.0 + _U_LO, _U_LO)  # floats * f32(1 - lo) + lo: f32(1 - lo) = 2
+    return _erf_inv_ref(xp, _Fma(xp, n), u) * _SQRT2
+
+
+def _bf16_bits(v: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 bit patterns, rounded to nearest even (torch's rounding of
+    finite values)."""
+    b = v.view(np.uint32)
+    return ((b + (((b >> 16) & 1) + 0x7FFF)) >> 16).astype(np.uint16)
 
 
 def normal_ref(key, offset: int, n: int, scale: float, dtype=torch.float32,
@@ -314,18 +392,24 @@ def normal_ref(key, offset: int, n: int, scale: float, dtype=torch.float32,
     rounded to `dtype` (f32, or bf16 to nearest even): an (n,) tensor.
     `key` is the two uint32 key words.
 
-    On the CPU (what `init_params` runs there) in chunks of `_NORMAL_CHUNK`
-    entries, no more than one of torch's parallel grains: each of a chunk's
-    few hundred operations runs on the calling thread and waits on no other
-    core.  Split over the cores, every operation would wait for all of
-    them, and under a parallel test run (six processes on eight cores) that
-    wait made the draw three hundred times slower.  On the card (only to
-    compare with the kernel) in chunks of 2^24."""
+    On the CPU (what `init_params` runs there) in numpy, chunks of
+    `_NORMAL_CHUNK` entries, every operation on the calling thread whatever
+    torch's thread count; on a device (the card, only to compare with the
+    kernel) in torch, chunks of 2^24."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
     k0, k1 = (int(k) & MASK32 for k in key)
     scale = float(np.float32(scale))
-    out = torch.empty(n, dtype=dtype, device=device)
-    chunk = _NORMAL_CHUNK if out.device.type == "cpu" else 1 << 24
-    for lo in range(0, n, chunk):
-        m = min(chunk, n - lo)
-        out[lo:lo + m] = (_normal_chunk(k0, k1, offset + lo, m, out.device) * scale).to(dtype)
-    return out
+    if torch.device(device).type != "cpu":
+        xp, out = _Device(device), torch.empty(n, dtype=dtype, device=device)
+        for lo in range(0, n, 1 << 24):
+            m = min(1 << 24, n - lo)
+            out[lo:lo + m] = (_normal_chunk(xp, k0, k1, offset + lo, m) * scale).to(dtype)
+        return out
+    f32 = dtype == torch.float32
+    out = np.empty(n, np.float32 if f32 else np.uint16)
+    for lo in range(0, n, _NORMAL_CHUNK):
+        m = min(_NORMAL_CHUNK, n - lo)
+        v = _normal_chunk(_Host, k0, k1, offset + lo, m) * np.float32(scale)
+        out[lo:lo + m] = v if f32 else _bf16_bits(v)
+    return torch.from_numpy(out) if f32 else torch.from_numpy(out.view(np.int16)).view(dtype)

@@ -45,6 +45,9 @@ from repro_torch.weights import params_from_jax
 
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# a torch subprocess runs on one thread, as this process does: the test
+# command runs several workers on the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 
 @pytest.fixture(scope="module")
@@ -327,7 +330,7 @@ print(json.dumps({"params": h.hexdigest(), "test_acc": res.test_acc, "rounds": r
 
 
 def _service(ck, mode):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD)
     p = subprocess.run([sys.executable, "-c", _SERVICE, ck, mode], capture_output=True,
                        text=True, env=env, cwd=ROOT, timeout=300)
     return p

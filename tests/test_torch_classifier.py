@@ -45,7 +45,8 @@ def test_forward_loss_grads_match_reference(model, width):
     got_logits = tclf.apply(params, torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got_logits, want_logits, rtol=1e-5, atol=2e-5)
 
-    want_loss, want_grads = jax.value_and_grad(jclf.loss)(jparams, jnp.asarray(x), jnp.asarray(y))
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jclf.loss))(jparams, jnp.asarray(x),
+                                                                   jnp.asarray(y))
     grads, loss = grad_and_value(tclf.loss)(params, torch.from_numpy(x), torch.from_numpy(y))
     np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6)
     for g, w in zip(tree_leaves(grads), jax.tree.leaves(want_grads)):

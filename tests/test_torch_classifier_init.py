@@ -28,6 +28,8 @@ import torch
 
 from repro_torch.core import prng
 
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("seed,shape", [(0, (784, 200)), (1, (5, 5, 1, 64)), (7, (3, 1000)),
                                         (2 ** 31 - 1, (4097,))])

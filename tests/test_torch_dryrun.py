@@ -30,6 +30,9 @@ from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.roofline import analyze_trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# a torch subprocess runs on one thread, as this process does: the test
+# command runs several workers on the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 CASES = [(a, s) for a in ("qwen3-0.6b", "mamba2-370m", "dbrx-132b")
          for s in ("train_4k", "decode_32k")]
 # port / reference per-device dot FLOPs, measured: the remat recompute's
@@ -135,7 +138,7 @@ def test_abstract_params_of_deepseek_allocate_nothing():
 
 
 def test_dryrun_cli_writes_a_record(tmp_path):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), **ONE_THREAD)
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "whisper-tiny",
                         "--shape", "decode_32k", "--mesh", "single", "--out", str(tmp_path)],
                        capture_output=True, text=True, env=env, timeout=300)

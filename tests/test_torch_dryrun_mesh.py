@@ -41,7 +41,12 @@ from repro_torch.launch.mesh import fake_world, make_debug_mesh
 from repro_torch.roofline import analyze_trace
 from repro_torch.utils import tree_leaves
 
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# a torch subprocess runs on one thread, as this process does: the test
+# command runs several workers on the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 DATA, MODEL = 2, 4
 SEQ, BATCH = 64, 8
 ARCHS = ("qwen3-0.6b", "dbrx-132b", "deepseek-v3-671b", "mamba2-370m")
@@ -77,7 +82,7 @@ CASES = [(a, s, SEQ) for a in ARCHS for s in SHAPES] + [(a, s, q) for (a, s), q 
 @pytest.fixture(scope="module")
 def reference():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={DATA * MODEL}")
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={DATA * MODEL}", **ONE_THREAD)
     r = subprocess.run([sys.executable, "-c", _REF, str(DATA), str(MODEL), str(BATCH),
                         ",".join(f"{a}/{s}/{q}" for a, s, q in CASES)],
                        capture_output=True, text=True, env=env, timeout=600)

@@ -199,8 +199,8 @@ def test_teacher_forced_decode_matches_forward(whisper):
 def test_loss_and_grads_match_reference(whisper, phi, arch, remat):
     jcfg, cfg, jparams, params = whisper if arch == WHISPER else phi
     batch = lm_batch(cfg, (2, 2), 9, 4)
-    jloss, jgrads = jax.vmap(jax.value_and_grad(
-        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=remat)), in_axes=(None, 0))(
+    jloss, jgrads = jax.jit(jax.vmap(jax.value_and_grad(
+        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=remat)), in_axes=(None, 0)))(
         jparams, jarrays(batch))
     grads, loss = vmap(grad_and_value(lambda p, b: tf.loss_fn(cfg, p, b, remat=remat)),
                        in_dims=(None, 0))(params, tensors(batch))
@@ -223,7 +223,7 @@ def test_train_round_with_frames_matches_reference(whisper):
     batch = lm_batch(cfg, (2, 2), 8, 5)
     jstacked = jax.tree.map(lambda x: jnp.stack([x, x * 0.5]), jparams)
     stacked = carried(jstacked)
-    jround = jax_make_train_round(jcfg, variant="fedchs", remat=True)
+    jround = jax.jit(jax_make_train_round(jcfg, variant="fedchs", remat=True))
     rnd = make_train_round(cfg, variant="fedchs", remat=True)
     for _ in range(2):
         jstacked, jloss = jround(jstacked, jarrays(batch), jnp.float32(0.3))

@@ -33,12 +33,17 @@ import os
 import runpy
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# a torch subprocess runs on one thread, as this process does: the test
+# command runs several workers on the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 DIV = 4
 GAMMA = 0.9  # netsim_tour's target accuracy
 TWINS = ("compare_algorithms", "dynamic_topology", "netsim_tour", "participation_tour")
@@ -50,16 +55,30 @@ def _twin(name: str) -> dict:
     return runpy.run_path(os.path.join(ROOT, "examples", f"torch_{name}.py"), run_name="twin")
 
 
-def twin_rows(name: str) -> dict:
-    """The twin's rows from a subprocess on the CPU."""
+def start_twin(name: str) -> subprocess.Popen:
+    """The twin run in a subprocess on the CPU, started in the background:
+    `twin_rows` waits for its rows."""
     code = (f"import json, runpy; m = runpy.run_path({os.path.join(ROOT, 'examples', f'torch_{name}.py')!r}, "
             f"run_name='twin'); print('ROWS', json.dumps(m['main']"
             f"(['--device', 'cpu', '--rounds-div', '{DIV}'])))")
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
-                       timeout=600)
-    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
-    line = [ln for ln in r.stdout.splitlines() if ln.startswith("ROWS ")][-1]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), **ONE_THREAD)
+    p = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, env=env)
+    p.started = time.monotonic()
+    return p
+
+
+def twin_rows(p: subprocess.Popen, timeout=600) -> dict:
+    """The rows of a started twin, which must end within `timeout` seconds
+    of its start (else it is killed and this raises)."""
+    try:
+        out, err = p.communicate(timeout=max(0.0, p.started + timeout - time.monotonic()))
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    assert p.returncode == 0, out[-3000:] + err[-3000:]
+    line = [ln for ln in out.splitlines() if ln.startswith("ROWS ")][-1]
     return json.loads(line[5:])
 
 
@@ -313,9 +332,15 @@ def compare(twin: dict, ref: dict, ctrls: list) -> list:
 
 @pytest.mark.parametrize("name", TWINS)
 def test_twin_holds_the_reference_example(name):
-    twin = twin_rows(name)
-    ref = REFERENCE[name]()
-    ctrls = [control_rows(name, how) for how in NUDGES]
+    proc = start_twin(name)  # the twin runs beside the reference and the controls here
+    try:
+        ref = REFERENCE[name]()
+        ctrls = [control_rows(name, how) for how in NUDGES]
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    twin = twin_rows(proc)
     for row, key, gap, control in compare(twin, ref, ctrls):
         print(f"{name} {row} {key}: gap {gap:.4g}, 1-ulp control {control:.4g}")
         assert gap <= control, (row, key, gap, control)

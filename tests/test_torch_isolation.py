@@ -10,6 +10,9 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# a torch subprocess runs on one thread, as this process does: the test
+# command runs several workers on the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py"))
            + [ROOT / "chip_smoke.py"])
@@ -28,7 +31,7 @@ print(len([m for m in sys.modules if m.startswith("repro_torch")]), bad)
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference_module():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD)
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL.format(root=str(ROOT))],
                          capture_output=True, text=True, env=env, timeout=120, check=True)
     n_modules, bad = out.stdout.split(maxsplit=1)
@@ -66,7 +69,7 @@ print(sorted(m for m in sys.modules
 def test_mesh_module_loads_no_jax_and_no_reference_module(module):
     path = PORT.joinpath(*module.split(".")[1:])
     assert path.with_suffix(".py") in SOURCES or path / "__init__.py" in SOURCES
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD)
     out = subprocess.run([sys.executable, "-c", IMPORT_ONE.format(module=module)],
                          capture_output=True, text=True, env=env, timeout=120, check=True)
     assert out.stdout.strip() == "[]"

@@ -22,16 +22,45 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import time
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# a torch subprocess runs on one thread, as this process does: the test
+# command runs several workers on the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+def start(module, *args, env=None) -> subprocess.Popen:
+    """`python -m module args` started in the background, so that the
+    independent runs of a test overlap."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD, **(env or {}))
+    p = subprocess.Popen([sys.executable, "-m", module, *args], env=env, cwd=ROOT,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    p.started = time.monotonic()
+    return p
+
+
+def finish(*procs: subprocess.Popen, timeout=300) -> list[subprocess.CompletedProcess]:
+    """Wait for started runs as `subprocess.run(..., timeout=)` waits for
+    one: a run still going `timeout` seconds after its start raises, and
+    every run not yet ended is killed."""
+    done = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=max(0.0, p.started + timeout - time.monotonic()))
+            done.append(subprocess.CompletedProcess(p.args, p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return done
 
 
 def run(module, *args, timeout=300, env=None):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env or {}))
-    return subprocess.run([sys.executable, "-m", module, *args], env=env, cwd=ROOT,
-                          capture_output=True, text=True, timeout=timeout)
+    return finish(start(module, *args, env=env), timeout=timeout)[0]
 
 
 def test_serve_execute_on_the_cpu():
@@ -50,11 +79,11 @@ def losses(out: str) -> dict[int, str]:
 def test_train_execute_and_resume_on_the_cpu(tmp_path):
     args = ["--arch", "qwen3-0.6b", "--execute", "--device", "cpu", "--batch", "2", "--seq",
             "16", "--ckpt-every", "1"]
-    full = run("repro_torch.launch.train", *args, "--rounds", "5")
+    ck = str(tmp_path / "ck")
+    full, first = finish(start("repro_torch.launch.train", *args, "--rounds", "5"),
+                         start("repro_torch.launch.train", *args, "--rounds", "3", "--ckpt", ck))
     assert full.returncode == 0, full.stdout + full.stderr
     assert "done in" in full.stdout and len(losses(full.stdout)) == 5
-    ck = str(tmp_path / "ck")
-    first = run("repro_torch.launch.train", *args, "--rounds", "3", "--ckpt", ck)
     assert first.returncode == 0, first.stderr
     resumed = run("repro_torch.launch.train", *args, "--rounds", "5", "--ckpt", ck)
     assert resumed.returncode == 0, resumed.stderr
@@ -85,9 +114,10 @@ def test_train_execute_prints_the_reference_losses(arch, variant, tmp_path):
     first = run("repro.launch.train", *args, "--rounds", "1", "--ckpt", str(ref_ck), env=xla)
     assert first.returncode == 0, first.stdout + first.stderr
     shutil.copytree(ref_ck, our_ck)
-    ref = run("repro.launch.train", *args, "--rounds", "4", "--ckpt", str(ref_ck), env=xla)
-    ours = run("repro_torch.launch.train", *args, "--rounds", "4", "--ckpt", str(our_ck),
-               "--device", "cpu")
+    ref, ours = finish(
+        start("repro.launch.train", *args, "--rounds", "4", "--ckpt", str(ref_ck), env=xla),
+        start("repro_torch.launch.train", *args, "--rounds", "4", "--ckpt", str(our_ck),
+              "--device", "cpu"))
     assert ref.returncode == 0, ref.stdout + ref.stderr
     assert ours.returncode == 0, ours.stdout + ours.stderr
     assert "resumed from" in ours.stdout and "at round 1" in ours.stdout
@@ -115,19 +145,18 @@ def test_lowering_modes_exit_nonzero():
 
 
 def service(*extra):
-    return run("repro_torch.launch.serve", "--federation", "--device", "cpu", "--rounds", "6",
-               "--clients", "8", "--clusters", "2", "--local-steps", "2", "--quorum-frac",
-               "0.6", "--deadline-s", "2.0", "--churn-p", "0.75", "--seed", "0", *extra,
-               timeout=600)
+    return start("repro_torch.launch.serve", "--federation", "--device", "cpu", "--rounds", "6",
+                 "--clients", "8", "--clusters", "2", "--local-steps", "2", "--quorum-frac",
+                 "0.6", "--deadline-s", "2.0", "--churn-p", "0.75", "--seed", "0", *extra)
 
 
 def test_federation_service_kill_and_resume(tmp_path):
-    full = service()
-    assert full.returncode == 0, full.stderr
     ck = str(tmp_path / "ck")
-    killed = service("--checkpoint", ck, "--kill-after-activation", "3")
+    full, killed = finish(service(), service("--checkpoint", ck, "--kill-after-activation", "3"),
+                          timeout=600)
+    assert full.returncode == 0, full.stderr
     assert killed.returncode == 1 and "killed after activation 3" in killed.stdout
-    resumed = service("--checkpoint", ck, "--resume")
+    resumed, = finish(service("--checkpoint", ck, "--resume"), timeout=600)
     assert resumed.returncode == 0, resumed.stderr
     a = json.loads(full.stdout.strip().splitlines()[-1])
     b = json.loads(resumed.stdout.strip().splitlines()[-1])
@@ -138,7 +167,7 @@ def test_federation_service_kill_and_resume(tmp_path):
 
 def test_serve_decode_example_on_the_cpu():
     """`examples/torch_serve_decode.py`: a batch prefilled and decoded."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD)
     r = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_serve_decode.py"),
                         "--arch", "dbrx-132b", "--device", "cpu", "--tokens", "6"], env=env,
                        cwd=ROOT, capture_output=True, text=True, timeout=300)

@@ -69,6 +69,9 @@ from repro_torch.utils import tree_leaves
 from repro_torch.weights import params_from_jax
 
 torch.set_num_threads(1)
+# a torch subprocess runs on one thread, as this process does: the test
+# command runs several workers on the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 ARCH = "qwen3-0.6b"
 
@@ -120,8 +123,8 @@ def test_attention_forward_matches_reference(smoke, flash):
 def test_loss_and_grads_match_reference(smoke, flash):
     jcfg, cfg, jparams, params, batch = smoke
     jcfg, cfg = (dataclasses.replace(c, use_flash=flash) for c in (jcfg, cfg))
-    jloss, jgrads = jax.value_and_grad(
-        lambda p: jtf.loss_fn(jcfg, p, jax.tree.map(jnp.asarray, batch)))(jparams)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jtf.loss_fn(jcfg, p, jax.tree.map(jnp.asarray, batch))))(jparams)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     grads, loss = grad_and_value(lambda p: tf.loss_fn(cfg, p, tbatch))(params)
     assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
@@ -207,7 +210,7 @@ def test_unported_model_options_raise(make):
         batch["frames"] = f32(rng, 2, cfg.num_audio_frames, cfg.d_model)
     if cfg.num_patches:
         batch["patches"] = f32(rng, 2, cfg.num_patches, 1024)
-    want = jmodel.loss(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    want = jax.jit(jmodel.loss)(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     got = model.loss(params, {k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
@@ -320,8 +323,8 @@ def test_remat_loss_and_grads_match_reference(smoke, flash):
     jcfg, cfg, jparams, params, batch = smoke
     jcfg, cfg = (dataclasses.replace(c, use_flash=flash) for c in (jcfg, cfg))
     stacked = two_clients(batch)
-    jloss, jgrads = jax.vmap(jax.value_and_grad(
-        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=True)), in_axes=(None, 0))(
+    jloss, jgrads = jax.jit(jax.vmap(jax.value_and_grad(
+        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=True)), in_axes=(None, 0)))(
         jparams, jax.tree.map(jnp.asarray, stacked))
     grads, loss = vmap(grad_and_value(lambda p, b: tf.loss_fn(cfg, p, b, remat=True)),
                        in_dims=(None, 0))(params, {k: torch.from_numpy(v)
@@ -422,7 +425,7 @@ def test_lm_example_runs_the_lean_configuration_on_the_cpu():
          "--d-model", "64", "--layers", "2", "--vocab", "128", "--seq", "16", "--rounds", "2",
          "--eval-every", "1", "--mixed-precision", "--remat", "--flash", "--qsgd", "0",
          "--client-microbatch", "1"],
-        env=dict(os.environ, PYTHONPATH=str(root / "src")), check=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(root / "src"), **ONE_THREAD), check=True, timeout=600,
         capture_output=True, text=True).stdout
     assert "microbatch=1, bf16 compute / f32 master, remat, flash" in out
     assert "DenseChannel[bfloat16] uplink" in out

@@ -51,6 +51,8 @@ from repro_torch.models import ssd
 from repro_torch.models import transformer as tf
 from repro_torch.utils import tree_leaves
 
+torch.set_num_threads(1)
+
 
 def bits_of(t: torch.Tensor) -> np.ndarray:
     """A tensor's bit patterns (bf16 as int16)."""
@@ -149,7 +151,7 @@ def test_normal_ref_past_the_32_bit_index(offset):
     `jax.random.normal` itself."""
     n = 37 if offset else 70001
     want_bits = _jax_threefry_bits(KEY, offset, n)
-    got_bits = ref._threefry_bits(int(KEY[0]), int(KEY[1]), offset, n).numpy()
+    got_bits = ref._threefry_bits(ref._Host, int(KEY[0]), int(KEY[1]), offset, n)
     np.testing.assert_array_equal(got_bits.astype(np.uint32), want_bits)
     want = np.asarray(_jax_normal_of_bits(jnp.asarray(want_bits)))
     if not offset:
@@ -170,6 +172,26 @@ def test_normal_ref_scaled_and_rounded_as_the_reference(scale):
         got = ref.normal_ref(KEY, 0, n, scale, dtype)
         assert got.dtype == dtype
         np.testing.assert_array_equal(bits_of(got), jbits_of(want))
+
+
+@pytest.mark.parametrize("offset,n", [
+    (0, 2 * ref._NORMAL_CHUNK + 3),  # two chunk boundaries
+    ((1 << 32) - ref._NORMAL_CHUNK // 2, ref._NORMAL_CHUNK + 5),  # into the high word 1
+    ((3 << 32) + 12345, ref._NORMAL_CHUNK + 1),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normal_ref_bits_do_not_depend_on_the_thread_count(offset, n, dtype):
+    """The plain draw gives the same bits at one torch thread and at eight,
+    across chunk boundaries and past flat index 2^32."""
+    before = torch.get_num_threads()
+    try:
+        draws = []
+        for threads in (1, 8):
+            torch.set_num_threads(threads)
+            draws.append(bits_of(ref.normal_ref(KEY, offset, n, 0.02, dtype)))
+    finally:
+        torch.set_num_threads(before)
+    np.testing.assert_array_equal(draws[0], draws[1])
 
 
 def test_uniform_equals_jax():

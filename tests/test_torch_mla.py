@@ -233,7 +233,7 @@ def test_teacher_forced_absorbed_decode_matches_forward():
 def test_mtp_loss_matches_reference(deepseek):
     jcfg, cfg, jparams, params, batch = deepseek
     b = {k: v[0] for k, v in batch.items()}
-    want = float(jtf._mtp_loss(jcfg, jparams, jarrays(b)))
+    want = float(jax.jit(lambda p, b: jtf._mtp_loss(jcfg, p, b))(jparams, jarrays(b)))
     got = float(tf._mtp_loss(cfg, params, tensors(b)))
     assert got == pytest.approx(want, rel=1e-5)
     # the shifted labels repeat the last label: it is scored, not ignored
@@ -245,8 +245,8 @@ def test_mtp_loss_matches_reference(deepseek):
 @pytest.mark.parametrize("remat", [False, True])
 def test_loss_and_grads_with_mtp_match_reference(deepseek, remat):
     jcfg, cfg, jparams, params, batch = deepseek
-    jloss, jgrads = jax.vmap(jax.value_and_grad(
-        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=remat)), in_axes=(None, 0))(
+    jloss, jgrads = jax.jit(jax.vmap(jax.value_and_grad(
+        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=remat)), in_axes=(None, 0)))(
         jparams, jarrays(batch))
     grads, loss = vmap(grad_and_value(lambda p, b: tf.loss_fn(cfg, p, b, remat=remat)),
                        in_dims=(None, 0))(params, tensors(batch))
@@ -265,7 +265,7 @@ def test_train_step_matches_reference(deepseek):
     """`make_train_step` (remat on, the default), two steps of lr 0.5: the
     loss at 1e-5 relative and the params within 1e-5 of |p|."""
     jcfg, cfg, jparams, params, batch = deepseek
-    jstep, step = jtf.make_train_step(jcfg), tf.make_train_step(cfg)
+    jstep, step = jax.jit(jtf.make_train_step(jcfg)), tf.make_train_step(cfg)
     for i in range(2):
         b = {k: v[i] for k, v in batch.items()}
         jparams, jloss = jstep(jparams, jarrays(b), jnp.float32(0.5))

@@ -212,8 +212,8 @@ def smoke():
 def test_loss_and_grads_match_reference(smoke, flash, remat):
     jcfg, cfg, jparams, params, batch = smoke
     jcfg, cfg = (dataclasses.replace(c, use_flash=flash) for c in (jcfg, cfg))
-    jloss, jgrads = jax.vmap(jax.value_and_grad(
-        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=remat)), in_axes=(None, 0))(
+    jloss, jgrads = jax.jit(jax.vmap(jax.value_and_grad(
+        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=remat)), in_axes=(None, 0)))(
         jparams, jax.tree.map(jnp.asarray, batch))
     grads, loss = vmap(grad_and_value(lambda p, b: tf.loss_fn(cfg, p, b, remat=remat)),
                        in_dims=(None, 0))(params, {k: torch.from_numpy(v)
@@ -241,7 +241,7 @@ def test_train_step_matches_reference(smoke):
     """`make_train_step` (remat on, the default): new params within 1e-5 of
     |p| and the loss at 1e-5 relative, two steps."""
     jcfg, cfg, jparams, params, batch = smoke
-    jstep, step = jtf.make_train_step(jcfg), tf.make_train_step(cfg)
+    jstep, step = jax.jit(jtf.make_train_step(jcfg)), tf.make_train_step(cfg)
     for i in range(2):
         b = {k: v[i] for k, v in batch.items()}
         jparams, jloss = jstep(jparams, jax.tree.map(jnp.asarray, b), jnp.float32(0.5))

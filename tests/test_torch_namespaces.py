@@ -60,6 +60,9 @@ from repro_torch.weights import params_from_jax
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# a torch subprocess runs on one thread, as this process does: the test
+# command runs several workers on the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 PACKAGES = ["core", "models", "optim", "comm", "data"]
 RTOL, ATOL = 1e-5, 2e-5
 
@@ -94,7 +97,7 @@ def test_imports_work_first_in_a_fresh_interpreter(order):
     code = "\n".join(FIRST_IMPORTS[order] + ["import sys",
                                              "assert 'jax' not in sys.modules",
                                              "print('ok')"])
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=240)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
@@ -238,7 +241,7 @@ def test_torch_quickstart_runs_on_the_cpu():
     """`examples/torch_quickstart.py`, the twin of the reference's quickstart
     with the same `repro_torch.core` import, 5 rounds: it trains (accuracy
     above chance) and prints zero parameter-server traffic."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD)
     out = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
                           "--device", "cpu", "--rounds", "5"],
                          capture_output=True, text=True, env=env, timeout=300)

@@ -63,6 +63,9 @@ from repro_torch.utils import tree_leaves
 from repro_torch.weights import params_from_jax
 
 torch.set_num_threads(1)
+# a torch subprocess runs on one thread, as this process does: the test
+# command runs several workers on the cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 # the scenarios of benchmarks/fig_time_to_acc.py, built from either package
 SCENARIOS = {
@@ -480,7 +483,7 @@ def test_time_to_accuracy_example_runs_on_the_cpu(tmp_path):
         [sys.executable, str(root / "examples" / "torch_time_to_accuracy.py"), "--device", "cpu",
          "--model", "mlp", "--clients", "10", "--clusters", "5", "--train-size", "1000",
          "--rounds", "2", "--eval-every", "1", "--gamma", "0.2", "1.01", "--out", str(out)],
-        env=dict(os.environ, PYTHONPATH=str(root / "src")), check=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(root / "src"), **ONE_THREAD), check=True, timeout=600,
         capture_output=True)
     arms = json.loads(out.read_text())["arms"]
     assert set(arms) == {"fed_chs", "hier_local_qsgd", "fedavg", "wrwgd"}

@@ -44,6 +44,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.fed import LMFedModel
 from repro_torch.utils import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
+torch.set_num_threads(1)
+
 LAYERS, CLIENTS, B, T = 8, 2, 2, 256
 REMAT_BOUND = 0.6
 

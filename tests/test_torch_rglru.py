@@ -270,9 +270,10 @@ def test_decode_past_the_window_matches_reference_and_forward(gemma):
     jc, c = jtf.init_caches(jcfg, 2, T), tf.init_caches(cfg, 2, T, device="cpu")
     assert c["super"][2]["self"]["k"].shape[2] == cfg.sliding_window
     toks = torch.from_numpy(batch["tokens"])
+    jstep = jax.jit(lambda p, c, t: jtf.decode_step(jcfg, p, c, t))
     outs, ctrl, cc = [], [], c
     for t in range(T):
-        jlogits, jc = jtf.decode_step(jcfg, jparams, jc, jnp.asarray(batch["tokens"][:, t:t + 1]))
+        jlogits, jc = jstep(jparams, jc, jnp.asarray(batch["tokens"][:, t:t + 1]))
         logits, c = tf.decode_step(cfg, params, c, toks[:, t:t + 1])
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=RTOL, atol=ATOL)
         outs.append(logits)
@@ -288,8 +289,8 @@ def test_decode_past_the_window_matches_reference_and_forward(gemma):
 @pytest.mark.parametrize("remat", [False, True])
 def test_loss_and_grads_match_reference(gemma, remat):
     jcfg, cfg, jparams, params, batch = gemma
-    jloss, jgrads = jax.vmap(jax.value_and_grad(
-        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=remat)), in_axes=(None, 0))(
+    jloss, jgrads = jax.jit(jax.vmap(jax.value_and_grad(
+        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=remat)), in_axes=(None, 0)))(
         jparams, jarrays(batch))
     grads, loss = vmap(grad_and_value(lambda p, b: tf.loss_fn(cfg, p, b, remat=remat)),
                        in_dims=(None, 0))(params, tensors(batch))
@@ -304,7 +305,7 @@ def test_loss_and_grads_match_reference(gemma, remat):
 
 def test_train_step_matches_reference(gemma):
     jcfg, cfg, jparams, params, batch = gemma
-    jstep, step = jtf.make_train_step(jcfg), tf.make_train_step(cfg)
+    jstep, step = jax.jit(jtf.make_train_step(jcfg)), tf.make_train_step(cfg)
     for i in range(2):
         b = {k: v[i] for k, v in batch.items()}
         jparams, jloss = jstep(jparams, jarrays(b), jnp.float32(0.5))

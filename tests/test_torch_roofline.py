@@ -15,6 +15,8 @@ from repro_torch.roofline.analysis import arithmetic_intensity, compute_seconds
 from repro_torch.roofline.attribution import (collective_breakdown, phase_bytes,
                                               top_output_bytes)
 
+torch.set_num_threads(1)
+
 
 def test_scan_dot_flops_exact():
     """The reference's trip-scaling test: 12 products of (64,128)x(128,128)."""

@@ -275,8 +275,8 @@ def test_teacher_forced_decode_matches_forward():
 @pytest.mark.parametrize("remat", [False, True])
 def test_loss_and_grads_match_reference(mamba, remat):
     jcfg, cfg, jparams, params, batch = mamba
-    jloss, jgrads = jax.vmap(jax.value_and_grad(
-        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=remat)), in_axes=(None, 0))(
+    jloss, jgrads = jax.jit(jax.vmap(jax.value_and_grad(
+        lambda p, b: jtf.loss_fn(jcfg, p, b, remat=remat)), in_axes=(None, 0)))(
         jparams, jarrays(batch))
     grads, loss = vmap(grad_and_value(lambda p, b: tf.loss_fn(cfg, p, b, remat=remat)),
                        in_dims=(None, 0))(params, tensors(batch))
@@ -290,7 +290,7 @@ def test_loss_and_grads_match_reference(mamba, remat):
 
 def test_train_step_matches_reference(mamba):
     jcfg, cfg, jparams, params, batch = mamba
-    jstep, step = jtf.make_train_step(jcfg), tf.make_train_step(cfg)
+    jstep, step = jax.jit(jtf.make_train_step(jcfg)), tf.make_train_step(cfg)
     for i in range(2):
         b = {k: v[i] for k, v in batch.items()}
         jparams, jloss = jstep(jparams, jarrays(b), jnp.float32(0.5))

@@ -23,6 +23,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.utils import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from repro_torch.weights import params_from_jax
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def lm_trees():
